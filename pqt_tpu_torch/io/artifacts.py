@@ -1,0 +1,132 @@
+"""Tree and database artifacts: the npz format of the JAX package.
+
+Port of pqt_tpu/io/artifacts.py.  Both artifacts are single .npz files
+carrying the config JSON (format version 2), so a tree or database that
+either package saved loads in the other; loads check the stored geometry
+against the requested config.  A database saved out of core keeps leaves in
+raw `<path>.npz.<leaf>.bin` sidecar files with their shape and dtype in the
+npz; the port reads them through numpy memmaps and copies them to the
+device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable
+
+import numpy as np
+
+from pqt_tpu_torch.config import PQTConfig
+from pqt_tpu_torch.models.db import PQTDatabase, payload_width
+from pqt_tpu_torch.models.tree import PQTree
+from pqt_tpu_torch.utils.device import resolve_device
+
+_FORMAT_VERSION = 2
+
+
+class ArtifactMismatch(RuntimeError):
+    """Stored artifact parameters disagree with the requested config."""
+
+
+def _npz_path(path: str) -> str:
+    """np.savez appends .npz to suffix-less paths; normalize once here."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _check_config(stored_json: str, cfg: PQTConfig, fields) -> None:
+    stored = json.loads(stored_json)
+    mine = json.loads(cfg.to_json())
+    for f in fields:
+        if stored.get(f) != mine.get(f):
+            raise ArtifactMismatch(
+                f"artifact {f} mismatch: stored={stored.get(f)!r} "
+                f"requested={mine.get(f)!r}")
+
+
+_TREE_FIELDS = ("dim", "p", "c1", "c2", "line_parts")
+_DB_FIELDS = _TREE_FIELDS + ("hash_size",)
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def save_tree(path: str, cfg: PQTConfig, tree: PQTree) -> None:
+    np.savez_compressed(
+        _npz_path(path), __version__=_FORMAT_VERSION, config=cfg.to_json(),
+        cb1=_np(tree.cb1), cb2=_np(tree.cb2))
+
+
+def load_tree(path: str, cfg: PQTConfig, device="cuda") -> PQTree:
+    dev = resolve_device(device)
+    with np.load(_npz_path(path), allow_pickle=False) as z:
+        _check_config(str(z["config"]), cfg, _TREE_FIELDS)
+        cb1, cb2 = z["cb1"], z["cb2"]
+    if cb1.shape != (cfg.p, cfg.c1, cfg.vl):
+        raise ArtifactMismatch(f"cb1 shape {cb1.shape} != expected")
+    if cb2.shape != (cfg.p, cfg.c1, cfg.c2, cfg.vl):
+        raise ArtifactMismatch(f"cb2 shape {cb2.shape} != expected")
+    return PQTree.from_numpy(cfg, cb1, cb2, dev)
+
+
+def save_database(path: str, cfg: PQTConfig, db: PQTDatabase) -> None:
+    """Persist a database with every leaf inline in one compressed npz."""
+    arrays = dict(__version__=_FORMAT_VERSION, config=cfg.to_json(),
+                  prefix=_np(db.prefix), counts=_np(db.counts))
+    for name in ("payload", "pair_occ", "vectors", "vectors_csr"):
+        leaf = getattr(db, name)
+        if leaf is not None:
+            arrays[name] = _np(leaf)
+    np.savez_compressed(_npz_path(path), **arrays)
+
+
+def _pack_payload_wide(ids, codes, t3) -> np.ndarray:
+    """Format v1 stored ids/codes/t3 apart: pack them into wide rows."""
+    out = np.empty((ids.shape[0], 2 + codes.shape[1]), np.int32)
+    out[:, 0] = ids
+    out[:, 1] = np.ascontiguousarray(t3, np.float32).view(np.int32)
+    out[:, 2:] = np.ascontiguousarray(codes, np.uint32).view(np.int32)
+    return out
+
+
+def load_database(path: str, cfg: PQTConfig, device="cuda") -> PQTDatabase:
+    dev = resolve_device(device)
+    base = _npz_path(path)
+    with np.load(base, allow_pickle=False) as z:
+        _check_config(str(z["config"]), cfg, _DB_FIELDS)
+
+        def leaf(name):
+            """Inline leaf, or raw sidecar read through a memmap."""
+            if name in z:
+                return z[name]
+            if name + "__shape" in z:
+                return np.memmap(base + f".{name}.bin",
+                                 np.dtype(str(z[name + "__dtype"])),
+                                 mode="r", shape=tuple(z[name + "__shape"]))
+            return None
+
+        payload = leaf("payload")
+        if payload is None:
+            payload = _pack_payload_wide(z["ids"], z["codes"], z["t3"])
+        db = PQTDatabase.from_numpy(
+            prefix=z["prefix"], counts=z["counts"], payload=payload,
+            pair_occ=leaf("pair_occ"), vectors=leaf("vectors"),
+            vectors_csr=leaf("vectors_csr"), device=dev)
+    if db.prefix.shape[0] != cfg.hash_size:
+        raise ArtifactMismatch("hash table size mismatch")
+    if db.payload.shape[1] != payload_width(cfg):
+        raise ArtifactMismatch(
+            f"payload width {db.payload.shape[1]} != {payload_width(cfg)} "
+            "(line_parts / payload_compact mismatch)")
+    return db
+
+
+def load_or_build(path: str, loader: Callable, builder: Callable,
+                  saver: Callable):
+    """Load the artifact at `path` if it exists, else build and save it."""
+    if os.path.exists(path) or os.path.exists(_npz_path(path)):
+        return loader(path)
+    obj = builder()
+    saver(path, obj)
+    return obj
