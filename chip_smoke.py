@@ -10,18 +10,26 @@ Phases (any failure exits non-zero before the last line is printed):
   2. builds the hand-written CUDA kernels from pqt_tpu_torch/csrc (nvcc,
      one process per source, in parallel) and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it (top-k and prefix sums exact; line
-     re-rank within rtol 1e-5, atol 1e-4), and times kernel, plain version
-     and the one PyTorch call computing the same function by their device
-     time (torch.profiler);
-  4. the main path at SIFT1M width: train a tree on 200k of bench.py's 1M
-     SIFT-like vectors (seed 0), build the database of all 1M on the card,
+     the shapes the query paths give it (top-k, prefix sums, lookups and
+     row gathers exact; line re-rank within rtol 1e-5, atol 1e-4; segment
+     sums within rtol 1e-5, atol 1e-3), and times kernel, plain version and
+     the one PyTorch call computing the same function by their device time
+     (torch.profiler);
+  4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
+     SIFT-like vectors (seed 0), build the database of all 1M on the card
+     (with the pair-occupancy table, which the pair path leaves unused),
      and serve 1024 held-out queries in batches of 256 through exact, line
-     and refine query_knn and query_candidates, with every kernel launch
-     count reset just before and read just after; recall is checked against
-     an exact float64 brute force on the card;
-  5. one JSON line of per-kernel results, the card line, and last
+     and refine query_knn and query_candidates;
+  5. the parts path on the same tree and database: the parts pipeline with
+     the pair filter through the same four entry points, then exact, line
+     and query_candidates again with slab gathers (32 rows a slab);
+  6. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
+
+Every kernel launch count is reset just before each path (4, 5, and the
+slab variant of 5) and read just after it; a kernel of that path with no
+launch fails the run.  Recall of every path is checked against an exact
+float64 brute force on the card.
 
 Timings are the card's, with its name and power limit printed beside them.
 """
@@ -45,6 +53,17 @@ ROUND5 = {"exact_R@1": 0.9854, "refine_R@1": 0.9854,
           "candidate_recall": 0.9863, "line_top10_intersection": 0.7188}
 THRESHOLDS = {"exact_R@1": 0.95, "refine_R@1": 0.95,
               "candidate_recall": 0.95, "line_top10_intersection": 0.6}
+# The JAX package's recall on the CPU for the same fixture, tree training
+# and budget, with the parts pipeline and the pair filter (slack 1.5), in
+# rows and in slab mode (refine was not run there).
+JAX_CPU_PARTS = {"exact_R@1": 0.9893, "candidate_recall": 0.9893,
+                 "line_top10_intersection": 0.7206}
+JAX_CPU_SLABS = {"exact_R@1": 0.9893, "candidate_recall": 0.9893,
+                 "line_top10_intersection": 0.7203}
+# The kernels of each path: a count of 0 on its run fails the smoke.
+PAIR_KERNELS = ("bitonic_topk", "block_scan", "rerank_fused",
+                "segmented_reduce", "gather_rows")
+PARTS_KERNELS = PAIR_KERNELS + ("lut_gather",)
 
 N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
 
@@ -124,11 +143,12 @@ def bound(bytes_moved, ops):
 # ---------------------------------------------------------------------------
 
 def topk_cases(torch, gen):
-    """The main path's top-k shapes at batch 256 (p=4, c1=16, W=8, L=128,
+    """The query paths' top-k shapes at batch 256 (p=4, c1=16, W=8, L=128,
     pair_top_m=128, K=1024, k=100, refine k*8=800).  Values are rounded to
     few levels in half the rows, and some slots are +inf, so ties occur."""
     shapes = [("l1_select", 256 * 4, 16, 8),
               ("pair_select", 256 * 2, 128 * 128, 128),
+              ("part_sort", 256 * 4, 128, 128),
               ("final_topk", 256, 1024, 100),
               ("refine_line_topk", 256, 1024, 800),
               ("refine_exact_topk", 256, 800, 100)]
@@ -150,6 +170,11 @@ def scan_cases(torch, gen):
                            generator=gen).to(torch.int32)[None, :]
     yield "candidate_prefix", (capped, False), (b, nb)
     yield "probe_compaction", (flags, True), (b, nb)
+    for name, e in (("filter_compaction", 2048), ("survivor_compaction",
+                                                   768)):
+        f = torch.randint(0, 2, (b, e), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        yield name, (f, True), (b, e)
     yield "csr_prefix", (counts.contiguous(), False), (1, 1 << 20)
 
 
@@ -171,7 +196,60 @@ def rerank_cases(torch, gen):
     yield "line_rerank", (rows, q.contiguous()), (b, k, 2 + lp // 2, lp, c1)
 
 
+def reduce_cases(torch, gen):
+    """Squares of uint8-range values (query components, or differences of
+    uint8 vectors and queries), as the distance tables' per-part norms
+    (p = 4, line_parts = 16) and the exact re-rank's row sums give them."""
+    for name, rows, d, parts in (("part_norms", 256, 128, 4),
+                                 ("line_part_norms", 256, 128, 16),
+                                 ("exact_row_sums", 256 * 1024, 128, 1)):
+        v = torch.randint(-255, 256, (rows, d), generator=gen,
+                          device="cuda").to(torch.float32)
+        yield name, ((v * v).contiguous(), parts), (rows, d, parts)
+
+
+def lut_cases(torch, gen):
+    """The lookups of the parts path at batch 256 (p = 4, base 16, 2048
+    enumerated bins, 768 filter survivors, 512 probed bins): the uint8 pair
+    table of one pair, the 2^20-slot occupancy counts and CSR starts."""
+    pair_occ = (torch.rand(1 << 16, generator=gen, device="cuda") < 0.3
+                ).to(torch.uint8)
+    counts = torch.poisson(torch.ones(1 << 20, device="cuda"),
+                           generator=gen).to(torch.int32)
+    prefix = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+    for name, table, e in (("pair_occ", pair_occ, 256),
+                           ("counts_unfiltered", counts, 2048),
+                           ("counts_filtered", counts, 768),
+                           ("prefix", prefix, 512)):
+        idx = torch.randint(0, table.shape[0], (256, e), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        yield name, (table.contiguous(), idx), (256, e)
+
+
+def gather_cases(torch, gen):
+    """The row gathers of both paths at batch 256: compact payload rows (1M
+    x 10 int32) for 1024 candidates, in rows mode and as 32 slabs of 32
+    rows; uint8 vectors (1M x 128) for 1024 exact and 800 refine
+    candidates; the (start, end) extent rows of 512 probed bins."""
+    n = 1_000_000
+    payload = torch.randint(-(1 << 30), 1 << 30, (n, 10), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    vectors = torch.randint(0, 256, (n, 128), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+    prefix2 = torch.randint(0, n, (1 << 20, 2), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    for name, tab, k, span in (("payload_rows", payload, 1024, 1),
+                               ("payload_slabs", payload, 32, 32),
+                               ("vectors_exact", vectors, 1024, 1),
+                               ("vectors_refine", vectors, 800, 1),
+                               ("extent_rows", prefix2, 512, 1)):
+        pos = torch.randint(0, tab.shape[0] - span + 1, (256, k),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        yield name, (tab, pos, span), (256, k, span)
+
+
 def check_kernels(torch):
+    from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
     from pqt_tpu_torch.ops.cuda import rerank as rr
 
@@ -250,6 +328,64 @@ def check_kernels(torch):
                device_ms(torch, lambda: rr.rerank_fused(rows, q)),
                device_ms(torch, lambda: rr.rerank_plain(rows, q)),
                None, b_ms, b_by, err)
+
+    for case, (x, parts), (b, d, _) in reduce_cases(torch, gen):
+        got = prim.segmented_reduce(x, parts)
+        want = prim.segmented_reduce_plain(x, parts)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # sums of up to 128 squares below 2^16, added in another order
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-3):
+            raise SmokeFailure(f"segmented_reduce {case}: max abs error {err}")
+        b_ms, b_by = bound(b * d * 4 + b * parts * 4, b * d)
+        record("segmented_reduce", "pqt_tpu_torch/csrc/reduce.cu",
+               "pqt_tpu/ops/pallas/primitives.py:145",
+               f"{case} ({b},{d})->{parts}",
+               device_ms(torch, lambda: prim.segmented_reduce(x, parts)),
+               device_ms(torch, lambda: prim.segmented_reduce_plain(x, parts)),
+               device_ms(torch, lambda: x.view(b, parts, d // parts).sum(-1)),
+               b_ms, b_by, err)
+
+    for case, (table, idx), (b, e) in lut_cases(torch, gen):
+        got = ga.lut_gather(table, idx)
+        want = ga.lut_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SmokeFailure(f"lut_gather {case}: differs from the plain "
+                               "version")
+        es = table.element_size()
+        touched = int(torch.unique(idx).numel())
+        b_ms, b_by = bound(b * e * 4 + b * e * es + touched * es, 0)
+        record("lut_gather", "pqt_tpu_torch/csrc/lut.cu",
+               "benchmarks/micro_gather.py:32",
+               f"{case} ({table.shape[0]},) {table.dtype} at ({b},{e})",
+               device_ms(torch, lambda: ga.lut_gather(table, idx)),
+               device_ms(torch, lambda: ga.lut_gather_plain(table, idx)),
+               device_ms(torch, lambda: table[idx]), b_ms, b_by, 0.0)
+
+    for case, (tab, pos, span), (b, k, _) in gather_cases(torch, gen):
+        got = ga.gather_rows(tab, pos, span)
+        want = ga.gather_rows_plain(tab, pos, span)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SmokeFailure(f"gather_rows {case}: differs from the plain "
+                               "version")
+        row_bytes = tab.shape[1] * tab.element_size()
+        # one PyTorch call on the same rows: the positions of every row
+        # gathered are made beforehand for the slab case
+        full = (pos[..., None] + torch.arange(span, device="cuda",
+                                              dtype=torch.int32)
+                if span > 1 else pos)
+        touched = int(torch.unique(full).numel())
+        b_ms, b_by = bound(b * k * 4 + b * k * span * row_bytes
+                           + touched * row_bytes, 0)
+        record("gather_rows", "pqt_tpu_torch/csrc/gather.cu",
+               "benchmarks/micro_gather2.py:165",
+               f"{case} ({tab.shape[0]},{tab.shape[1]}) {tab.dtype} at "
+               f"({b},{k}) span {span}",
+               device_ms(torch, lambda: ga.gather_rows(tab, pos, span)),
+               device_ms(torch, lambda: ga.gather_rows_plain(tab, pos, span)),
+               device_ms(torch, lambda: tab[full]), b_ms, b_by, 0.0)
     return results
 
 
@@ -286,9 +422,14 @@ def profile_batch(torch, fn, x, reps=3):
 
 
 def check_other_paths(torch):
-    """Kernel paths beyond the main path's shapes, for correctness only
+    """Kernel paths beyond the query paths' shapes, for correctness only
     (not timed): a tiny top-k row, several long rows and ragged widths of
-    the scan (the long-row mode serves hash tables up to 2^29 slots)."""
+    the scan (the long-row mode serves hash tables up to 2^29 slots),
+    segments shorter than a warp and of odd lengths, lookups of a ragged
+    shape from an odd-sized table, and row gathers in every copy unit (rows
+    of 3, 6 and 12 bytes, a table that starts off a 16-byte boundary, a
+    span of 5)."""
+    from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -303,55 +444,81 @@ def check_other_paths(torch):
             if not torch.equal(prim.block_scan(x, excl),
                                prim.block_scan_plain(x, excl)):
                 raise SmokeFailure(f"block_scan ({b},{n}) differs")
+    for b, d, parts in ((5, 21, 3), (3, 3, 3), (2, 1000, 1), (7, 48, 3)):
+        x = torch.randint(0, 9, (b, d), generator=gen,
+                          device="cuda").to(torch.float32)
+        if not torch.equal(prim.segmented_reduce(x, parts),
+                           prim.segmented_reduce_plain(x, parts)):
+            raise SmokeFailure(f"segmented_reduce ({b},{d})->{parts} "
+                               "differs")
+    idx = torch.randint(0, 1001, (3, 77), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for dtype in (torch.int32, torch.uint8):
+        table = torch.randint(0, 99, (1001,), generator=gen,
+                              device="cuda").to(dtype)
+        if not torch.equal(ga.lut_gather(table, idx),
+                           ga.lut_gather_plain(table, idx)):
+            raise SmokeFailure(f"lut_gather {dtype} (3,77) differs")
+    for dtype, w, offset, span in ((torch.uint8, 3, 0, 1),
+                                   (torch.int16, 3, 0, 5),
+                                   (torch.int32, 3, 0, 2),
+                                   (torch.int32, 10, 1, 1)):
+        tab = torch.randint(-99, 99, (500, w), generator=gen,
+                            device="cuda").to(dtype)[offset:]
+        pos = torch.randint(0, tab.shape[0] - span + 1, (4, 9),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        if not torch.equal(ga.gather_rows(tab, pos, span),
+                           ga.gather_rows_plain(tab, pos, span)):
+            raise SmokeFailure(f"gather_rows {dtype} width {w} offset "
+                               f"{offset} span {span} differs")
     torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phases 4 and 5: the query paths at full width
 # ---------------------------------------------------------------------------
 
-def main_path(torch, P):
+def counters():
+    """Every kernel wrapper, each with its `launches` count."""
+    from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
     from pqt_tpu_torch.ops.cuda import rerank as rr
-    from pqt_tpu_torch.ops.distance import brute_force_knn
-    from pqt_tpu_torch.utils.metrics import (candidate_recall,
-                                             intersection_at, recall_at)
+    return (prim.bitonic_topk, prim.block_scan, rr.rerank_fused,
+            prim.segmented_reduce, ga.lut_gather, ga.gather_rows)
 
-    cfg = P.SIFT1M_CONFIG.replace(
-        kmeans_iters=8, train_subsample=100_000, hash_size=1 << 20,
-        max_bins=512, max_candidates=1024, pair_top_m=128, enum_width=512,
-        pair_filter=False)
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    data, subcenters = make_sift_like(N_DB, cfg.dim, rng)
-    queries = make_queries(N_QUERIES, subcenters, rng)
-    print(f"fixture: {N_DB} x {cfg.dim} uint8, {N_QUERIES} queries "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    counters = (prim.bitonic_topk, prim.block_scan, rr.rerank_fused)
 
-    for c in counters:                       # main path starts here
+def reset_launches(torch):
+    torch.cuda.synchronize()
+    for c in counters():
         c.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tree = P.train_tree(cfg, data[:N_TRAIN], device="cuda")
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    db = P.build_database(cfg, tree, data, keep_vectors=True, device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    print(f"train_s {train_s:.2f}  build_s {build_s:.2f}  "
-          f"(non-empty bins {int((db.counts > 0).sum())})", flush=True)
 
-    qd = torch.as_tensor(queries, device="cuda")
+
+def read_launches(label, required):
+    """The counts since the last reset; fails if a kernel of the path has
+    none."""
+    launches = {c.__name__: c.launches for c in counters()}
+    print(f"launches on the {label}: " + json.dumps(launches), flush=True)
+    for name in required:
+        if launches[name] == 0:
+            raise SmokeFailure(f"{name} was never launched by the {label}")
+    return launches
+
+
+def query_modes(P, cfg, tree, db, names):
     modes = {
         "exact": lambda x: P.query_knn(cfg, tree, db, x, K, True),
         "line": lambda x: P.query_knn(cfg, tree, db, x, K),
         "refine": lambda x: P.query_knn_refine(cfg, tree, db, x, K),
         "candidates": lambda x: P.query_candidates(cfg, tree, db, x),
     }
-    # QPS is every query of the window over the window's whole time, so a
-    # stall inside it counts; per-batch percentiles are reported beside it.
+    return {n: modes[n] for n in names}
+
+
+def serve(torch, modes, qd):
+    """Every mode over the queries twice, in batches, after one warm-up
+    batch.  QPS is every query of the window over the window's whole time,
+    so a stall inside it counts; per-batch percentiles are reported beside
+    it.  Returns (the first pass's outputs, latency) by mode."""
     outputs, latency = {}, {}
     for name, fn in modes.items():
         fn(qd[:BATCH])                        # warm-up
@@ -373,53 +540,145 @@ def main_path(torch, P):
                          "p90_ms": float(np.percentile(samples, 90)) * 1e3,
                          "max_ms": max(samples) * 1e3,
                          "batch_ms": [t * 1e3 for t in samples]}
-    launches = {c.__name__: c.launches for c in counters}   # main path ends
-    print("launches on the main path: " + json.dumps(launches), flush=True)
-    for name, n in launches.items():
-        if n == 0:
-            raise SmokeFailure(f"{name} was never launched by the main path")
+    return outputs, latency
 
-    profiles = {m: profile_batch(torch, modes[m], qd[:BATCH])
-                for m in ("exact", "line")}
-    for m, pr in profiles.items():
-        print(f"profile {m}: " + json.dumps(pr), flush=True)
 
-    _, gt = brute_force_knn(qd, torch.as_tensor(data, device="cuda"), K)
-    gt = gt.cpu().numpy()
-    got = {}
+def path_recall(torch, label, outputs, gt):
+    """Recall of the modes a path served, against the exact neighbours."""
+    from pqt_tpu_torch.utils.metrics import (candidate_recall,
+                                             intersection_at, recall_at)
+    got, metrics = {}, {}
     for name in ("exact", "line", "refine"):
+        if name not in outputs:
+            continue
         ids = torch.cat([o.indices for o in outputs[name]]).cpu().numpy()
         dists = torch.cat([o.dists for o in outputs[name]]).cpu().numpy()
         if ids.shape != (N_QUERIES, K) or not np.isfinite(
                 dists[ids >= 0]).all():
-            raise SmokeFailure(f"{name}: bad result shape or distances")
+            raise SmokeFailure(f"{label} {name}: bad result shape or "
+                               "distances")
         got[name] = ids
-    cand = torch.cat([o[0] for o in outputs["candidates"]]).cpu().numpy()
-    valid = torch.cat([o[1] for o in outputs["candidates"]]).cpu().numpy()
-    metrics = {
-        "exact_R@1": recall_at(got["exact"], gt, (1,))["R@1"],
-        "refine_R@1": recall_at(got["refine"], gt, (1,))["R@1"],
-        "candidate_recall": candidate_recall(cand, valid, gt),
-        "line_top10_intersection":
-            intersection_at(got["line"], gt, (10,))["top10_intersection"],
-        "exact_top10_intersection":
-            intersection_at(got["exact"], gt, (10,))["top10_intersection"],
-        "line_R@1": recall_at(got["line"], gt, (1,))["R@1"],
-    }
+    if "exact" in got:
+        metrics["exact_R@1"] = recall_at(got["exact"], gt, (1,))["R@1"]
+        metrics["exact_top10_intersection"] = intersection_at(
+            got["exact"], gt, (10,))["top10_intersection"]
+    if "refine" in got:
+        metrics["refine_R@1"] = recall_at(got["refine"], gt, (1,))["R@1"]
+    if "line" in got:
+        metrics["line_top10_intersection"] = intersection_at(
+            got["line"], gt, (10,))["top10_intersection"]
+        metrics["line_R@1"] = recall_at(got["line"], gt, (1,))["R@1"]
+    if "candidates" in outputs:
+        cand = torch.cat([o[0] for o in outputs["candidates"]]).cpu().numpy()
+        valid = torch.cat([o[1] for o in outputs["candidates"]]).cpu().numpy()
+        metrics["candidate_recall"] = candidate_recall(cand, valid, gt)
+    return metrics
+
+
+def report(label, metrics, latency, reference, ref_name):
+    """Print a path's recall beside its limits and reference, and its
+    serving numbers; returns the metrics below their limits."""
+    print(f"-- {label}", flush=True)
     for key, lim in THRESHOLDS.items():
-        print(f"{key:26s} {metrics[key]:.4f}  (threshold {lim}, "
-              f"round 5 {ROUND5[key]})", flush=True)
+        if key in metrics:
+            print(f"{key:26s} {metrics[key]:.4f}  (threshold {lim}, "
+                  f"{ref_name} {reference.get(key, 'not run')})", flush=True)
     for name, lat in latency.items():
         print(f"{name:10s} QPS {lat['qps']:.0f} ({2 * N_QUERIES} queries in "
               f"batches of {BATCH})  batch latency p50 {lat['p50_ms']:.3f} "
               f"p90 {lat['p90_ms']:.3f} max {lat['max_ms']:.3f} ms",
               flush=True)
-    failed = [k for k, lim in THRESHOLDS.items() if metrics[k] < lim]
+    return [f"{label} {k}" for k, lim in THRESHOLDS.items()
+            if k in metrics and metrics[k] < lim]
+
+
+def query_paths(torch, P):
+    from pqt_tpu_torch.ops.distance import brute_force_knn
+
+    # the pair path's cfg leaves the pair filter off, as bench.py does
+    cfg = P.SIFT1M_CONFIG.replace(
+        kmeans_iters=8, train_subsample=100_000, hash_size=1 << 20,
+        max_bins=512, max_candidates=1024, pair_top_m=128, enum_width=512,
+        pair_filter=False)
+    parts_cfg = cfg.replace(pipeline="parts", pair_filter=True)
+    slabs_cfg = parts_cfg.replace(gather_mode="slabs", slab_size=32)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    data, subcenters = make_sift_like(N_DB, cfg.dim, rng)
+    queries = make_queries(N_QUERIES, subcenters, rng)
+    print(f"fixture: {N_DB} x {cfg.dim} uint8, {N_QUERIES} queries "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # phase 4: the pair path, train and build included
+    reset_launches(torch)
+    t0 = time.perf_counter()
+    tree = P.train_tree(cfg, data[:N_TRAIN], device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the build with the pair filter on also makes pair_occ; every other
+    # array equals the build without it
+    db = P.build_database(cfg.replace(pair_filter=True), tree, data,
+                          keep_vectors=True, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"train_s {train_s:.2f}  build_s {build_s:.2f}  (non-empty bins "
+          f"{int((db.counts > 0).sum())}, pair_occ "
+          f"{tuple(db.pair_occ.shape)})", flush=True)
+    qd = torch.as_tensor(queries, device="cuda")
+    all_modes = ("exact", "line", "refine", "candidates")
+    paths = {}
+    out, lat = serve(torch, query_modes(P, cfg, tree, db, all_modes), qd)
+    paths["pair"] = {"launches": read_launches("pair path", PAIR_KERNELS),
+                     "serving": lat, "outputs": out, "cfg": cfg,
+                     "reference": (ROUND5, "round 5")}
+
+    # phase 5: the parts path, then its slab-gather variant
+    reset_launches(torch)
+    out, lat = serve(torch, query_modes(P, parts_cfg, tree, db, all_modes),
+                     qd)
+    paths["parts"] = {"launches": read_launches("parts path", PARTS_KERNELS),
+                      "serving": lat, "outputs": out, "cfg": parts_cfg,
+                      "reference": (JAX_CPU_PARTS, "JAX on the CPU")}
+    reset_launches(torch)
+    out, lat = serve(torch, query_modes(P, slabs_cfg, tree, db,
+                                        ("exact", "line", "candidates")), qd)
+    paths["parts_slabs"] = {
+        "launches": read_launches("parts path with slab gathers",
+                                  PARTS_KERNELS),
+        "serving": lat, "outputs": out, "cfg": slabs_cfg,
+        "reference": (JAX_CPU_SLABS, "JAX on the CPU")}
+
+    _, gt = brute_force_knn(qd, torch.as_tensor(data, device="cuda"), K)
+    gt = gt.cpu().numpy()
+    failed, summary = [], {"train_s": train_s, "build_s": build_s,
+                           "paths": {}}
+    for label, path in paths.items():
+        c = path["cfg"]
+        metrics = path_recall(torch, label, path["outputs"], gt)
+        failed += report(label, metrics, path["serving"], *path["reference"])
+        profiles = {m: profile_batch(
+            torch, query_modes(P, c, tree, db, (m,))[m], qd[:BATCH])
+            for m in ("exact", "line")}
+        for m, pr in profiles.items():
+            print(f"profile {label} {m}: " + json.dumps(pr), flush=True)
+        summary["paths"][label] = {
+            "pipeline": c.pipeline, "pair_filter": c.pair_filter,
+            "gather_mode": c.gather_mode, "launches": path["launches"],
+            "serving": path["serving"], "recall": metrics,
+            "profiles": profiles}
     if failed:
         raise SmokeFailure(f"recall below threshold: {failed}")
-    return launches, {"train_s": train_s, "build_s": build_s,
-                      "serving": latency,
-                      "recall": metrics, "profiles": profiles}
+    launches = {c.__name__: sum(p["launches"][c.__name__]
+                                for p in paths.values())
+                for c in counters()}
+    return launches, summary
+
+
+# kernel E/F/G rows: one CUDA kernel stands for the three TPU lookups
+LUT_ROWS = (("lut_gather", "benchmarks/micro_gather.py:32"),
+            ("lut_gather:lut_2d", "benchmarks/micro_gather2.py:39"),
+            ("lut_gather:lut_onehot", "benchmarks/micro_gather2.py:69"))
 
 
 def main(json_path=None):
@@ -444,29 +703,34 @@ def main(json_path=None):
 
     kernels = check_kernels(torch)
     for r in kernels.values():
-        print(f"{r['name']:14s} ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
+        print(f"{r['name']:16s} ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
               f"library {r['library_ms']}  bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']})  max_abs_err {r['max_abs_err']}  "
-              f"[{'; '.join(c['case'] for c in r['shapes'])}]", flush=True)
+              f"({r['bound_by']})  max_abs_err {r['max_abs_err']}", flush=True)
         for c in r["shapes"]:
-            print(f"    {c['case']:44s} ms {c['ms']:.4f}  plain "
+            print(f"    {c['case']:56s} ms {c['ms']:.4f}  plain "
                   f"{c['plain_ms']:.4f}  library {c['library_ms']}  bound "
                   f"{c['bound_ms']:.4f}", flush=True)
 
     check_other_paths(torch)
-    print("other kernel paths (tiny top-k row, multi-row long scans, "
-          "ragged scan widths): equal to their plain versions", flush=True)
+    print("other kernel paths (tiny top-k row, multi-row long scans, ragged "
+          "scan widths, short and odd segments, ragged lookups, every "
+          "row-copy unit): equal to their plain versions", flush=True)
 
-    launches, summary = main_path(torch, P)
+    launches, summary = query_paths(torch, P)
+    rows = []
     for r in kernels.values():
         r["launches"] = launches[r["name"]]
+        if r["name"] != "lut_gather":
+            rows.append(r)
+            continue
+        rows += [dict(r, name=name, replaces=where)
+                 for name, where in LUT_ROWS]
     summary["card"] = card
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
-            json.dump({"kernels": list(kernels.values()), **summary}, f,
-                      indent=1)
-    print(json.dumps({"kernels": list(kernels.values())}))
+            json.dump({"kernels": rows, **summary}, f, indent=1)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

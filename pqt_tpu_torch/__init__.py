@@ -2,11 +2,13 @@
 ANN engine `pqt_tpu`.
 
 It trains a two-level PQ tree, builds the in-memory database and serves
-`query_knn` (exact or line re-rank) and `query_knn_refine` on the pair
-pipeline.  The per-row top-k, the prefix sums and the line re-rank of that
-path are hand-written CUDA kernels for Hopper (`ops/cuda`, sources in
-`csrc/`), built with nvcc at first use; on CPU tensors their plain PyTorch
-versions run instead.  Entry points take `device=` ("cuda" by default) and
+`query_knn` (exact or line re-rank), `query_knn_refine` and
+`query_candidates` on the pair and the parts pipelines, with the
+pair-occupancy filter and in rows or slab gather mode.  The per-row top-k,
+the prefix sums, the line re-rank, the segment sums, the table lookups and
+the row gathers of those paths are hand-written CUDA kernels for Hopper
+(`ops/cuda`, sources in `csrc/`), built with nvcc at first use; on CPU
+tensors their plain PyTorch versions run instead.  Entry points take `device=` ("cuda" by default) and
 raise when no card is present unless the caller passes device="cpu".
 
 Importing the package turns TF32 off for CUDA matmuls and cuDNN

@@ -53,8 +53,8 @@ class PQTConfig:
                                # "rows"  = per-row positions (one row gather
                                #           per candidate);
                                # "slabs" = contiguous slab_size-row slices
-                               #           per bin (not ported yet: the port
-                               #           raises NotImplementedError)
+                               #           per bin (both are ported; both
+                               #           gather with kernel H)
     slab_size: int = 32        # rows per slab in "slabs" mode
     pair_filter: bool = True   # prefilter enumerated bins with pair-code
                                # occupancy tables before the (expensive)
@@ -81,8 +81,8 @@ class PQTConfig:
                                #   payload) — the default;
                                # "parts": per-part ranks + p-dim traversal,
                                #   shaped like the reference's selectBinKernel
-                               #   (not ported yet: the port raises
-                               #   NotImplementedError).
+                               #   (ported, with the pair filter; also what
+                               #   runs when p is not 2 or 4).
     pair_top_m: int = 256      # pair candidates kept per part-pair (stage 1)
     enum_width: int = 0        # bins enumerated before the occupancy probe
                                # (0 = bin_enum_factor * max_bins)

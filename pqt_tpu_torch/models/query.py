@@ -1,26 +1,34 @@
-"""Multi-probe query on the pair pipeline.
+"""Multi-probe query: the pair pipeline and the parts pipeline.
 
-Port of the pair pipeline of pqt_tpu/models/query.py.  Per batch of
-queries:
+Port of pqt_tpu/models/query.py.  Per batch of queries:
 
-  1. L1, L2 and line distance tables (matrix products);
-  2. per part-pair, the pair_top_m best (l1,l2) x (l1,l2) sums, ascending,
-     with their partial bin-hash terms (`_pair_stage`);
-  3. a 2D traversal over the two sorted pair lists composes the partial
-     terms into bin ids (`_enumerate_bins_pair`);
-  4. one row gather of the (start, end) extent table per enumerated bin, and
-     the first max_bins non-empty bins (`_probe_bins`);
-  5. capped candidate positions and one payload-row gather (`_collect_rows`);
-  6. line re-rank from the payload rows (kernel C), and top-k (kernel A);
+  1. L1, L2 and line distance tables (matrix products; the per-part norms
+     are kernel D);
+  2. the probed bins, by either pipeline:
+     * pair (`pipeline="pair"`, p in (2, 4)): per part-pair the pair_top_m
+       best (l1,l2) x (l1,l2) sums with their partial bin-hash terms
+       (`_pair_stage`), a 2D traversal composing them into bin ids
+       (`_enumerate_bins_pair`), and one extent-row gather per bin with
+       the first max_bins non-empty ones kept (`_probe_bins`);
+     * parts (any other shape, or `pipeline="parts"`): per part the
+       k1_query*c2 candidate codes sorted by distance (`_sorted_part_lists`),
+       a p-dimensional traversal over their ranks to bin ids, optionally
+       pruned by the pair-occupancy table, then the occupancy lookup and
+       compaction (`_enumerate_bins`), and the CSR starts of the kept bins;
+  3. candidate payload rows, as capped per-row positions or as slab windows
+     (`_collect_rows`);
+  4. line re-rank from the payload rows (kernel C), and top-k (kernel A);
      or the exact re-rank from the raw vectors, by id.
 
 With duplicate masking off (`dedup_candidates=False`, the main path),
 every top-k and sort of a query is kernel A (ops/cuda/primitives.py, ties
-lowest index first, like `lax.top_k`), and every prefix sum kernel B, so
-bin ids, extents and candidate ids equal the JAX package's bit for bit
-given the same distance tables.  Duplicate masking sorts the candidate
-ids with `torch.sort` (ROADMAP.md queue 2).  Queries run on the device of the tree and
-database tensors.  Bin-hash terms are uint32 values held in int64.
+lowest index first, like `lax.top_k` and a stable sort), every prefix sum
+kernel B, every table lookup kernel E (`lut_gather`) and every row gather
+kernel H (`gather_rows`), so bin ids, extents and candidate ids equal the
+JAX package's bit for bit given the same distance tables.  Duplicate
+masking sorts the candidate ids with `torch.sort` (ROADMAP.md queue 2).
+Queries run on the device of the tree and database tensors.  Bin-hash terms
+are uint32 values held in int64.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from pqt_tpu_torch.models.db import PQTDatabase
 from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
                                        line_tables)
 from pqt_tpu_torch.ops import binning, distseq
-from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk, block_scan
+from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
+from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk, block_scan,
+                                               segmented_reduce)
 from pqt_tpu_torch.ops.cuda.rerank import rerank_fused
 
 _INF = float("inf")
@@ -76,18 +86,6 @@ class QueryResult(NamedTuple):
     n_candidates: torch.Tensor  # (B,) candidates actually re-ranked
 
 
-def _require_pair(cfg: PQTConfig) -> None:
-    if not cfg.pair_pipeline_enabled:
-        raise NotImplementedError(
-            "pqt_tpu_torch serves the pair pipeline (pipeline='pair', p in "
-            "(2, 4)); the 'parts' pipeline comes with the slice 'the other "
-            "query pipelines' (ROADMAP.md queue 1)")
-    if cfg.gather_mode != "rows":
-        raise NotImplementedError(
-            "gather_mode='slabs' comes with the slice 'the other query "
-            "pipelines' (ROADMAP.md queue 1)")
-
-
 def _part_hash_weights(cfg: PQTConfig):
     """((p,) per-part weights w with bin pre-image sum_j w_j * code_j,
     exact): mixed radix when the unhashed space fits the table, the mixing
@@ -114,6 +112,31 @@ def _topk(x: torch.Tensor, k: int):
     return v.reshape(lead + (k,)), i.to(torch.int64).reshape(lead + (k,))
 
 
+def _part_candidates(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor):
+    """Per part, the k1_query best L1 cells x all c2 refinements: (d2 (B, p,
+    L) level-2 distances, codes (B, p, L) int64 part codes l1*c2 + l2),
+    L = k1_query * c2, in (L1 rank, l2) order."""
+    W = cfg.k1_query
+    d1 = level1_tables(cfg, tree, queries)               # (B, p, c1)
+    d2 = level2_tables(cfg, tree, queries)               # (B, p, c1, c2)
+    _, l1_idx = _topk(d1, W)                             # (B, p, W)
+    B, p = d1.shape[:2]
+    cand_d2 = torch.gather(d2, 2, l1_idx[..., None].expand(B, p, W, cfg.c2))
+    L = W * cfg.c2
+    codes = (l1_idx[..., None] * cfg.c2 +
+             torch.arange(cfg.c2, device=queries.device)).reshape(B, p, L)
+    return cand_d2.reshape(B, p, L), codes
+
+
+def _pair_occupancy(cfg: PQTConfig, pair_occ: torch.Tensor,
+                    cells: torch.Tensor) -> torch.Tensor:
+    """Kernel E over the flattened (p/2, radix^2) pair table: cells (B,
+    p/2, n) pair-cell ids ca * radix + cb -> their uint8 occupancy."""
+    r2 = cfg.part_radix ** 2
+    row = torch.arange(cells.shape[1], device=cells.device)[:, None] * r2
+    return lut_gather(pair_occ.reshape(-1), (cells + row).to(torch.int32))
+
+
 def _pair_stage(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
                 pair_occ: Optional[torch.Tensor] = None):
     """Per part-pair, the pair_top_m best (l1,l2) x (l1,l2) combinations.
@@ -122,16 +145,8 @@ def _pair_stage(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
     uint32 partial bin terms, exact).  With `pair_occ`, pairs absent from
     the database get +inf and sort behind every live pair.
     """
-    W = cfg.k1_query
-    d1 = level1_tables(cfg, tree, queries)               # (B, p, c1)
-    d2 = level2_tables(cfg, tree, queries)               # (B, p, c1, c2)
-    _, l1_idx = _topk(d1, W)                             # (B, p, W)
-    B, p = d1.shape[:2]
-    cand_d2 = torch.gather(d2, 2, l1_idx[..., None].expand(B, p, W, cfg.c2))
-    L = W * cfg.c2
-    flat_d2 = cand_d2.reshape(B, p, L)
-    codes = (l1_idx[..., None] * cfg.c2 +
-             torch.arange(cfg.c2, device=queries.device)).reshape(B, p, L)
+    flat_d2, codes = _part_candidates(cfg, tree, queries)
+    B, p, L = flat_d2.shape
     weights, exact = _part_hash_weights(cfg)
     M = min(cfg.pair_top_m, L * L)
     n_pairs = p // 2
@@ -143,9 +158,7 @@ def _pair_stage(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
     h = torch.stack([ca[:, j] * weights[2 * j] + cb[:, j] * weights[2 * j + 1]
                      for j in range(n_pairs)], dim=1) & 0xFFFFFFFF
     if pair_occ is not None and cfg.pair_filter_enabled:
-        r = cfg.part_radix
-        rows = torch.arange(n_pairs, device=queries.device)[:, None]
-        occ = pair_occ[rows, ca * r + cb]                # (B, n_pairs, M)
+        occ = _pair_occupancy(cfg, pair_occ, ca * cfg.part_radix + cb)
         d = torch.where(occ > 0, d, _INF)
         # stable re-sort: dead pairs to the tail, live order kept
         d, perm = _topk(d, M)
@@ -181,42 +194,125 @@ def _enumerate_bins_pair(cfg: PQTConfig, h_pairs: torch.Tensor,
 
 
 def _probe_bins(cfg: PQTConfig, bins: torch.Tensor, prefix2: torch.Tensor):
-    """One extent-row gather per enumerated bin, then the first max_bins
-    non-empty bins in enumeration order: (start, count) (B, nb) int32."""
-    ext = prefix2[bins.to(torch.int64)]                  # (B, E, 2)
+    """One extent-row gather (kernel H) per enumerated bin, then the first
+    max_bins non-empty bins in enumeration order: (start, count) (B, nb)
+    int32."""
+    ext = gather_rows(prefix2, bins)                     # (B, E, 2)
     start = ext[..., 0]
     cnt = ext[..., 1] - ext[..., 0]
     return binning.compact_nonempty_bins(start, cnt,
                                          min(cfg.max_bins, bins.shape[1]))
 
 
-def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
-    """Candidate payload rows from the probed bins' extents (rows mode).
+def _sorted_part_lists(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor):
+    """Per part, the candidate (l1, l2) codes sorted by level-2 distance,
+    ties in candidate order (kernel A, like the JAX package's stable
+    argsort): (sorted_d2 (B, p, L), sorted_codes (B, p, L) int64)."""
+    flat_d2, codes = _part_candidates(cfg, tree, queries)
+    sorted_d2, order = _topk(flat_d2, flat_d2.shape[-1])
+    return sorted_d2, torch.gather(codes, 2, order)
 
-    Returns (rows (B, K, W), valid (B, K), positions (B, K) int64 CSR row of
-    each candidate, 0 where invalid), K = max_candidates.
+
+@functools.lru_cache(maxsize=16)
+def _parts_sequence_on(base: int, p: int, n_enum: int, device: torch.device):
+    """The parts traversal on `device`, uploaded once: (ranks (p, E) int64,
+    the per-part rank of every enumeration slot, and cells (p/2, E) int64,
+    the (rank 2j, rank 2j+1) cell rank_a * base + rank_b of every slot)."""
+    seq = distseq.static_sequence(base, p)[:n_enum].astype("int64")
+    n2 = 2 * (p // 2)
+    cells = seq[:, 0:n2:2] * base + seq[:, 1:n2:2]
+    return (torch.tensor(seq.T.copy(), device=device),
+            torch.tensor(cells.T.copy(), device=device))
+
+
+def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
+                    sorted_codes: torch.Tensor, counts: torch.Tensor,
+                    pair_occ: Optional[torch.Tensor] = None):
+    """Traversal-sequence bin enumeration and occupancy compaction.
+
+    Enumeration slot e combines, per part j, the code of rank
+    static_sequence(base, p)[e, j] (base = min(L, 16)), hashed to a bin id.
+    With `pair_occ` (and the filter enabled) a slot survives only if each of
+    its (part 2j, 2j+1) code pairs occurs in the database; the first
+    pair_filter_slack * max_bins survivors (a kernel-B compaction) then get
+    their occupancy looked up (kernel E).  Without it every slot's occupancy
+    is looked up.  The first max_bins non-empty bins are kept (kernel-B
+    compaction).  Returns (bins (B, max_bins) slot ids, bin_counts (B,
+    max_bins)); slots past the last non-empty bin have count 0.
     """
+    B, p, L = sorted_codes.shape
+    base = min(L, 16)                  # reference clamps to 16 (ProTree.cu:135)
+    n_enum = min(cfg.bin_enum_factor * cfg.max_bins, base ** p)
+    ranks, cells = _parts_sequence_on(base, p, n_enum, sorted_codes.device)
+    c16 = sorted_codes[:, :, :base]                          # (B, p, base)
+    part_codes = torch.gather(c16, 2, ranks[None].expand(B, p, n_enum))
+    bin_ids = binning.hashed_bin_ids(part_codes.transpose(1, 2),
+                                     cfg.part_radix, cfg.hash_size
+                                     ).contiguous()
+
+    if pair_occ is not None and cfg.pair_filter_enabled:
+        n_pairs = p // 2
+        r = cfg.part_radix
+        # occupancy of every (rank_a, rank_b) cell of every pair of parts
+        pc = (c16[:, 0:2 * n_pairs:2, :, None] * r +
+              c16[:, 1:2 * n_pairs:2, None, :]).reshape(B, n_pairs,
+                                                         base * base)
+        occ = _pair_occupancy(cfg, pair_occ, pc)           # (B, p/2, base^2)
+        slot_occ = torch.gather(occ, 2, cells[None].expand(B, n_pairs,
+                                                           n_enum))
+        passes = torch.all(slot_occ > 0, dim=1).to(torch.int32)
+        # stage 1: compact by the pair filter; stage 2: true occupancy of
+        # the survivors only, then the final compaction
+        m1 = min(n_enum, int(cfg.pair_filter_slack * cfg.max_bins))
+        bins1, pass1 = binning.compact_nonempty_bins(bin_ids, passes, m1)
+        valid1 = pass1 > 0
+        cnt1 = torch.where(
+            valid1, lut_gather(counts, torch.where(valid1, bins1, 0)), 0)
+        return binning.compact_nonempty_bins(bins1, cnt1, cfg.max_bins)
+
+    bin_counts = lut_gather(counts, bin_ids)                 # (B, E)
+    return binning.compact_nonempty_bins(bin_ids, bin_counts, cfg.max_bins)
+
+
+def _probe_parts(cfg: PQTConfig, tree: PQTree, counts, queries,
+                 pair_occ=None):
+    """The parts pipeline's probed bins: (bins, bin_counts) (B, max_bins)."""
+    sorted_d2, sorted_codes = _sorted_part_lists(cfg, tree, queries)
+    return _enumerate_bins(cfg, sorted_d2, sorted_codes, counts, pair_occ)
+
+
+def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
+    """Candidate payload rows from the probed bins' extents.
+
+    "rows" mode: capped per-row positions, one payload-row gather (kernel
+    H).  "slabs" mode: windows of slab_size consecutive rows per bin, one
+    gather of slab_size rows per window.  Returns (rows (B, K, W), valid
+    (B, K), positions (B, K) int32 CSR row of each candidate), K =
+    max_candidates (rows mode, positions 0 where invalid) or its
+    slab-rounded size.
+    """
+    if cfg.gather_mode == "slabs":
+        S = cfg.slab_size
+        T = -(-cfg.max_candidates // S)
+        slab_starts, slab_valid = binning.gather_slabs(
+            start, cnt, T, S, cfg.max_vec_per_bin)
+        rows, valid = binning.fetch_slab_rows(payload, slab_starts,
+                                              slab_valid, S)
+        # row i of slab t sits at CSR position min(start, N - S) + i
+        eff = torch.clamp_max(slab_starts, max(payload.shape[0] - S, 0))
+        positions = (eff[..., None] + torch.arange(
+            S, dtype=torch.int32, device=eff.device)).reshape(rows.shape[:2])
+        return rows, valid, positions
     positions, valid = binning.gather_candidates(
         start, cnt, cfg.max_candidates, cfg.max_vec_per_bin)
-    safe_pos = torch.where(valid, positions, 0).to(torch.int64)
-    return payload[safe_pos], valid, safe_pos
+    safe_pos = torch.where(valid, positions, 0)
+    return gather_rows(payload, safe_pos), valid, safe_pos
 
 
-def query_core_pair(cfg: PQTConfig, tree: PQTree, prefix2, payload,
-                    queries, k: int, pair_occ=None,
-                    want_candidates: bool = False):
-    """Pair-pipeline query over the raw CSR tensors.
-
-    Returns (ids (B, k) int32, line distances (B, k), n_candidates (B,));
-    -1 ids mark missing results.  With want_candidates=True, returns the
-    whole candidate set before top-k instead: (cand_ids (B, K), dists
-    (B, K) +inf where invalid, n_candidates, positions (B, K)).
-    """
-    _require_pair(cfg)
-    queries = queries.to(torch.float32)
-    _, h_pairs, exact = _pair_stage(cfg, tree, queries, pair_occ)
-    bins = _enumerate_bins_pair(cfg, h_pairs, exact)
-    start, cnt = _probe_bins(cfg, bins, prefix2)
+def _line_rerank(cfg: PQTConfig, tree: PQTree, payload, queries, start, cnt,
+                 k: int, want_candidates: bool):
+    """Candidate rows, line distances (kernel C) and top-k (kernel A): the
+    shared tail of both pipelines' cores."""
     rows, valid, positions = _collect_rows(cfg, payload, start, cnt)
     cand_ids = rows[..., 0]
     q_line = line_tables(cfg, tree, queries).contiguous()   # (B, lp, c1)
@@ -232,6 +328,51 @@ def query_core_pair(cfg: PQTConfig, tree: PQTree, prefix2, payload,
     return torch.where(torch.isfinite(top_d), top_ids, -1), top_d, n_cand
 
 
+def query_core_pair(cfg: PQTConfig, tree: PQTree, prefix2, payload,
+                    queries, k: int, pair_occ=None,
+                    want_candidates: bool = False):
+    """Pair-pipeline query over the raw CSR tensors.
+
+    Returns (ids (B, k) int32, line distances (B, k), n_candidates (B,));
+    -1 ids mark missing results.  With want_candidates=True, returns the
+    whole candidate set before top-k instead: (cand_ids (B, K), dists
+    (B, K) +inf where invalid, n_candidates, positions (B, K)).
+    """
+    queries = queries.to(torch.float32)
+    _, h_pairs, exact = _pair_stage(cfg, tree, queries, pair_occ)
+    bins = _enumerate_bins_pair(cfg, h_pairs, exact)
+    start, cnt = _probe_bins(cfg, bins, prefix2)
+    return _line_rerank(cfg, tree, payload, queries, start, cnt, k,
+                        want_candidates)
+
+
+def query_core(cfg: PQTConfig, tree: PQTree, prefix, counts, payload,
+               queries, k: int, pair_occ=None,
+               want_candidates: bool = False):
+    """Parts-pipeline query over the raw CSR tensors (prefix and counts the
+    (hash_size,) occupancy tables); same results as query_core_pair."""
+    queries = queries.to(torch.float32)
+    bins, bin_counts = _probe_parts(cfg, tree, counts, queries, pair_occ)
+    return _line_rerank(cfg, tree, payload, queries,
+                        lut_gather(prefix, bins.contiguous()), bin_counts, k,
+                        want_candidates)
+
+
+def _parts_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
+                      queries: torch.Tensor):
+    """The parts pipeline's candidate ids by capped per-row positions,
+    whatever the gather mode (as in the JAX package): (cand_ids (B, K)
+    int32, the payload's first row where invalid; valid (B, K))."""
+    bins, bin_counts = _probe_parts(cfg, tree, db.counts, queries,
+                                    db.pair_occ)
+    positions, valid = binning.gather_candidates(
+        lut_gather(db.prefix, bins.contiguous()), bin_counts,
+        cfg.max_candidates,
+        cfg.max_vec_per_bin)
+    safe_pos = torch.where(valid, positions, 0)
+    return gather_rows(db.payload, safe_pos)[..., 0], valid
+
+
 def _pad_k(ids, dists, k):
     pad = k - ids.shape[1]
     if pad > 0:
@@ -241,11 +382,13 @@ def _pad_k(ids, dists, k):
 
 
 def _exact_top(queries, vectors, cand_ids, valid, k):
-    """Exact squared distances of the candidates (by original id) and their
-    top-k: (ids, dists)."""
-    safe = torch.where(valid, cand_ids, 0).to(torch.int64)
-    diff = vectors[safe].to(torch.float32) - queries[:, None, :]
-    exact = torch.where(valid, torch.sum(diff * diff, dim=-1), _INF)
+    """Exact squared distances of the candidates (by original id; rows by
+    kernel H, sums by kernel D) and their top-k: (ids, dists)."""
+    safe = torch.where(valid, cand_ids, 0)
+    diff = gather_rows(vectors, safe).to(torch.float32) - queries[:, None, :]
+    B, K, dim = diff.shape
+    sq = segmented_reduce((diff * diff).reshape(B * K, dim), 1).reshape(B, K)
+    exact = torch.where(valid, sq, _INF)
     top_d, top_i = _topk(exact, min(k, exact.shape[-1]))
     ids = torch.gather(cand_ids, 1, top_i)
     return torch.where(torch.isfinite(top_d), ids, -1), top_d
@@ -256,8 +399,8 @@ def _require_vectors(db: PQTDatabase, what: str) -> None:
         if db.vectors_csr is not None:
             raise NotImplementedError(
                 f"{what} over a database that holds only vectors_csr (an "
-                "out-of-core build) comes with the slice 'the other query "
-                "pipelines' (query_core_exact, ROADMAP.md queue 1)")
+                "out-of-core build) comes with the out-of-core slice "
+                "(query_core_exact, ROADMAP.md queue 1)")
         raise ValueError(f"{what} needs raw vectors: build with "
                          "keep_vectors=True")
 
@@ -266,19 +409,31 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
               queries: torch.Tensor, k: int,
               exact_rerank: bool = False) -> QueryResult:
     """Batched approximate k-NN: queries (B, dim) -> ids sorted by the line
-    (or, with exact_rerank, exact) distance."""
+    (or, with exact_rerank, exact) distance.  The pipeline is the pair
+    pipeline when cfg.pair_pipeline_enabled, the parts pipeline otherwise."""
     queries = queries.to(torch.float32)
     if exact_rerank:
         _require_vectors(db, "exact re-rank")
-        cand_ids, line_d, _, _ = query_core_pair(
-            cfg, tree, db.prefix2, db.payload, queries, k,
-            pair_occ=db.pair_occ, want_candidates=True)
-        valid = torch.isfinite(line_d)      # duplicates already masked
-        ids, dists = _exact_top(queries, db.vectors, cand_ids, valid, k)
-        n_cand = torch.sum(valid, dim=-1)
-    else:
+        if cfg.pair_pipeline_enabled:
+            cand_ids, line_d, _, _ = query_core_pair(
+                cfg, tree, db.prefix2, db.payload, queries, k,
+                pair_occ=db.pair_occ, want_candidates=True)
+            valid = torch.isfinite(line_d)      # duplicates already masked
+            n_cand = torch.sum(valid, dim=-1)
+        else:
+            cand_ids, valid = _parts_candidates(cfg, tree, db, queries)
+            n_cand = torch.sum(valid, dim=-1)
+            if cfg.dedup_candidates:
+                valid = valid & ~_duplicate_stats(cand_ids, valid)[0]
+        ids, dists = _exact_top(queries, db.vectors, cand_ids, valid,
+                                min(k, cfg.max_candidates))
+    elif cfg.pair_pipeline_enabled:
         ids, dists, n_cand = query_core_pair(
             cfg, tree, db.prefix2, db.payload, queries, k,
+            pair_occ=db.pair_occ)
+    else:
+        ids, dists, n_cand = query_core(
+            cfg, tree, db.prefix, db.counts, db.payload, queries, k,
             pair_occ=db.pair_occ)
     ids, dists = _pad_k(ids, dists, k)
     return QueryResult(indices=ids, dists=dists, n_candidates=n_cand)
@@ -287,9 +442,15 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
 def query_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                      queries: torch.Tensor):
     """The gathered candidate set before any re-rank: (cand_ids (B, K)
-    int32, valid (B, K) bool), for candidate recall."""
+    int32, valid (B, K) bool), for candidate recall.  As in the JAX
+    package, the parts pipeline marks invalid slots with id -1 and the
+    pair pipeline leaves whatever row they read."""
+    queries = queries.to(torch.float32)
+    if not cfg.pair_pipeline_enabled:
+        cand_ids, valid = _parts_candidates(cfg, tree, db, queries)
+        return torch.where(valid, cand_ids, -1), valid
     cand_ids, line_d, _, _ = query_core_pair(
-        cfg, tree, db.prefix2, db.payload, queries.to(torch.float32), 0,
+        cfg, tree, db.prefix2, db.payload, queries, 0,
         pair_occ=db.pair_occ, want_candidates=True)
     return cand_ids, torch.isfinite(line_d)
 

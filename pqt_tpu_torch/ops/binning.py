@@ -11,13 +11,16 @@ Port of pqt_tpu/ops/binning.py (the parts this slice runs).
   * compaction: a stable partition of the non-empty bins to the front,
     placed by an exclusive prefix sum (kernel B) instead of the TPU's sort.
   * candidate positions: a searchsorted over the inclusive prefix (kernel B)
-    of the capped per-bin counts, instead of the TPU's sort-merge.
+    of the capped per-bin counts, instead of the TPU's sort-merge; slab
+    windows the same way at slab granularity, and the slab rows by the row
+    gather (kernel H) with a span.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pqt_tpu_torch.ops.cuda.gather import gather_rows
 from pqt_tpu_torch.ops.cuda.primitives import block_scan
 
 # Knuth multiplicative-hash constants (odd, derived from the golden ratio).
@@ -118,3 +121,57 @@ def gather_candidates(prefix_of_bins: torch.Tensor,
     owner = torch.clamp_max(owner, nb - 1)
     shift = torch.where(total > 0, torch.gather(delta, 1, owner), 0)
     return grid + shift, grid < total
+
+
+def gather_slabs(prefix_of_bins: torch.Tensor, counts_of_bins: torch.Tensor,
+                 n_slabs: int, slab_size: int, max_vec_per_bin: int):
+    """Fixed-size slab windows over the probed bins' CSR rows.
+
+    Each probed bin contributes ceil(min(count, cap) / S) windows of S
+    consecutive rows, and windows fill in bin order up to `n_slabs`.  Slab t
+    belongs to the bin whose interval of the inclusive prefix (kernel B) of
+    the per-bin slab counts contains t.  Returns (slab_starts (B, n_slabs)
+    int32 CSR positions, slab_valid (B, n_slabs) int32 valid rows in each
+    window, in [0, S]); slabs past the last window have start 0 and no
+    valid row, as in the JAX package.
+    """
+    B, nb = counts_of_bins.shape
+    S = slab_size
+    capped = torch.clamp_max(counts_of_bins, max_vec_per_bin)
+    spb = (capped + (S - 1)) // S                            # slabs per bin
+    ends = block_scan(spb)                                   # inclusive
+    total = ends[:, -1:]
+    grid = torch.arange(n_slabs, dtype=torch.int32,
+                        device=counts_of_bins.device)[None, :]
+    owner = torch.searchsorted(ends, grid.expand(B, -1).contiguous(),
+                               right=True)
+    owner = torch.clamp_max(owner, nb - 1)
+    t_rel = grid - torch.gather(ends - spb, 1, owner)        # slab in its bin
+    starts = torch.gather(prefix_of_bins, 1, owner) + t_rel * S
+    valid = torch.clamp(torch.gather(capped, 1, owner) - t_rel * S, 0, S)
+    in_budget = grid < total
+    return (torch.where(in_budget, starts, 0),
+            torch.where(in_budget, valid, 0))
+
+
+def fetch_slab_rows(payload: torch.Tensor, slab_starts: torch.Tensor,
+                    slab_valid: torch.Tensor, slab_size: int):
+    """The (S, W) payload window of every slab, as rows + validity.
+
+    payload (N, W); slab_starts, slab_valid (B, T).  Returns (rows (B, T*S,
+    W), valid (B, T*S) bool).  A window that would run past the payload's
+    end is shifted left to end there, and its validity window shifts with
+    it, so the valid rows are the same rows.
+    """
+    B, T = slab_starts.shape
+    N, W = payload.shape
+    S = slab_size
+    eff = torch.clamp_max(slab_starts, max(N - S, 0))
+    shift = slab_starts - eff                                # >= 0
+    rows = gather_rows(payload, eff.contiguous(), span=min(S, N)).reshape(
+        B, T, min(S, N), W)
+    if S > N:                               # a payload shorter than a slab
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, S - N))
+    i = torch.arange(S, dtype=torch.int32, device=slab_starts.device)
+    valid = (i >= shift[..., None]) & (i < (shift + slab_valid)[..., None])
+    return rows.reshape(B, T * S, W), valid.reshape(B, T * S)

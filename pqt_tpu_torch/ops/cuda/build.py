@@ -1,6 +1,9 @@
 """Build and load the hand-written CUDA kernels of `pqt_tpu_torch/csrc`.
 
-Each `.cu` source has a plain C interface and is compiled by `nvcc` into its
+The sources: `topk.cu` (kernel A, row top-k), `scan.cu` (B, row prefix
+sums), `rerank.cu` (C, line re-rank), `reduce.cu` (D, segment sums),
+`lut.cu` (E/F/G, table lookup) and `gather.cu` (H, row gather).  Each `.cu`
+source has a plain C interface and is compiled by `nvcc` into its
 own shared library for Hopper (`sm_90a`), then loaded with ctypes.  No
 source includes PyTorch's headers, so a build takes seconds.  The libraries
 go to `pqt_tpu_torch/_build/<hash of sources and flags>/`, so an edited
@@ -32,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype).
 _SIGNATURES = {
     "topk": {"pqt_bitonic_topk": ((_P, _I, _I, _I, _P, _P, _P), _I)},
@@ -40,6 +44,9 @@ _SIGNATURES = {
              "pqt_block_scan_long": ((_P, _I, _I, _I, _P, _P, _P, _P), _I)},
     "rerank": {"pqt_rerank_fused": ((_P, _P, _I, _I, _I, _I, _I, _P, _P),
                                     _I)},
+    "reduce": {"pqt_segmented_reduce": ((_P, _L, _I, _P, _P), _I)},
+    "lut": {"pqt_lut_gather": ((_P, _L, _I, _P, _L, _P, _P), _I)},
+    "gather": {"pqt_gather_rows": ((_P, _L, _I, _P, _L, _I, _P, _P), _I)},
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,11 @@
-"""Row top-k and row prefix sum: hand-written CUDA kernels and plain versions.
+"""Row top-k, row prefix sum and segment sums: hand-written CUDA kernels
+and plain versions.
 
-`bitonic_topk` (kernel A, csrc/topk.cu) and `block_scan` (kernel B,
-csrc/scan.cu) replace the TPU kernels of the same names in
-pqt_tpu/ops/pallas/primitives.py.  On a CPU tensor each wrapper runs its
-plain PyTorch version; on a CUDA tensor it launches its kernel or raises.
+`bitonic_topk` (kernel A, csrc/topk.cu), `block_scan` (kernel B,
+csrc/scan.cu) and `segmented_reduce` (kernel D, csrc/reduce.cu) replace the
+TPU kernels of the same names in pqt_tpu/ops/pallas/primitives.py.  On a
+CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor it
+launches its kernel or raises.
 Each wrapper counts its launches in its `launches` attribute.
 """
 
@@ -117,3 +119,37 @@ def block_scan(x: torch.Tensor, exclusive: bool = False):
 
 
 block_scan.launches = 0
+
+
+def segmented_reduce_plain(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """Per-row sums over `parts` equal contiguous segments."""
+    B, D = x.shape
+    return x.reshape(B, parts, D // parts).sum(-1)
+
+
+def segmented_reduce(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """(B, D) float32 -> (B, parts) float32: the sum of each of the `parts`
+    equal contiguous segments of every row (D % parts == 0, any D)."""
+    B, D = x.shape
+    if parts < 1 or D % parts:
+        raise ValueError(f"segmented_reduce: D={D} is not a multiple of "
+                         f"parts={parts}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("segmented_reduce: expected a contiguous float32 "
+                         f"tensor, got {x.dtype}")
+    if x.device.type == "cpu":
+        return segmented_reduce_plain(x, parts)
+    _check_input(x, torch.float32, "segmented_reduce")
+    if B == 0 or D == 0:
+        return torch.zeros((B, parts), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, parts), dtype=torch.float32, device=x.device)
+    lib = build.load("reduce")
+    with torch.cuda.device(x.device):
+        err = lib.pqt_segmented_reduce(_ptr(x), B * parts, D // parts,
+                                       _ptr(out), _stream(x))
+    build.check(err, "segmented_reduce")
+    segmented_reduce.launches += 1
+    return out
+
+
+segmented_reduce.launches = 0

@@ -4,11 +4,15 @@ Port of pqt_tpu/ops/distance.py.  Every table is one matrix product plus
 norms, ||x - c||^2 = ||x||^2 + ||c||^2 - 2 <x, c>, in full float32: the
 identity loses too much in TF32 (k-means splits and ground truth at SIFT
 scale, distances ~1e5), which is why the package turns TF32 off at import.
+The per-part norms of the query side are segment sums (kernel D,
+`segmented_reduce`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from pqt_tpu_torch.ops.cuda.primitives import segmented_reduce
 
 
 def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -29,10 +33,11 @@ def part_sqdist_tables(x: torch.Tensor,
     p, k, vl = codebook.shape
     if d != p * vl:
         raise ValueError(f"dim {d} != p*vl = {p}*{vl}")
-    xp = x.to(torch.float32).reshape(n, p, vl)
+    x = x.to(torch.float32)
+    xp = x.reshape(n, p, vl)
     cb = codebook.to(torch.float32)
     dot = torch.einsum("npv,pkv->npk", xp, cb)
-    xn = torch.sum(xp * xp, dim=-1)
+    xn = segmented_reduce(x * x, p)
     cn = torch.sum(cb * cb, dim=-1)
     return torch.clamp_min(xn[:, :, None] + cn[None, :, :] - 2.0 * dot, 0.0)
 
@@ -44,10 +49,11 @@ def subpart_sqdist_tables(x: torch.Tensor, centroids: torch.Tensor,
     n, d = x.shape
     c1 = centroids.shape[0]
     lvl = d // line_parts
-    xp = x.to(torch.float32).reshape(n, line_parts, lvl)
+    x = x.to(torch.float32)
+    xp = x.reshape(n, line_parts, lvl)
     cp = centroids.to(torch.float32).reshape(c1, line_parts, lvl)
     dot = torch.einsum("nlv,clv->nlc", xp, cp)
-    xn = torch.sum(xp * xp, dim=-1)
+    xn = segmented_reduce(x * x, line_parts)
     cn = torch.sum(cp * cp, dim=-1)
     return torch.clamp_min(xn[:, :, None] + cn.T[None, :, :] - 2.0 * dot, 0.0)
 

@@ -20,7 +20,7 @@ import torch
 import pqt_tpu.config as jcfg
 import pqt_tpu_torch as T
 from pqt_tpu_torch.io import artifacts as TA
-from pqt_tpu_torch.ops.cuda import build, primitives, rerank
+from pqt_tpu_torch.ops.cuda import build, gather, primitives, rerank
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "pqt_tpu_torch"
@@ -136,6 +136,14 @@ def test_wrappers_never_fall_back_off_the_cpu():
         rerank.rerank_fused(torch.empty((1, 4, 10), dtype=torch.int32,
                                         device="meta"),
                             torch.empty((1, 16, 16), device="meta"))
+    with pytest.raises(ValueError):
+        primitives.segmented_reduce(x, 4)
+    idx = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        gather.lut_gather(torch.empty(64, dtype=torch.int32, device="meta"),
+                          idx)
+    with pytest.raises(ValueError):
+        gather.gather_rows(x, idx)
 
 
 def test_paths_of_later_slices_raise(clustered_data):
@@ -149,10 +157,11 @@ def test_paths_of_later_slices_raise(clustered_data):
     db = T.build_database(cfg, tree, db_vecs[:512], device="cpu",
                           keep_vectors=True)
     q = torch.from_numpy(queries[:4])
-    for bad in (cfg.replace(pipeline="parts"),
-                cfg.replace(gather_mode="slabs")):
-        with pytest.raises(NotImplementedError):
-            T.query_knn(bad, tree, db, q, 5)
+    # the parts pipeline and slab gathers are served now
+    for cfg_now in (cfg.replace(pipeline="parts"),
+                    cfg.replace(gather_mode="slabs")):
+        res = T.query_knn(cfg_now, tree, db, q, 5)
+        assert res.indices.shape == (4, 5) and (res.indices[:, 0] >= 0).all()
     csr_only = PQTDatabase(*db[:4], vectors=None, prefix2=db.prefix2,
                            vectors_csr=db.vectors)
     with pytest.raises(NotImplementedError):
