@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the last line is printed):
      row gathers exact; line re-rank within rtol 1e-5, atol 1e-4; segment
      sums within rtol 1e-5, atol 1e-3), and times kernel, plain version and
      the one PyTorch call computing the same function by their device time
-     (torch.profiler);
+     (torch.profiler).  The top-k also runs at SIFT1B_CONFIG's widths, in
+     the mode its wrapper picks and in the other mode where that takes the
+     shape (both held and timed), and on rows that are hard for a select;
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -144,20 +146,65 @@ def bound(bytes_moved, ops):
 
 def topk_cases(torch, gen):
     """The query paths' top-k shapes at batch 256 (p=4, c1=16, W=8, L=128,
-    pair_top_m=128, K=1024, k=100, refine k*8=800).  Values are rounded to
-    few levels in half the rows, and some slots are +inf, so ties occur."""
+    pair_top_m=128, K=1024, k=100, refine k*8=800), then SIFT1B_CONFIG's
+    widths (k1_query 16 x c2 16: a 65536-wide pair grid, pair_top_m 256,
+    8192 final candidates).  Values are rounded to few levels in half the
+    rows, and some slots are +inf, so ties occur."""
     shapes = [("l1_select", 256 * 4, 16, 8),
               ("pair_select", 256 * 2, 128 * 128, 128),
               ("part_sort", 256 * 4, 128, 128),
               ("final_topk", 256, 1024, 100),
               ("refine_line_topk", 256, 1024, 800),
-              ("refine_exact_topk", 256, 800, 100)]
+              ("refine_exact_topk", 256, 800, 100),
+              ("sift1b_pair_select", 256 * 2, 256 * 256, 256),
+              ("sift1b_final_topk", 256, 8192, 100),
+              ("sift1b_refine_line_topk", 256, 8192, 800)]
     for name, b, n, k in shapes:
         x = torch.rand((b, n), generator=gen, device="cuda") * 1e4
         x[: b // 2] = torch.round(x[: b // 2] / 1e3)
         x[torch.rand((b, n), generator=gen, device="cuda") < 0.05] = \
             float("inf")
         yield name, (x.contiguous(), k), (b, n, k)
+
+
+def topk_modes(prim, n, k):
+    """Kernel A's modes that take rows of n elements, k kept: a sort of at
+    most TOPK_SORT_MAX elements, a select of at most TOPK_SORT_MAX."""
+    return [mode for mode, size in (("sort", n), ("select", k))
+            if size <= prim.TOPK_SORT_MAX]
+
+
+def radix_passes(torch, x, k, digit_bits):
+    """Histogram passes kernel A's select mode makes over each row of x, as
+    csrc/topk.cu makes them: digits of the order-preserving key, most
+    significant first, stopping once the k-th key's bucket is taken whole."""
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    b, bins = x.shape[0], 1 << digit_bits
+    prefix = torch.zeros(b, dtype=torch.int64, device=x.device)
+    need = torch.full((b,), k, dtype=torch.int64, device=x.device)
+    done = torch.zeros(b, dtype=torch.bool, device=x.device)
+    passes = torch.zeros(b, dtype=torch.int64, device=x.device)
+    for shift in range(32, 0, -digit_bits):
+        lo = shift - digit_bits
+        live = (key >> shift) == (prefix >> shift)[:, None]
+        d = torch.where(live, (key >> lo) & (bins - 1), bins)
+        hist = torch.zeros((b, bins + 1), dtype=torch.int64,
+                           device=x.device).scatter_add_(
+            1, d, torch.ones_like(d))[:, :bins]
+        incl = hist.cumsum(1)
+        # rows already done may find no bucket: their result is not read
+        bucket = (incl < need[:, None]).sum(1, keepdim=True).clamp_max(
+            bins - 1)
+        count = hist.gather(1, bucket)[:, 0]
+        before = incl.gather(1, bucket)[:, 0] - count
+        go = ~done
+        passes += go
+        prefix = torch.where(go, prefix | (bucket[:, 0] << lo), prefix)
+        need = torch.where(go, need - before, need)
+        done |= go & (need == count)
+    return passes
 
 
 def scan_cases(torch, gen):
@@ -259,8 +306,9 @@ def check_kernels(torch):
     device_ms(torch, lambda: torch.ones(8, device="cuda") + 1, reps=1)
 
     def record(name, route_src, replaces, case, ms, plain_ms, lib_ms, b_ms,
-               b_by, err):
-        """Add one shape's numbers; a kernel's totals sum its shapes."""
+               b_by, err, **extra):
+        """Add one shape's numbers (and `extra` ones of that shape alone); a
+        kernel's totals sum its shapes."""
         if ms <= 0 or plain_ms <= 0 or (lib_ms is not None and lib_ms <= 0):
             raise SmokeFailure(f"{name} {case}: no profiler session recorded "
                                "device time")
@@ -279,23 +327,42 @@ def check_kernels(torch):
         r["bound_ms"] += b_ms
         r["shapes"].append({"case": case, "ms": ms, "plain_ms": plain_ms,
                             "library_ms": lib_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "max_abs_err": err})
+                            "bound_by": b_by, "max_abs_err": err, **extra})
 
     for case, (x, k), (b, n, _) in topk_cases(torch, gen):
-        v, i = prim.bitonic_topk(x, k)
+        # the mode the wrapper picks, and the other one where it takes the
+        # shape: both are held against the plain version, both are timed
+        plan = prim._topk_plan(n, k)
+        others = [m for m in topk_modes(prim, n, k) if m != plan.mode]
+        alt = prim._topk_plan(n, k, others[0]) if others else None
         pv, pi = prim.bitonic_topk_plain(x, k)
-        torch.cuda.synchronize()
-        if not (torch.equal(v, pv) and torch.equal(i, pi)):
-            bad = int((i != pi).sum())
-            raise SmokeFailure(f"bitonic_topk {case}: {bad} indices differ "
-                               "from the plain version")
+        for p in (plan, alt) if alt else (plan,):
+            v, i = (prim.bitonic_topk(x, k) if p is plan
+                    else prim._topk_launch(x, k, p))
+            torch.cuda.synchronize()
+            if not (torch.equal(v, pv) and torch.equal(i, pi)):
+                bad = int((i != pi).sum())
+                raise SmokeFailure(f"bitonic_topk {case} in {p.mode} mode: "
+                                   f"{bad} indices differ from the plain "
+                                   "version")
         b_ms, b_by = bound(b * n * 4 + b * k * 8, b * n)
+        # select mode reads a row longer than one tile again on every pass
+        reads = 1.0
+        if plan.mode == "select" and n > plan.items * plan.threads:
+            reads += float(radix_passes(torch, x, k, prim.TOPK_DIGIT_BITS)
+                           .double().mean())
+        pass_ms = bound(reads * b * n * 4 + b * k * 8, b * n)[0]
         record("bitonic_topk", "pqt_tpu_torch/csrc/topk.cu",
-               "pqt_tpu/ops/pallas/primitives.py:79", f"{case} ({b},{n})->{k}",
+               "pqt_tpu/ops/pallas/primitives.py:79",
+               f"{case} ({b},{n})->{k} {plan.mode}",
                device_ms(torch, lambda: prim.bitonic_topk(x, k)),
                device_ms(torch, lambda: prim.bitonic_topk_plain(x, k)),
                device_ms(torch, lambda: torch.topk(x, k, largest=False)),
-               b_ms, b_by, 0.0)
+               b_ms, b_by, 0.0, mode=plan.mode, reads=reads,
+               pass_bound_ms=pass_ms, other_mode=alt and alt.mode,
+               other_mode_ms=device_ms(
+                   torch, lambda: prim._topk_launch(x, k, alt))
+               if alt else None)
 
     for case, (x, excl), (b, n) in scan_cases(torch, gen):
         got = prim.block_scan(x, excl)
@@ -421,22 +488,58 @@ def profile_batch(torch, fn, x, reps=3):
             "top_kernels_ms": [[k, v] for k, v in top]}
 
 
+def topk_hard_rows(torch, gen):
+    """Rows on which a select is easiest to get wrong: (name, x, k)."""
+    n = 16384
+    levels = torch.randint(0, 6, (4, n), generator=gen,
+                           device="cuda").to(torch.float32)
+    levels[torch.rand((4, n), generator=gen, device="cuda") < 0.1] = \
+        float("inf")
+    yield "all equal", torch.full((4, n), 3.0, device="cuda"), 128
+    yield "all +inf", torch.full((4, n), float("inf"), device="cuda"), 128
+    zeros = torch.where(torch.rand((4, n), generator=gen, device="cuda")
+                        < 0.5, 0.0, -0.0)
+    zeros[:, ::5] = 1.0
+    yield "+0.0 and -0.0 mixed", zeros, 128
+    # 256 of -1, 1024 of 2 and the rest 5: the cut falls among the 5s
+    cut = torch.full((4, n), 5.0, device="cuda")
+    cut[:, ::16] = 2.0
+    cut[:, 7::64] = -1.0
+    yield "copies of the k-th value on both sides of the cut", cut, 2000
+    yield "k = 1", levels, 1
+    yield "k = n", levels[:3, :5000].contiguous(), 5000
+    wide = torch.randint(0, 6, (3, 70001), generator=gen,
+                         device="cuda").to(torch.float32)
+    wide[:, ::9] = float("inf")
+    yield "odd width 70001", wide, 256
+    yield "odd width 70001, k = 1", wide, 1
+    yield "B = 1", levels[:1].contiguous(), 128
+    yield "B = 1, odd width 70001", wide[:1].contiguous(), 256
+
+
 def check_other_paths(torch):
     """Kernel paths beyond the query paths' shapes, for correctness only
-    (not timed): a tiny top-k row, several long rows and ragged widths of
-    the scan (the long-row mode serves hash tables up to 2^29 slots),
-    segments shorter than a warp and of odd lengths, lookups of a ragged
-    shape from an odd-sized table, and row gathers in every copy unit (rows
-    of 3, 6 and 12 bytes, a table that starts off a 16-byte boundary, a
-    span of 5)."""
+    (not timed): top-k rows that are hard for a select (in the mode the
+    wrapper picks and in each mode that takes them), several long rows and
+    ragged widths of the scan (the long-row mode serves hash tables up to
+    2^29 slots), segments shorter than a warp and of odd lengths, lookups
+    of a ragged shape from an odd-sized table, and row gathers in every
+    copy unit (rows of 3, 6 and 12 bytes, a table that starts off a 16-byte
+    boundary, a span of 5)."""
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.round(torch.rand((5, 3), generator=gen, device="cuda") * 50)
-    if not all(torch.equal(u, v) for u, v in zip(
-            prim.bitonic_topk(x, 3), prim.bitonic_topk_plain(x, 3))):
-        raise SmokeFailure("bitonic_topk (5,3)->3 differs")
+    for name, x, k in topk_hard_rows(torch, gen):
+        n = x.shape[1]
+        want = prim.bitonic_topk_plain(x, k)
+        got = {"default": prim.bitonic_topk(x, k)}
+        for mode in topk_modes(prim, n, k):
+            got[mode] = prim._topk_launch(x, k, prim._topk_plan(n, k, mode))
+        for mode, (v, i) in got.items():
+            if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
+                raise SmokeFailure(f"bitonic_topk {name} {tuple(x.shape)}->"
+                                   f"{k} ({mode} mode) differs")
     for b, n in ((4, 100_003), (3, 5000), (2, 31)):
         x = torch.randint(0, 9, (b, n), generator=gen, device="cuda",
                           dtype=torch.int32)
@@ -707,14 +810,18 @@ def main(json_path=None):
               f"library {r['library_ms']}  bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})  max_abs_err {r['max_abs_err']}", flush=True)
         for c in r["shapes"]:
+            other = (f"  passes' bound {c['pass_bound_ms']:.4f}  "
+                     f"{c['other_mode']} mode {c['other_mode_ms']}"
+                     if "mode" in c else "")
             print(f"    {c['case']:56s} ms {c['ms']:.4f}  plain "
                   f"{c['plain_ms']:.4f}  library {c['library_ms']}  bound "
-                  f"{c['bound_ms']:.4f}", flush=True)
+                  f"{c['bound_ms']:.4f}{other}", flush=True)
 
     check_other_paths(torch)
-    print("other kernel paths (tiny top-k row, multi-row long scans, ragged "
-          "scan widths, short and odd segments, ragged lookups, every "
-          "row-copy unit): equal to their plain versions", flush=True)
+    print("other kernel paths (hard top-k rows in every mode, multi-row long "
+          "scans, ragged scan widths, short and odd segments, ragged "
+          "lookups, every row-copy unit): equal to their plain versions",
+          flush=True)
 
     launches, summary = query_paths(torch, P)
     rows = []

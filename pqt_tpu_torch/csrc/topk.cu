@@ -1,50 +1,76 @@
-// Kernel A: per-row top-k (smallest first) by a bitonic sort in shared memory.
+// Kernel A: per-row top-k (smallest first, ties lowest index first).
 //
 // Replaces the TPU kernel pqt_tpu/ops/pallas/primitives.py:bitonic_topk,
 // which sorts 8 rows per grid step in VMEM and compares values only, so its
-// order among equal values is arbitrary.  Here one block sorts one row of
-// (value, index) pairs ordered lexicographically: ties come out lowest index
-// first, which is the order of lax.top_k and of a stable ascending sort.  The
-// port's bin enumeration therefore matches the JAX package bit for bit.
+// order among equal values is arbitrary.  Here the result is the first k of a
+// stable ascending sort: values ascending, equal values lowest index first,
+// which is the order of lax.top_k on the negated row.  The port's bin
+// enumeration therefore matches the JAX package bit for bit.
 //
-// Inputs are never NaN: they are distances, or +inf for masked slots.  A row
-// of any length n <= 16384 is padded inside the kernel to the next power of
-// two with (+inf, n + i), which sorts after every real element, real +inf
-// included.
+// Inputs are never NaN: they are distances, or +inf for masked slots (+inf is
+// a real value and sorts after every finite one).  -0.0 and +0.0 are equal
+// here, as in torch.sort, jnp.argsort and lax.sort; lax.top_k alone orders
+// -0.0 first (IEEE total order).  The port's inputs never hold -0.0: its
+// tables are clamped at 0.0 and its sums have non-negative terms.
 //
-// What bounds it on the H100: the minimum traffic is one read of the row and
-// one write of k pairs, so the bound is bytes at 3.35 TB/s.  The full sort
-// does O(n log^2 n) compare-exchanges in shared memory, which is what keeps it
-// above that bound.  The design keeps the whole row in shared memory (8 bytes
-// an element, 128 KB at n = 16384, taken as dynamic shared memory) so no
-// stage of the network touches device memory; a network that stops once the
-// first k are final is later work.
+// What bounds it on the H100: the least traffic is one read of the row and
+// one write of k (value, index) pairs, so the bound is bytes at 3.35 TB/s.
+// A full bitonic sort of the row does O(n log^2 n) compare-exchanges in
+// shared memory, 105 block-wide stages at n = 16384, and keeps 8 bytes an
+// element in shared memory (one 16384-row block per SM), far above that
+// bound.  So the kernel has two modes; the wrapper's _topk_plan picks one
+// from (n, k) (ops/cuda/primitives.py):
+//
+// * select, where k is small beside n: one block per row finds the key of
+//   the k-th smallest element by most-significant-digit-first radix passes
+//   (8-bit digits of an order-preserving uint32 key, histograms in shared
+//   memory by plain shared atomics, which measured faster here than
+//   aggregating a warp's equal digits with __match_any_sync; at most 4
+//   passes, fewer once the k-th element's bucket is taken whole), gathers
+//   the elements below it through a shared counter and the first ties in
+//   index order through a scan of per-warp tie counts, then bitonic-sorts
+//   only those k pairs.  A row of up to 32 x 512 = 16384 elements is read
+//   from device memory once and held in registers (no index array: indices
+//   are positions); a longer row (up to 2^30 elements) is read again from
+//   device memory or L2 on every pass.
+// * sort, for rows of at most 512 elements and for k above n / 2, where the
+//   select's passes lost to it on this card: the whole row, padded inside
+//   the block to a power of two with (+inf, INT_MAX), bitonic-sorted as
+//   (value, index) pairs in shared memory (n <= 16384).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ bool pair_after(float va, int ia, float vb, int ib) {
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kDigitBits = 8;
+constexpr int kBins = 1 << kDigitBits;
+constexpr int kSelectThreads = 512;        // most threads of a select block
+constexpr int kMaxWarps = kSelectThreads / 32;
+constexpr int kMaxSort = 16384;            // longest sort: 8 B a pair, 128 KB
+constexpr int kMaxSelectRow = 1 << 30;     // row positions stay inside int32
+
+__device__ __forceinline__ bool pair_after(float va, int ia, float vb,
+                                           int ib) {
   return va > vb || (va == vb && ia > ib);
 }
 
-__global__ void bitonic_topk_kernel(const float* __restrict__ x, int n,
-                                    int padded, int k,
-                                    float* __restrict__ out_v,
-                                    int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* sv = smem;
-  int* si = reinterpret_cast<int*>(smem + padded);
-  const size_t row = blockIdx.x;
-  const float* xr = x + row * n;
-  for (int t = threadIdx.x; t < padded; t += blockDim.x) {
-    sv[t] = t < n ? xr[t] : INFINITY;
-    si[t] = t;
-  }
-  __syncthreads();
-  const int half = padded >> 1;
-  for (int size = 2; size <= padded; size <<= 1) {
+// Order-preserving uint32 key of a float that is not NaN: a negative value
+// flips every bit, a non-negative one its sign bit; -0.0 takes +0.0's key.
+__device__ __forceinline__ uint32_t float_key(float v) {
+  uint32_t u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;
+  return u ^ ((u & 0x80000000u) ? 0xFFFFFFFFu : 0x80000000u);
+}
+
+// Ascending bitonic sort of len (a power of two) (value, index) pairs in
+// shared memory, by every thread of the block; ends in a barrier.
+__device__ void bitonic_sort_pairs(float* sv, int* si, int len) {
+  const int half = len >> 1;
+  for (int size = 2; size <= len; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = threadIdx.x; t < half; t += blockDim.x) {
         const int i = 2 * t - (t & (stride - 1));   // bit `stride` cleared
@@ -62,41 +88,302 @@ __global__ void bitonic_topk_kernel(const float* __restrict__ x, int n,
       __syncthreads();
     }
   }
+}
+
+// Sort mode: one block sorts one whole row, padded to `padded` elements.
+__global__ void bitonic_sort_kernel(const float* __restrict__ x, int n,
+                                    int padded, int k,
+                                    float* __restrict__ out_v,
+                                    int* __restrict__ out_i) {
+  extern __shared__ float smem[];
+  float* sv = smem;
+  int* si = reinterpret_cast<int*>(smem + padded);
+  const size_t row = blockIdx.x;
+  const float* xr = x + row * n;
+  for (int t = threadIdx.x; t < padded; t += blockDim.x) {
+    sv[t] = t < n ? xr[t] : INFINITY;
+    si[t] = t < n ? t : INT_MAX;
+  }
+  __syncthreads();
+  bitonic_sort_pairs(sv, si, padded);
   for (int t = threadIdx.x; t < k; t += blockDim.x) {
     out_v[row * k + t] = sv[t];
     out_i[row * k + t] = si[t];
   }
 }
 
-}  // namespace
+// Keys of one tile of the row: thread t holds positions base + j * blockDim
+// + t (j < ITEMS), so every load is coalesced and position order is (j,
+// warp, lane) order.
+template <int ITEMS>
+__device__ __forceinline__ void load_keys(const float* __restrict__ xr, int n,
+                                          int base, uint32_t (&key)[ITEMS]) {
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int idx = base + j * blockDim.x + threadIdx.x;
+    key[j] = idx < n ? float_key(__ldg(xr + idx)) : 0u;
+  }
+}
 
-// Longest row one block sorts (the wrapper's TOPK_MAX_ROW).
-constexpr int kMaxRow = 16384;
+// Select mode: one block per row.  RESIDENT: the row fits one tile of ITEMS
+// x blockDim keys, loaded once; otherwise every pass walks the row tile by
+// tile.  blockDim is a multiple of 32 (whole warps vote).
+template <int ITEMS, bool RESIDENT>
+__global__ void __launch_bounds__(kSelectThreads, 2)
+radix_select_kernel(const float* __restrict__ x, int n, int k, int sort_len,
+                    float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ float smem[];
+  float* sv = smem;
+  int* si = reinterpret_cast<int*>(smem + sort_len);
+  __shared__ int hist[kBins];
+  __shared__ int tie_base[ITEMS * kMaxWarps];
+  __shared__ int s_bucket, s_before, s_count, s_slot, s_ties;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int tile = ITEMS * blockDim.x;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const size_t row = blockIdx.x;
+  const float* xr = x + row * n;
+
+  uint32_t key[ITEMS];
+  if (RESIDENT) load_keys<ITEMS>(xr, n, 0, key);
+
+  // 1. The k-th smallest key, digit by digit from the top: bits [shift, 32)
+  //    of it are `prefix`'s, and it is the need-th smallest of the keys that
+  //    share those bits.
+  uint32_t prefix = 0;
+  int shift = 32;
+  int need = k;
+  for (int pass = 0; pass < 32 / kDigitBits; ++pass) {
+    const int lo = shift - kDigitBits;
+    for (int b = tid; b < kBins; b += blockDim.x) hist[b] = 0;
+    __syncthreads();
+    for (int base = 0; base < n; base += tile) {
+      if (!RESIDENT) load_keys<ITEMS>(xr, n, base, key);
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        const int idx = base + j * blockDim.x + tid;
+        const bool live = idx < n && (shift == 32 ||
+                                      (key[j] >> shift) == (prefix >> shift));
+        // a row read tile by tile runs faster when warps without a live
+        // key skip the item whole (measured); a resident row, slower
+        if (!RESIDENT && __ballot_sync(kFull, live) == 0) continue;
+        if (live) atomicAdd(&hist[(key[j] >> lo) & (kBins - 1)], 1);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      constexpr int kPerLane = kBins / 32;
+      int c[kPerLane];
+      int sum = 0;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        c[i] = hist[lane * kPerLane + i];
+        sum += c[i];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      int run = incl - sum;
+      if (run < need && need <= incl) {
+        for (int i = 0; i < kPerLane; ++i) {
+          if (need <= run + c[i]) {
+            s_bucket = lane * kPerLane + i;
+            s_before = run;
+            s_count = c[i];
+            break;
+          }
+          run += c[i];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (uint32_t)s_bucket << lo;
+    need -= s_before;
+    shift = lo;
+    const bool whole = need == s_count;    // the bucket is taken whole
+    __syncthreads();                       // s_* and hist are written again
+    if (whole) break;
+  }
+
+  // 2. Collect: every key whose known bits are below the cut, in any order,
+  //    to slots [0, less); then the first `need` keys equal to it in
+  //    position order to slots [less, k).
+  const int less = k - need;
+  const uint32_t cut = prefix >> shift;     // shift < 32 after one pass
+  if (tid == 0) {
+    s_slot = 0;
+    s_ties = 0;
+  }
+  for (int t = k + tid; t < sort_len; t += blockDim.x) {
+    sv[t] = INFINITY;
+    si[t] = INT_MAX;
+  }
+  __syncthreads();
+  for (int base = 0; base < n; base += tile) {
+    if (!RESIDENT) load_keys<ITEMS>(xr, n, base, key);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int idx = base + j * blockDim.x + tid;
+      const bool valid = idx < n;
+      const uint32_t hi = key[j] >> shift;
+      const bool below = valid && hi < cut;
+      const unsigned b = __ballot_sync(kFull, below);
+      if (b) {
+        const int leader = __ffs(b) - 1;
+        int slot = 0;
+        if (lane == leader) slot = atomicAdd(&s_slot, __popc(b));
+        slot = __shfl_sync(kFull, slot, leader) + __popc(b & lanes_below);
+        if (below) {
+          sv[slot] = __ldg(xr + idx);
+          si[slot] = idx;
+        }
+      }
+      const unsigned e = __ballot_sync(kFull, valid && hi == cut);
+      if (lane == 0) tie_base[j * nwarps + warp] = __popc(e);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // exclusive scan of the (item, warp) tie counts, which is position
+      // order, continuing from the ties of the earlier tiles
+      const int cells = ITEMS * nwarps;
+      const int per = (cells + 31) / 32;
+      const int c0 = min(cells, lane * per), c1 = min(cells, c0 + per);
+      int sum = 0;
+      for (int c = c0; c < c1; ++c) sum += tie_base[c];
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      const int earlier = s_ties;
+      int run = earlier + incl - sum;
+      for (int c = c0; c < c1; ++c) {
+        const int v = tie_base[c];
+        tie_base[c] = run;
+        run += v;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      __syncwarp();
+      if (lane == 0) s_ties = earlier + total;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int idx = base + j * blockDim.x + tid;
+      const bool tie = idx < n && (key[j] >> shift) == cut;
+      const unsigned e = __ballot_sync(kFull, tie);
+      if (tie) {
+        const int rank = tie_base[j * nwarps + warp] + __popc(e & lanes_below);
+        if (rank < need) {
+          sv[less + rank] = __ldg(xr + idx);
+          si[less + rank] = idx;
+        }
+      }
+    }
+    __syncthreads();                       // tie_base is rewritten
+  }
+
+  // 3. Sort the k survivors (padded with (+inf, INT_MAX)) and write them.
+  bitonic_sort_pairs(sv, si, sort_len);
+  for (int t = tid; t < k; t += blockDim.x) {
+    out_v[row * k + t] = sv[t];
+    out_i[row * k + t] = si[t];
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
-// x: (rows, n) float32, 1 <= k <= n <= kMaxRow.  Writes (rows, k) values and
-// int32 column indices.  Returns the CUDA error code of the launch (0 =
-// success).  The dynamic shared-memory limit is raised once per device, to
-// what the longest row needs, not on every launch.
-extern "C" int pqt_bitonic_topk(const float* x, int rows, int n, int k,
-                                float* out_v, int* out_i, void* stream) {
+// Dynamic shared memory for the longest sort: 128 KB, above the 48 KB a
+// kernel gets without asking.
+template <typename Kernel>
+cudaError_t allow_sort_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSort * (int)(sizeof(float) + sizeof(int)));
+}
+
+// Raise the dynamic shared-memory limit of every variant, once per device.
+cudaError_t configure() {
   static bool configured[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidValue;
+  if (configured[dev]) return cudaSuccess;
+  const cudaError_t errs[] = {
+      allow_sort_smem(bitonic_sort_kernel),
+      allow_sort_smem(radix_select_kernel<4, true>),
+      allow_sort_smem(radix_select_kernel<8, true>),
+      allow_sort_smem(radix_select_kernel<16, true>),
+      allow_sort_smem(radix_select_kernel<32, true>),
+      allow_sort_smem(radix_select_kernel<32, false>)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  configured[dev] = true;
+  return cudaSuccess;
+}
+
+bool power_of_two(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+}  // namespace
+
+// x: (rows, n) float32; writes (rows, k) values and int32 column indices.
+// mode 0 (sort): threads <= 1024, sort_len the power of two >= n, n <=
+// 16384.  mode 1 (select): `items` keys a thread (4, 8, 16 or 32, and 32
+// for a row longer than items * threads), threads a multiple of 32 up to
+// 512, sort_len the power of two >= k, k <= 16384, n <= 2^30.  The wrapper
+// (_topk_plan) picks these.  Returns the CUDA error code of the launch (0 =
+// success).
+extern "C" int pqt_topk(const float* x, int rows, int n, int k, int mode,
+                        int items, int threads, int sort_len, float* out_v,
+                        int* out_i, void* stream) {
+  if (rows < 1 || k < 1 || k > n || !power_of_two(sort_len) ||
+      sort_len > kMaxSort)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
-  if (n > kMaxRow || dev >= kMaxDevices) return (int)cudaErrorInvalidValue;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        bitonic_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kMaxRow * (sizeof(float) + sizeof(int))));
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
+  const size_t smem = (size_t)sort_len * (sizeof(float) + sizeof(int));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 0) {
+    if (n > sort_len || threads < 1 || threads > 1024)
+      return (int)cudaErrorInvalidValue;
+    bitonic_sort_kernel<<<rows, threads, smem, s>>>(x, n, sort_len, k, out_v,
+                                                    out_i);
+    return (int)cudaGetLastError();
   }
-  int padded = 2;
-  while (padded < n) padded <<= 1;
-  const size_t smem = (size_t)padded * (sizeof(float) + sizeof(int));
-  const int threads = padded / 2 < 1024 ? padded / 2 : 1024;
-  bitonic_topk_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
-      x, n, padded, k, out_v, out_i);
+  if (mode != 1 || k > sort_len || n > kMaxSelectRow || threads % 32 ||
+      threads < 32 || threads > kSelectThreads)
+    return (int)cudaErrorInvalidValue;
+  const bool resident = (long long)items * threads >= n;
+  switch (resident ? items : -items) {
+    case 4:
+      radix_select_kernel<4, true><<<rows, threads, smem, s>>>(
+          x, n, k, sort_len, out_v, out_i);
+      break;
+    case 8:
+      radix_select_kernel<8, true><<<rows, threads, smem, s>>>(
+          x, n, k, sort_len, out_v, out_i);
+      break;
+    case 16:
+      radix_select_kernel<16, true><<<rows, threads, smem, s>>>(
+          x, n, k, sort_len, out_v, out_i);
+      break;
+    case 32:
+      radix_select_kernel<32, true><<<rows, threads, smem, s>>>(
+          x, n, k, sort_len, out_v, out_i);
+      break;
+    case -32:
+      radix_select_kernel<32, false><<<rows, threads, smem, s>>>(
+          x, n, k, sort_len, out_v, out_i);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype).
 _SIGNATURES = {
-    "topk": {"pqt_bitonic_topk": ((_P, _I, _I, _I, _P, _P, _P), _I)},
+    "topk": {"pqt_topk": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+                          _I)},
     "scan": {"pqt_scan_tile": ((), _I),
              "pqt_block_scan_rows": ((_P, _I, _I, _I, _P, _P), _I),
              "pqt_block_scan_long": ((_P, _I, _I, _I, _P, _P, _P, _P), _I)},

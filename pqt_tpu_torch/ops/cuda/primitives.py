@@ -12,14 +12,28 @@ Each wrapper counts its launches in its `launches` attribute.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from pqt_tpu_torch.ops.cuda import build
 
-# Longest row kernel A sorts in one block: 8 bytes an element in shared
-# memory, 128 KB at 16384 (a Hopper block may take 227 KB).
-TOPK_MAX_ROW = 16384
+# Kernel A's limits and its choice between modes (csrc/topk.cu).  One block
+# sorts at most TOPK_SORT_MAX (value, index) pairs in shared memory (8 bytes
+# a pair, 128 KB): the whole row in sort mode, the k survivors in select
+# mode.  Select mode takes rows up to TOPK_SELECT_MAX_ROW elements, held in
+# registers up to TOPK_SELECT_ITEMS[-1] x TOPK_SELECT_THREADS = 16384 and
+# read again on every pass above that.
+TOPK_SORT_MAX = 16384
+TOPK_SELECT_MAX_ROW = 1 << 30
+TOPK_SELECT_THREADS = 512
+TOPK_SELECT_ITEMS = (4, 8, 16, 32)
+TOPK_DIGIT_BITS = 8
+# Rows of at most TOPK_SORT_ROW elements, and k above n / 2, sort the whole
+# row: on the H100 the full sort beat the select's passes there, and lost
+# to them on longer rows with k <= n / 2 (chip_smoke.py times both modes at
+# every top-k shape; PERF.md).
+TOPK_SORT_ROW = 512
 # Rows longer than this take the three-pass long-row scan.
 SCAN_ROWS_MAX = 16384
 
@@ -47,35 +61,83 @@ def bitonic_topk_plain(x: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k].to(torch.int32)
 
 
-def bitonic_topk(x: torch.Tensor, k: int):
-    """Per-row smallest-k (values, int32 indices) of a (B, N) float32 array.
+class TopkPlan(NamedTuple):
+    """How kernel A runs a (rows, n) -> k call."""
+    mode: str       # "sort" (the whole row) or "select" (radix select + sort)
+    items: int      # keys a select thread holds per tile (0 in sort mode)
+    threads: int    # threads of a block (one block per row)
+    sort_len: int   # pairs the block sorts: n or k, up to a power of two
 
-    Values come out ascending and ties lowest index first, like `lax.top_k`
-    of the negated row and a stable ascending sort.  Inputs must not be NaN.
-    On the card a row may hold up to TOPK_MAX_ROW elements, any N below it.
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(1, (v - 1).bit_length())
+
+
+def _topk_plan(n: int, k: int, mode: Optional[str] = None) -> TopkPlan:
+    """Kernel A's mode and launch shape for rows of n elements, k kept.
+
+    Sort mode for rows of at most TOPK_SORT_ROW elements and for k above
+    n / 2, select mode otherwise; `mode` forces one.  Raises
+    NotImplementedError for what neither mode takes: a sort of more than
+    TOPK_SORT_MAX elements, or a row longer than TOPK_SELECT_MAX_ROW.
     """
-    B, N = x.shape
-    if not 1 <= k <= N:
-        raise ValueError(f"bitonic_topk: k={k} outside [1, {N}]")
-    if x.device.type == "cpu":
-        return bitonic_topk_plain(x, k)
-    _check_input(x, torch.float32, "bitonic_topk")
-    if N > TOPK_MAX_ROW:
+    if not 1 <= k <= n:
+        raise ValueError(f"bitonic_topk: k={k} outside [1, {n}]")
+    if mode is None:
+        short = n <= TOPK_SORT_ROW or 2 * k > n
+        mode = "sort" if short and n <= TOPK_SORT_MAX else "select"
+    if mode == "sort":
+        if n > TOPK_SORT_MAX:
+            raise NotImplementedError(
+                f"bitonic_topk: a sort of rows of {n} > {TOPK_SORT_MAX} "
+                "elements")
+        sort_len = _pow2_at_least(n)
+        return TopkPlan("sort", 0, min(1024, sort_len // 2), sort_len)
+    if mode != "select":
+        raise ValueError(f"bitonic_topk: unknown mode {mode!r}")
+    if k > TOPK_SORT_MAX or n > TOPK_SELECT_MAX_ROW:
         raise NotImplementedError(
-            f"bitonic_topk: rows of {N} > {TOPK_MAX_ROW} elements, such as "
-            "SIFT1B_CONFIG's (k1_query * c2)^2 = 65536 pair grid, come with "
-            "the slice that serves SIFT1B (ROADMAP.md queue 1)")
+            f"bitonic_topk: k={k} of rows of {n} elements (select mode keeps "
+            f"k <= {TOPK_SORT_MAX} of rows up to {TOPK_SELECT_MAX_ROW})")
+    items = next((i for i in TOPK_SELECT_ITEMS
+                  if n <= i * TOPK_SELECT_THREADS), TOPK_SELECT_ITEMS[-1])
+    needed = -(-n // items)                   # threads that hold the row
+    threads = min(TOPK_SELECT_THREADS, 32 * -(-needed // 32))
+    return TopkPlan("select", items, threads, _pow2_at_least(k))
+
+
+def _topk_launch(x: torch.Tensor, k: int, plan: TopkPlan):
+    """Launch kernel A on a contiguous (B, N) float32 CUDA tensor."""
+    B, N = x.shape
     out_v = torch.empty((B, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=x.device)
     if B == 0:
         return out_v, out_i
     lib = build.load("topk")
     with torch.cuda.device(x.device):
-        err = lib.pqt_bitonic_topk(_ptr(x), B, N, k, _ptr(out_v),
-                                   _ptr(out_i), _stream(x))
+        err = lib.pqt_topk(_ptr(x), B, N, k, int(plan.mode == "select"),
+                           plan.items, plan.threads, plan.sort_len,
+                           _ptr(out_v), _ptr(out_i), _stream(x))
     build.check(err, "bitonic_topk")
     bitonic_topk.launches += 1
     return out_v, out_i
+
+
+def bitonic_topk(x: torch.Tensor, k: int):
+    """Per-row smallest-k (values, int32 indices) of a (B, N) float32 array.
+
+    Values come out ascending and ties lowest index first, like `lax.top_k`
+    of the negated row and a stable ascending sort (-0.0 and +0.0 equal, as
+    in the sort).  Inputs must not be NaN.  On the card the kernel runs in
+    the mode `_topk_plan` picks; any N up to TOPK_SELECT_MAX_ROW, with k up
+    to TOPK_SORT_MAX where N is above that too.
+    """
+    _, N = x.shape
+    plan = _topk_plan(N, k)
+    if x.device.type == "cpu":
+        return bitonic_topk_plain(x, k)
+    _check_input(x, torch.float32, "bitonic_topk")
+    return _topk_launch(x, k, plan)
 
 
 bitonic_topk.launches = 0

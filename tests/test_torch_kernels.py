@@ -22,8 +22,10 @@ import pqt_tpu.utils.cache
 from pqt_tpu.models.db import pack_payload_compact
 from pqt_tpu.ops.pallas import primitives as PP
 from pqt_tpu.ops.pallas.rerank import BLOCK, rerank_fused as pallas_rerank
+from pqt_tpu_torch.ops.cuda import primitives as prim
 from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
-from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk, block_scan,
+from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk,
+                                               bitonic_topk_plain, block_scan,
                                                segmented_reduce)
 from pqt_tpu_torch.ops.cuda.rerank import rerank_fused
 
@@ -64,6 +66,167 @@ def test_topk_non_power_of_two_row():
     got_v, got_i = bitonic_topk(torch.from_numpy(x), 100)
     np.testing.assert_array_equal(got_v.numpy(), -np.asarray(neg))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(lax_i))
+
+
+# (rows, n, k) of every top-k call on the query paths at batch 256, and at
+# SIFT1B_CONFIG's widths, with the mode kernel A takes there.
+TOPK_SHAPES = {
+    "l1_select": ((1024, 16, 8), "sort"),
+    "pair_select": ((512, 16384, 128), "select"),
+    "pair_filter_resort": ((512, 128, 128), "sort"),
+    "part_sort": ((1024, 128, 128), "sort"),
+    "final_topk": ((256, 1024, 100), "select"),
+    "refine_line_topk": ((256, 1024, 800), "sort"),
+    "refine_exact_topk": ((256, 800, 100), "select"),
+    "sift1b_pair_select": ((512, 65536, 256), "select"),
+    "sift1b_final_topk": ((256, 8192, 100), "select"),
+    "sift1b_refine_line_topk": ((256, 8192, 800), "select"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOPK_SHAPES))
+def test_topk_plan_picks_the_mode(name):
+    (_, n, k), mode = TOPK_SHAPES[name]
+    plan = prim._topk_plan(n, k)
+    assert plan.mode == mode
+    assert plan.sort_len >= (n if mode == "sort" else k)
+    assert plan.sort_len & (plan.sort_len - 1) == 0
+    assert plan.sort_len <= prim.TOPK_SORT_MAX
+    if mode == "select":
+        # whole warps, and a row of up to 16384 held in one tile
+        assert plan.threads % 32 == 0
+        assert plan.threads <= prim.TOPK_SELECT_THREADS
+        assert (plan.items * plan.threads >= n) == (n <= 16384)
+
+
+def test_topk_plan_limits():
+    """Rows above 16384 elements take select mode; what neither mode takes
+    raises."""
+    for n in (16385, 65536, 70001, prim.TOPK_SELECT_MAX_ROW):
+        assert prim._topk_plan(n, 256).mode == "select"
+        with pytest.raises(NotImplementedError):
+            prim._topk_plan(n, 256, "sort")
+    with pytest.raises(NotImplementedError):
+        prim._topk_plan(70001, 16385)
+    with pytest.raises(NotImplementedError):
+        prim._topk_plan(prim.TOPK_SELECT_MAX_ROW + 1, 1)
+    with pytest.raises(ValueError):
+        prim._topk_plan(16, 17)
+    x = torch.zeros((2, 70001))
+    with pytest.raises(NotImplementedError):
+        bitonic_topk(x, 16385)
+    assert bitonic_topk(x, 3)[1].tolist() == [[0, 1, 2]] * 2
+
+
+def _float_keys(x):
+    """csrc/topk.cu's order-preserving key: a negative float flips every
+    bit, a non-negative one its sign bit; -0.0 takes +0.0's key."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    return np.where(u >> 31, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _select_model(x, k, seed=0):
+    """Select mode as csrc/topk.cu runs it, row by row: the k-th smallest
+    key by 8-bit digits from the top (stopping once its bucket is taken
+    whole), every key below the cut in any order, the first ties in
+    position order, then a sort of the k pairs by (value, position)."""
+    rng = np.random.default_rng(seed)
+    bits, bins = prim.TOPK_DIGIT_BITS, 1 << prim.TOPK_DIGIT_BITS
+    out_v, out_i = [], []
+    for row in x:
+        key = _float_keys(row).astype(np.int64)
+        prefix, shift, need = 0, 32, k
+        while shift > 0:
+            lo = shift - bits
+            live = (key >> shift) == (prefix >> shift)
+            hist = np.bincount((key[live] >> lo) & (bins - 1),
+                               minlength=bins)
+            incl = np.cumsum(hist)
+            bucket = int(np.searchsorted(incl, need))  # first incl >= need
+            before = int(incl[bucket] - hist[bucket])
+            prefix |= bucket << lo
+            need -= before
+            shift = lo
+            if need == hist[bucket]:
+                break
+        cut = prefix >> shift
+        below = np.flatnonzero((key >> shift) < cut)
+        ties = np.flatnonzero((key >> shift) == cut)[:need]
+        assert below.size == k - need and ties.size == need
+        taken = np.concatenate([rng.permutation(below), ties])
+        order = np.lexsort((taken, row[taken]))      # value, then position
+        out_v.append(row[taken[order]])
+        out_i.append(taken[order].astype(np.int32))
+    return np.stack(out_v), np.stack(out_i)
+
+
+def _tie_heavy(rng, b, n):
+    """Values from a handful of levels, some of them negative, with +inf
+    mixed in."""
+    levels = np.array([-2.5, 0.5, 1.0, 3.0, 1e4], np.float32)
+    x = levels[rng.integers(0, levels.size, (b, n))]
+    x[rng.random((b, n)) < 0.1] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("b,n,k", [(4, 1024, 100), (4, 800, 100),
+                                   (2, 16384, 128), (2, 8192, 800),
+                                   (2, 65536, 256), (3, 4096, 1),
+                                   (3, 300, 300), (2, 4096, 3000)])
+def test_select_model_matches_lax_top_k(b, n, k):
+    """The model of select mode equals lax.top_k of the negated row and the
+    plain version, values and positions, on tie-heavy rows: the cut falls
+    among many copies of the k-th value."""
+    rng = np.random.default_rng(b * n + k)
+    x = _tie_heavy(rng, b, n)
+    got_v, got_i = _select_model(x, k, seed=k)
+    neg, lax_i = jax.lax.top_k(-jnp.asarray(x), k)
+    np.testing.assert_array_equal(got_v, -np.asarray(neg))
+    np.testing.assert_array_equal(got_i, np.asarray(lax_i))
+    plain_v, plain_i = bitonic_topk_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got_v, plain_v.numpy())
+    np.testing.assert_array_equal(got_i, plain_i.numpy())
+
+
+@pytest.mark.parametrize("fill", [3.0, np.inf])
+def test_select_model_on_constant_rows(fill):
+    """Every key equal: all four digit passes run and the cut takes the
+    first k positions."""
+    x = np.full((2, 4096), fill, np.float32)
+    got_v, got_i = _select_model(x, 128)
+    np.testing.assert_array_equal(got_i, np.tile(np.arange(128), (2, 1)))
+    np.testing.assert_array_equal(got_v, x[:, :128])
+
+
+def test_topk_plain_matches_lax_top_k_on_sift1b_rows():
+    """The plain version at SIFT1B_CONFIG's pair grid: (4, 65536) -> 256."""
+    rng = np.random.default_rng(65536)
+    x = np.round(rng.uniform(0, 50, (4, 65536))).astype(np.float32)
+    x[:, ::11] = np.inf
+    neg, lax_i = jax.lax.top_k(-jnp.asarray(x), 256)
+    got_v, got_i = bitonic_topk(torch.from_numpy(x), 256)
+    np.testing.assert_array_equal(got_v.numpy(), -np.asarray(neg))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(lax_i))
+
+
+def test_topk_signed_zeros_are_one_key():
+    """-0.0 and +0.0 share one key, so they tie and come out lowest
+    position first, as in the plain version (torch.sort) and jnp.argsort;
+    lax.top_k alone would order -0.0 first.  The port's inputs never hold
+    -0.0 (clamped tables, sums of non-negative terms)."""
+    zero = np.array([0.0, -0.0], np.float32)
+    assert _float_keys(zero)[0] == _float_keys(zero)[1]
+    assert _float_keys(np.array([-1e-30], np.float32))[0] < \
+        _float_keys(zero)[0] < _float_keys(np.array([1e-30], np.float32))[0]
+    x = np.array([[1.0, 0.0, -0.0, 0.0, -0.0, -0.0, 2.0, -1.0]], np.float32)
+    want = [7, 1, 2, 3, 4, 5]
+    _, model_i = _select_model(x, 6)
+    _, plain_i = bitonic_topk_plain(torch.from_numpy(x), 6)
+    assert model_i[0].tolist() == want
+    assert plain_i[0].tolist() == want
+    assert np.asarray(jnp.argsort(jnp.asarray(x[0]), stable=True)
+                      )[:6].tolist() == want
 
 
 @pytest.mark.parametrize("shape", [(8, 512), (1, 1 << 20)])
