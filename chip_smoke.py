@@ -14,9 +14,13 @@ Phases (any failure exits non-zero before the last line is printed):
      row gathers exact; line re-rank within rtol 1e-5, atol 1e-4; segment
      sums within rtol 1e-5, atol 1e-3), and times kernel, plain version and
      the one PyTorch call computing the same function by their device time
-     (torch.profiler).  The top-k also runs at SIFT1B_CONFIG's widths, in
-     the mode its wrapper picks and in the other mode where that takes the
-     shape (both held and timed), and on rows that are hard for a select;
+     (torch.profiler), beside the launch floor (a one-element fill_).  The
+     top-k, the prefix sums and the lookups also run at SIFT1B_CONFIG's
+     widths (2^29-slot tables: about 10 GiB of device memory at the peak);
+     top-k and prefix sums run in the mode their wrapper picks and in every
+     other mode that takes the shape (all held and timed), the lookups
+     with a sectors' bound beside the byte bound; then the kernels are
+     held on inputs that are hard for them (not timed);
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -174,6 +178,17 @@ def topk_modes(prim, n, k):
             if size <= prim.TOPK_SORT_MAX]
 
 
+def scan_plans(prim, rows, n):
+    """Kernel B's plans, one a mode, for every mode that takes (rows, n)."""
+    plans = []
+    for mode in ("rows", "onepass"):
+        try:
+            plans.append(prim._scan_plan(rows, n, mode))
+        except NotImplementedError:
+            pass
+    return plans
+
+
 def radix_passes(torch, x, k, digit_bits):
     """Histogram passes kernel A's select mode makes over each row of x, as
     csrc/topk.cu makes them: digits of the order-preserving key, most
@@ -208,21 +223,33 @@ def radix_passes(torch, x, k, digit_bits):
 
 
 def scan_cases(torch, gen):
-    b, nb = 256, 512
-    capped = torch.randint(0, 1025, (b, nb), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    flags = torch.randint(0, 2, (b, nb), generator=gen, device="cuda",
-                          dtype=torch.int32)
-    counts = torch.poisson(torch.ones(1 << 20, device="cuda"),
-                           generator=gen).to(torch.int32)[None, :]
-    yield "candidate_prefix", (capped, False), (b, nb)
-    yield "probe_compaction", (flags, True), (b, nb)
-    for name, e in (("filter_compaction", 2048), ("survivor_compaction",
-                                                   768)):
-        f = torch.randint(0, 2, (b, e), generator=gen, device="cuda",
-                          dtype=torch.int32)
-        yield name, (f, True), (b, e)
-    yield "csr_prefix", (counts.contiguous(), False), (1, 1 << 20)
+    """The prefix sums of the paths at batch 256 (512 probed bins, 2048
+    enumerated and 768 surviving slots, the 2^20-slot CSR prefix), then
+    SIFT1B_CONFIG's (8192 probed bins, 32768 enumerated slots, 2^29 slots).
+    Tensors are made in the yield, so none outlives its case here."""
+    b = 256
+
+    def capped(n):      # per-bin candidate counts, capped at 1024
+        return torch.randint(0, 1025, (b, n), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def flags(n):       # 0/1 keep flags of a compaction
+        return torch.randint(0, 2, (b, n), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    yield "candidate_prefix", (capped(512), False), (b, 512)
+    yield "probe_compaction", (flags(512), True), (b, 512)
+    yield "filter_compaction", (flags(2048), True), (b, 2048)
+    yield "survivor_compaction", (flags(768), True), (b, 768)
+    yield "csr_prefix", (torch.poisson(
+        torch.ones(1 << 20, device="cuda"), generator=gen).to(
+            torch.int32)[None, :].contiguous(), False), (1, 1 << 20)
+    yield "sift1b_candidate_prefix", (capped(8192), False), (b, 8192)
+    yield "sift1b_compaction", (flags(32768), True), (b, 32768)
+    # bin occupancy counts of mean 1 over 2^29 slots (2 GiB)
+    yield "sift1b_csr_prefix", (torch.randint(
+        0, 3, (1, 1 << 29), generator=gen, device="cuda",
+        dtype=torch.int32), False), (1, 1 << 29)
 
 
 def rerank_cases(torch, gen):
@@ -258,19 +285,31 @@ def reduce_cases(torch, gen):
 def lut_cases(torch, gen):
     """The lookups of the parts path at batch 256 (p = 4, base 16, 2048
     enumerated bins, 768 filter survivors, 512 probed bins): the uint8 pair
-    table of one pair, the 2^20-slot occupancy counts and CSR starts."""
-    pair_occ = (torch.rand(1 << 16, generator=gen, device="cuda") < 0.3
+    table, first one pair's 65536 cells at (256, 256) as earlier runs timed
+    it, then as the pair filter calls it, both pairs' 128 KB at (256, 2 x
+    256); the 2^20-slot occupancy counts and CSR starts; then
+    SIFT1B_CONFIG's 2^29-slot (2 GiB) counts at 32768 enumerated bins and
+    CSR starts at 8192 probed bins."""
+    pair_occ = (torch.rand(2 << 16, generator=gen, device="cuda") < 0.3
                 ).to(torch.uint8)
     counts = torch.poisson(torch.ones(1 << 20, device="cuda"),
                            generator=gen).to(torch.int32)
     prefix = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
-    for name, table, e in (("pair_occ", pair_occ, 256),
+    for name, table, e in (("pair_occ", pair_occ[:1 << 16], 256),
+                           ("pair_occ_both_pairs", pair_occ, 2 * 256),
                            ("counts_unfiltered", counts, 2048),
                            ("counts_filtered", counts, 768),
                            ("prefix", prefix, 512)):
         idx = torch.randint(0, table.shape[0], (256, e), generator=gen,
                             device="cuda", dtype=torch.int32)
         yield name, (table.contiguous(), idx), (256, e)
+    del pair_occ, counts, prefix
+    big = torch.randint(0, 3, (1 << 29,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for name, e in (("sift1b_counts", 32768), ("sift1b_prefix", 8192)):
+        yield name, (big, torch.randint(0, 1 << 29, (256, e), generator=gen,
+                                        device="cuda", dtype=torch.int32)), \
+            (256, e)
 
 
 def gather_cases(torch, gen):
@@ -304,6 +343,10 @@ def check_kernels(torch):
     results = {}
     # the first profiler session of a process may record no device events
     device_ms(torch, lambda: torch.ones(8, device="cuda") + 1, reps=1)
+    # the least device time a launch shows: a shape at it is at the floor
+    floor = device_ms(torch, lambda: torch.empty(1, device="cuda").fill_(0))
+    print(f"launch floor (device ms of a one-element fill_) {floor:.4f}",
+          flush=True)
 
     def record(name, route_src, replaces, case, ms, plain_ms, lib_ms, b_ms,
                b_by, err, **extra):
@@ -365,21 +408,34 @@ def check_kernels(torch):
                if alt else None)
 
     for case, (x, excl), (b, n) in scan_cases(torch, gen):
-        got = prim.block_scan(x, excl)
+        # the mode the wrapper picks, and every other mode that takes the
+        # shape: each is held against the plain version, each is timed
+        plan = prim._scan_plan(b, n)
+        others = [p for p in scan_plans(prim, b, n) if p.mode != plan.mode]
         want = prim.block_scan_plain(x, excl)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise SmokeFailure(f"block_scan {case}: differs from the plain "
-                               "version")
+        for p in [plan] + others:
+            got = (prim.block_scan(x, excl) if p is plan
+                   else prim._scan_launch(x, excl, p))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SmokeFailure(f"block_scan {case} in {p.mode} mode: "
+                                   "differs from the plain version")
+        del got, want
         b_ms, b_by = bound(2 * b * n * 4, b * n)
         record("block_scan", "pqt_tpu_torch/csrc/scan.cu",
                "pqt_tpu/ops/pallas/primitives.py:115",
-               f"{case} ({b},{n}) {'exclusive' if excl else 'inclusive'}",
+               f"{case} ({b},{n}) {'exclusive' if excl else 'inclusive'} "
+               f"{plan.mode}",
                device_ms(torch, lambda: prim.block_scan(x, excl)),
                device_ms(torch, lambda: prim.block_scan_plain(x, excl)),
                device_ms(torch,
                          lambda: torch.cumsum(x, -1, dtype=torch.int32)),
-               b_ms, b_by, 0.0)
+               b_ms, b_by, 0.0, mode=plan.mode,
+               other_modes={p.mode: device_ms(
+                   torch, lambda: prim._scan_launch(x, excl, p))
+                   for p in others})
+        del x
+        torch.cuda.empty_cache()
 
     for case, (rows, q), (b, k, w, lp, c1) in rerank_cases(torch, gen):
         got = rr.rerank_fused(rows, q)
@@ -420,15 +476,22 @@ def check_kernels(torch):
         if not torch.equal(got, want):
             raise SmokeFailure(f"lut_gather {case}: differs from the plain "
                                "version")
+        del got, want
         es = table.element_size()
-        touched = int(torch.unique(idx).numel())
-        b_ms, b_by = bound(b * e * 4 + b * e * es + touched * es, 0)
+        touched = torch.unique(idx)
+        # a random lookup moves the whole 32-byte sector it falls in
+        sectors = int(torch.unique(touched * es // 32).numel())
+        b_ms, b_by = bound(b * e * 4 + b * e * es + touched.numel() * es, 0)
         record("lut_gather", "pqt_tpu_torch/csrc/lut.cu",
                "benchmarks/micro_gather.py:32",
                f"{case} ({table.shape[0]},) {table.dtype} at ({b},{e})",
                device_ms(torch, lambda: ga.lut_gather(table, idx)),
                device_ms(torch, lambda: ga.lut_gather_plain(table, idx)),
-               device_ms(torch, lambda: table[idx]), b_ms, b_by, 0.0)
+               device_ms(torch, lambda: table[idx]), b_ms, b_by, 0.0,
+               sector_bound_ms=bound(b * e * 4 + b * e * es + sectors * 32,
+                                     0)[0])
+        del table, idx, touched
+        torch.cuda.empty_cache()
 
     for case, (tab, pos, span), (b, k, _) in gather_cases(torch, gen):
         got = ga.gather_rows(tab, pos, span)
@@ -453,7 +516,7 @@ def check_kernels(torch):
                device_ms(torch, lambda: ga.gather_rows(tab, pos, span)),
                device_ms(torch, lambda: ga.gather_rows_plain(tab, pos, span)),
                device_ms(torch, lambda: tab[full]), b_ms, b_by, 0.0)
-    return results
+    return results, floor
 
 
 def profile_batch(torch, fn, x, reps=3):
@@ -517,15 +580,66 @@ def topk_hard_rows(torch, gen):
     yield "B = 1, odd width 70001", wide[:1].contiguous(), 256
 
 
+def scan_hard_rows(torch, gen):
+    """Rows on which a scan is easiest to get wrong: (name, x)."""
+    def ints(shape, hi=9):
+        return torch.randint(0, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+    yield "look-back across many tiles, rows > 1", ints((3, 5_000_011))
+    yield "several long rows", ints((4, 100_003))
+    yield "ragged width", ints((3, 70_001))
+    yield "short rows", ints((3, 5000))
+    yield "rows shorter than a warp", ints((2, 31))
+    yield "one element", ints((5, 1))
+    yield "all zero, long", torch.zeros((2, 1 << 20), dtype=torch.int32,
+                                        device="cuda")
+    yield "all zero, short", torch.zeros((256, 512), dtype=torch.int32,
+                                         device="cuda")
+    for b, n in ((1, 1 << 20), (2, 4096)):
+        top = torch.full((b, n), (1 << 31) // n, dtype=torch.int32,
+                         device="cuda")
+        top[:, -1] -= 1
+        yield f"row sum 2^31 - 1 at {n}", top
+    # an input 4 bytes past a 16-byte boundary: every load is scalar
+    flat = ints((3 * 70_001 + 1,))
+    yield "input off a 16-byte boundary", flat[1:].view(3, 70_001)
+
+
+def lut_hard_cases(torch, gen):
+    """Lookups that are easiest to get wrong: (name, table, idx)."""
+    for dtype in (torch.int32, torch.uint8):
+        table = torch.randint(0, 99, (1001,), generator=gen,
+                              device="cuda").to(dtype)
+        yield f"ragged (3, 77) {dtype}", table, torch.randint(
+            0, 1001, (3, 77), generator=gen, device="cuda",
+            dtype=torch.int32)
+        for n in range(1, 10):
+            yield f"{n} lookups {dtype}", table, torch.randint(
+                0, 1001, (n,), generator=gen, device="cuda",
+                dtype=torch.int32)
+        flat = torch.randint(0, 1001, (4098,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        yield f"indices 4 bytes past a 16-byte boundary {dtype}", table, \
+            flat[1:]
+    # the pair table's size, 128 KB of uint8, at 2^21 lookups
+    table = (torch.rand(1 << 17, generator=gen, device="cuda") < 0.3
+             ).to(torch.uint8)
+    yield "128 KB uint8 table", table, torch.randint(
+        0, 1 << 17, (1 << 21,), generator=gen, device="cuda",
+        dtype=torch.int32)
+
+
 def check_other_paths(torch):
     """Kernel paths beyond the query paths' shapes, for correctness only
-    (not timed): top-k rows that are hard for a select (in the mode the
-    wrapper picks and in each mode that takes them), several long rows and
-    ragged widths of the scan (the long-row mode serves hash tables up to
-    2^29 slots), segments shorter than a warp and of odd lengths, lookups
-    of a ragged shape from an odd-sized table, and row gathers in every
-    copy unit (rows of 3, 6 and 12 bytes, a table that starts off a 16-byte
-    boundary, a span of 5)."""
+    (not timed), each in the mode the wrapper picks and in every mode that
+    takes it: top-k rows that are hard for a select; scans that are hard
+    for the look-back (many tiles over several rows, all-zero rows, a row
+    summing to 2^31 - 1, ragged widths, an input off a 16-byte boundary,
+    50 back-to-back onepass scans); lookups of 1 to 9 elements, of a ragged
+    shape, from indices off a 16-byte boundary (4097 of them) and from a
+    128 KB table; segments shorter than a warp and of odd lengths; and row
+    gathers in every copy unit (rows of 3, 6 and 12
+    bytes, a table that starts off a 16-byte boundary, a span of 5)."""
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
 
@@ -540,13 +654,34 @@ def check_other_paths(torch):
             if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
                 raise SmokeFailure(f"bitonic_topk {name} {tuple(x.shape)}->"
                                    f"{k} ({mode} mode) differs")
-    for b, n in ((4, 100_003), (3, 5000), (2, 31)):
-        x = torch.randint(0, 9, (b, n), generator=gen, device="cuda",
-                          dtype=torch.int32)
+    for name, x in scan_hard_rows(torch, gen):
+        b, n = x.shape
         for excl in (False, True):
-            if not torch.equal(prim.block_scan(x, excl),
-                               prim.block_scan_plain(x, excl)):
-                raise SmokeFailure(f"block_scan ({b},{n}) differs")
+            want = prim.block_scan_plain(x, excl)
+            got = {"default": prim.block_scan(x, excl)}
+            for p in scan_plans(prim, b, n):
+                got[p.mode] = prim._scan_launch(x, excl, p)
+            for mode, out in got.items():
+                if not torch.equal(out, want):
+                    raise SmokeFailure(f"block_scan {name} ({b},{n}) "
+                                       f"{'exclusive' if excl else ''} "
+                                       f"({mode} mode) differs")
+    # back-to-back onepass scans on one stream, no synchronisation between
+    # them: a stale status word or a wrong epoch shows as a wrong sum
+    lengths = torch.randint(4097, 300_000, (50,), generator=gen,
+                            device="cuda").tolist()
+    lengths[:3] = [900_001, 5, 40_000]
+    runs = []
+    for i, n in enumerate(lengths):
+        x = torch.randint(0, 5, (1 + i % 3, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        runs.append((x, prim._scan_launch(
+            x, i % 2 == 1, prim._scan_plan(x.shape[0], n, "onepass"))))
+    for i, (x, got) in enumerate(runs):
+        if not torch.equal(got, prim.block_scan_plain(x, i % 2 == 1)):
+            raise SmokeFailure(f"block_scan: back-to-back onepass scan {i} "
+                               f"{tuple(x.shape)} differs")
+    del runs
     for b, d, parts in ((5, 21, 3), (3, 3, 3), (2, 1000, 1), (7, 48, 3)):
         x = torch.randint(0, 9, (b, d), generator=gen,
                           device="cuda").to(torch.float32)
@@ -554,14 +689,10 @@ def check_other_paths(torch):
                            prim.segmented_reduce_plain(x, parts)):
             raise SmokeFailure(f"segmented_reduce ({b},{d})->{parts} "
                                "differs")
-    idx = torch.randint(0, 1001, (3, 77), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    for dtype in (torch.int32, torch.uint8):
-        table = torch.randint(0, 99, (1001,), generator=gen,
-                              device="cuda").to(dtype)
+    for name, table, idx in lut_hard_cases(torch, gen):
         if not torch.equal(ga.lut_gather(table, idx),
                            ga.lut_gather_plain(table, idx)):
-            raise SmokeFailure(f"lut_gather {dtype} (3,77) differs")
+            raise SmokeFailure(f"lut_gather {name} differs")
     for dtype, w, offset, span in ((torch.uint8, 3, 0, 1),
                                    (torch.int16, 3, 0, 5),
                                    (torch.int32, 3, 0, 2),
@@ -785,6 +916,7 @@ LUT_ROWS = (("lut_gather", "benchmarks/micro_gather.py:32"),
 
 
 def main(json_path=None):
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: chip_smoke "
@@ -800,22 +932,30 @@ def main(json_path=None):
     if torch.backends.cuda.matmul.allow_tf32:
         raise SmokeFailure("TF32 matmuls are on")
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     nvcc_s = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {nvcc_s:.2f} s)", flush=True)
 
-    kernels = check_kernels(torch)
+    kernels, floor = check_kernels(torch)
     for r in kernels.values():
         print(f"{r['name']:16s} ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
               f"library {r['library_ms']}  bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})  max_abs_err {r['max_abs_err']}", flush=True)
         for c in r["shapes"]:
-            other = (f"  passes' bound {c['pass_bound_ms']:.4f}  "
-                     f"{c['other_mode']} mode {c['other_mode_ms']}"
-                     if "mode" in c else "")
-            print(f"    {c['case']:56s} ms {c['ms']:.4f}  plain "
+            other = ""
+            if "pass_bound_ms" in c:
+                other += f"  passes' bound {c['pass_bound_ms']:.4f}"
+            if "sector_bound_ms" in c:
+                other += f"  sectors' bound {c['sector_bound_ms']:.4f}"
+            if c.get("other_mode"):
+                other += f"  {c['other_mode']} mode {c['other_mode_ms']:.4f}"
+            for mode, ms in c.get("other_modes", {}).items():
+                other += f"  {mode} mode {ms:.4f}"
+            print(f"    {c['case']:64s} ms {c['ms']:.4f}  plain "
                   f"{c['plain_ms']:.4f}  library {c['library_ms']}  bound "
                   f"{c['bound_ms']:.4f}{other}", flush=True)
+    print(f"launch floor {floor:.4f} ms", flush=True)
 
     check_other_paths(torch)
     print("other kernel paths (hard top-k rows in every mode, multi-row long "
@@ -833,6 +973,11 @@ def main(json_path=None):
         rows += [dict(r, name=name, replaces=where)
                  for name, where in LUT_ROWS]
     summary["card"] = card
+    summary["launch_floor_ms"] = floor
+    summary["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    summary["run_s"] = time.perf_counter() - t_start
+    print(f"run {summary['run_s']:.1f} s from the card check, peak device "
+          f"memory {summary['peak_memory_gib']:.2f} GiB", flush=True)
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:

@@ -12,19 +12,24 @@
 //
 // Uses in the port: the bin occupancy counts[bins] and CSR starts
 // prefix[bins] of the parts pipeline (2^20 int32 slots, 4 MB each, at the
-// bench config), and the pair-occupancy table pair_occ (p/2 x 65536 uint8)
-// of the pair filter in both pipelines.
+// bench config; 2^29 slots, 2 GiB each, at SIFT1B_CONFIG), and the
+// pair-occupancy table pair_occ (p/2 x 65536 uint8, 128 KB at p = 4) of
+// the pair filter in both pipelines.
 //
 // One thread per output element, in a grid-stride loop: the index and
 // output accesses are coalesced, the table access is a random read through
 // the read-only path (__ldg), which keeps a 4 MB table resident in the
-// 50 MB L2 across a batch's lookups.  Staging a small table (pair_occ's 64
-// KB per pair) in shared memory is later work.  An index outside [0, H)
-// reads nothing and yields 0; callers pass in-range indices.
+// 50 MB L2 across a batch's lookups.  An index outside [0, H) reads nothing
+// and yields 0; callers pass in-range indices.
 //
 // What bounds it on the H100: bytes -- the indices read and the outputs
 // written once, and each distinct table element the indices touch read
-// once.  There is no arithmetic to speak of.
+// once.  There is no arithmetic to speak of.  In practice each random
+// lookup moves a whole 32-byte sector, from L2 for a 4 MB table and from
+// HBM for a 2 GiB one, and the rate of those sectors sets the time: four
+// lookups a thread with 16-byte index loads and vector stores, and staging
+// the 128 KB pair table in each block's shared memory, were both timed on
+// the H100 and gained nothing at the port's shapes (PERF.md).
 
 #include <cuda_runtime.h>
 

@@ -34,8 +34,27 @@ TOPK_DIGIT_BITS = 8
 # to them on longer rows with k <= n / 2 (chip_smoke.py times both modes at
 # every top-k shape; PERF.md).
 TOPK_SORT_ROW = 512
-# Rows longer than this take the three-pass long-row scan.
+# Kernel B's modes (csrc/scan.cu): rows of at most SCAN_ROWS_MAX elements,
+# and rows of at most SCAN_ROWS_WALK_MAX when there are SCAN_MANY_ROWS rows
+# or more, are scanned in rows mode, up to SCAN_ROWS_WARPS warps a block, a
+# group of warps a row (several rows a block when rows are short), 2 16-byte
+# vectors a lane a chunk for rows up to SCAN_ROWS_SHORT elements and 8
+# above; rows mode walks rows of at most SCAN_ROWS_WALK_MAX.  Other rows
+# take onepass mode: tiles of SCAN_TILE_WARPS warps x SCAN_TILE_VECS
+# vectors x 32 lanes x 4 elements (fixed in csrc/scan.cu), one block each,
+# scanned with a decoupled look-back.  The cut comes from chip_sweep.py's
+# ladder of row lengths on the H100, the shapes from sweeps of launch
+# shapes there (PERF.md).
 SCAN_ROWS_MAX = 16384
+SCAN_ROWS_SHORT = 2048
+SCAN_ROWS_WALK_MAX = 1 << 16
+SCAN_MANY_ROWS = 128
+SCAN_ROWS_WARPS = 8
+SCAN_TILE_WARPS = 8
+SCAN_TILE_VECS = 8
+SCAN_TILES_MAX = (1 << 31) - 1
+# Onepass status words carry a 30-bit epoch (csrc/scan.cu).
+SCAN_EPOCH_MAX = (1 << 30) - 1
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -149,35 +168,117 @@ def block_scan_plain(x: torch.Tensor, exclusive: bool = False):
     return s - x if exclusive else s
 
 
+class ScanPlan(NamedTuple):
+    """How kernel B runs a (rows, n) call."""
+    mode: str     # "rows" (a group of warps walks a row) or "onepass"
+    warps: int    # warps of a block
+    vecs: int     # 16-byte vectors (4 int32) a lane holds per chunk
+    group: int    # warps that scan one row together (= warps in onepass)
+    tiles: int    # chunks of a row: walked in turn (rows), tiles (onepass)
+    blocks: int   # blocks of the grid
+
+
+def _scan_vectors(n: int) -> int:
+    """16-byte vectors a row of n int32 touches at most: a row that does not
+    start on a multiple of 4 elements spans one more (csrc/scan.cu)."""
+    return n // 4 if n % 4 == 0 else (n + 6) // 4
+
+
+def _scan_plan(rows: int, n: int, mode: Optional[str] = None) -> ScanPlan:
+    """Kernel B's mode and launch shape for `rows` rows of n elements.
+
+    Rows mode for n <= SCAN_ROWS_MAX, and for n <= SCAN_ROWS_WALK_MAX with
+    at least SCAN_MANY_ROWS rows; onepass mode otherwise; `mode` forces
+    one.  Raises ValueError for an empty shape or an unknown mode and
+    NotImplementedError for a call the mode does not take: rows mode beyond
+    SCAN_ROWS_WALK_MAX elements a row, onepass mode beyond SCAN_TILES_MAX
+    tiles.
+    """
+    if rows < 1 or n < 1:
+        raise ValueError(f"block_scan: empty shape ({rows}, {n})")
+    if mode is None:
+        many = rows >= SCAN_MANY_ROWS and n <= SCAN_ROWS_WALK_MAX
+        mode = "rows" if n <= SCAN_ROWS_MAX or many else "onepass"
+    if mode not in ("rows", "onepass"):
+        raise ValueError(f"block_scan: unknown mode {mode!r}")
+    nvec = _scan_vectors(n)
+    if mode == "rows":
+        if n > SCAN_ROWS_WALK_MAX:
+            raise NotImplementedError(
+                f"block_scan: rows mode walks rows of at most "
+                f"{SCAN_ROWS_WALK_MAX} elements, not {n}")
+        vecs = 2 if n <= SCAN_ROWS_SHORT else 8
+        group = min(SCAN_ROWS_WARPS, -(-nvec // (32 * vecs)))
+        per_block = max(1, min(rows, SCAN_ROWS_WARPS // group))
+        tiles = -(-nvec // (group * 32 * vecs))
+        return ScanPlan("rows", group * per_block, vecs, group, tiles,
+                        -(-rows // per_block))
+    tiles = -(-nvec // (SCAN_TILE_WARPS * 32 * SCAN_TILE_VECS))
+    if rows * tiles > SCAN_TILES_MAX:
+        raise NotImplementedError(
+            f"block_scan: ({rows}, {n}) makes {rows * tiles} tiles in "
+            f"onepass mode, above {SCAN_TILES_MAX}")
+    return ScanPlan("onepass", SCAN_TILE_WARPS, SCAN_TILE_VECS,
+                    SCAN_TILE_WARPS, tiles, rows * tiles)
+
+
+# Onepass mode's status words, kept from call to call: (device, stream) ->
+# [int64 tensor (the tile counter, then one word a tile), last epoch].
+_scan_states: dict = {}
+
+
+def _scan_state(x: torch.Tensor, words: int):
+    """The persistent status buffer of x's device and current stream, at
+    least `words` long, and the next epoch.  A new buffer (zeroed) replaces
+    one that is too short or whose epochs are used up."""
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    state = _scan_states.get(key)
+    if state is None or state[0].numel() < words or \
+            state[1] >= SCAN_EPOCH_MAX:
+        state = [torch.zeros(words, dtype=torch.int64, device=x.device), 0]
+        _scan_states[key] = state
+    state[1] += 1
+    return state[0], state[1]
+
+
+def _scan_launch(x: torch.Tensor, exclusive: bool,
+                 plan: ScanPlan) -> torch.Tensor:
+    """Launch kernel B on a contiguous (B, N) int32 CUDA tensor.  In onepass
+    mode the status words are the persistent buffer with a new epoch."""
+    B, N = x.shape
+    out = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    lib = build.load("scan")
+    with torch.cuda.device(x.device):
+        if plan.mode == "rows":
+            err = lib.pqt_block_scan_rows(_ptr(x), B, N, int(exclusive),
+                                          plan.warps, plan.group, plan.vecs,
+                                          _ptr(out), _stream(x))
+        else:
+            state, epoch = _scan_state(x, 1 + B * plan.tiles)
+            err = lib.pqt_block_scan_onepass(
+                _ptr(x), B, N, int(exclusive), plan.tiles, _ptr(state),
+                epoch, _ptr(out), _stream(x))
+    build.check(err, "block_scan")
+    block_scan.launches += 1
+    return out
+
+
 def block_scan(x: torch.Tensor, exclusive: bool = False):
     """Per-row prefix sums of a (B, N) int32 array, int32 out.
 
-    The sum of each row must fit in int32.  Rows up to SCAN_ROWS_MAX run
-    one block per row; longer rows (the build's CSR prefix) run the
-    three-pass long-row scan.
+    The sum of each row must fit in int32.  On the card the kernel runs in
+    the mode `_scan_plan` picks: rows mode for short rows (and for many
+    rows up to SCAN_ROWS_WALK_MAX), onepass mode (a decoupled look-back,
+    one read and one write of the row) for the others, such as the build's
+    CSR prefix.
     """
     if x.device.type == "cpu":
         return block_scan_plain(x, exclusive)
     _check_input(x, torch.int32, "block_scan")
     B, N = x.shape
-    out = torch.empty_like(x)
     if B == 0 or N == 0:
-        return out
-    lib = build.load("scan")
-    with torch.cuda.device(x.device):
-        if N <= SCAN_ROWS_MAX:
-            err = lib.pqt_block_scan_rows(_ptr(x), B, N, int(exclusive),
-                                          _ptr(out), _stream(x))
-        else:
-            tiles = -(-N // lib.pqt_scan_tile())
-            sums = torch.empty((B, tiles), dtype=torch.int32, device=x.device)
-            offsets = torch.empty_like(sums)
-            err = lib.pqt_block_scan_long(_ptr(x), B, N, int(exclusive),
-                                          _ptr(sums), _ptr(offsets),
-                                          _ptr(out), _stream(x))
-    build.check(err, "block_scan")
-    block_scan.launches += 1
-    return out
+        return torch.empty_like(x)
+    return _scan_launch(x, exclusive, _scan_plan(B, N))
 
 
 block_scan.launches = 0

@@ -229,7 +229,8 @@ def test_topk_signed_zeros_are_one_key():
                       )[:6].tolist() == want
 
 
-@pytest.mark.parametrize("shape", [(8, 512), (1, 1 << 20)])
+@pytest.mark.parametrize("shape", [(8, 512), (1, 1 << 20), (3, 32768),
+                                   (2, 70001)])
 @pytest.mark.parametrize("exclusive", [False, True])
 def test_block_scan_matches_pallas(shape, exclusive):
     rng = np.random.default_rng(shape[1])
