@@ -11,16 +11,20 @@ Phases (any failure exits non-zero before the last line is printed):
      one process per source, in parallel) and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card, at
      the shapes the query paths give it (top-k, prefix sums, lookups and
-     row gathers exact; line re-rank within rtol 1e-5, atol 1e-4; segment
-     sums within rtol 1e-5, atol 1e-3), and times kernel, plain version and
-     the one PyTorch call computing the same function by their device time
-     (torch.profiler), beside the launch floor (a one-element fill_).  The
-     top-k, the prefix sums and the lookups also run at SIFT1B_CONFIG's
-     widths (2^29-slot tables: about 10 GiB of device memory at the peak);
-     top-k and prefix sums run in the mode their wrapper picks and in every
-     other mode that takes the shape (all held and timed), the lookups
-     with a sectors' bound beside the byte bound; then the kernels are
-     held on inputs that are hard for them (not timed);
+     row gathers exact; line re-rank within rtol 1e-5, atol 1e-4, in the
+     compact and the wide payload layout; segment sums within rtol 1e-5,
+     atol 1e-3), and times kernel, plain version and the one PyTorch call
+     computing the same function by their device time (torch.profiler;
+     CUDA events, counted and printed, where no profiler session records
+     device time), beside the launch floor (a one-element fill_).  The top-k, the prefix
+     sums and the lookups also run at SIFT1B_CONFIG's widths (2^29-slot
+     tables: about 10 GiB of device memory at the peak), the top-k with
+     kernel A's merge mode (32768 and 65536 kept of 65536-wide rows, also
+     timed beside torch.sort); top-k and prefix sums run in the mode their
+     wrapper picks and in every other mode that takes the shape (all held
+     and timed), the lookups with a sectors' bound beside the byte bound;
+     then the kernels are held on inputs that are hard for them (not
+     timed);
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -29,13 +33,30 @@ Phases (any failure exits non-zero before the last line is printed):
   5. the parts path on the same tree and database: the parts pipeline with
      the pair filter through the same four entry points, then exact, line
      and query_candidates again with slab gathers (32 rows a slab);
-  6. one JSON line of per-kernel results, the card line, and last
+  6. the BIG two-stage path on the same database, line (n_intermediate
+     256) and perfect (refine_factor 8), each a path of its own; then the
+     pair path's line mode over a rebuild with the wide payload, which
+     must launch kernel C's wide mode;
+  7. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
+     forced by the run time; the fixture scales its clusters with n as
+     benchmarks/rehearsal_50m.py does): train on 200k, encode 2M-vector
+     chunk files, merge them on the host into a spilled CSR database,
+     save it with raw sidecars (adopting the spill files), load it onto
+     the card, and serve 1024 queries in batches of 64 through exact and
+     refine over vectors_csr, line, query_candidates, BIG line and BIG
+     perfect (vectors by id attached on the card); kernel A's merge mode
+     must launch; encode, merge, save and load seconds, bin occupancy,
+     peak device memory and host RSS are printed;
+  8. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
 
-Every kernel launch count is reset just before each path (4, 5, and the
-slab variant of 5) and read just after it; a kernel of that path with no
-launch fails the run.  Recall of every path is checked against an exact
-float64 brute force on the card.
+Every kernel launch count is reset just before each path (4, 5, the slab
+variant of 5, each of 6, and 7's serving) and read just after it; a kernel
+of that path with no launch fails the run.  Recall of every path is
+checked against an exact float64 brute force on the card: the SIFT1M
+paths against their thresholds (the BIG paths 0.03 below the JAX
+package's recall on the CPU, the wide payload's line top-10 at most 0.01
+below the compact one's), the SIFT1B phase against its floors.
 
 Timings are the card's, with its name and power limit printed beside them.
 """
@@ -44,6 +65,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,17 +83,32 @@ THRESHOLDS = {"exact_R@1": 0.95, "refine_R@1": 0.95,
               "candidate_recall": 0.95, "line_top10_intersection": 0.6}
 # The JAX package's recall on the CPU for the same fixture, tree training
 # and budget, with the parts pipeline and the pair filter (slack 1.5), in
-# rows and in slab mode (refine was not run there).
+# rows and in slab mode (refine was not run there; jax_cpu_reference.py).
 JAX_CPU_PARTS = {"exact_R@1": 0.9893, "candidate_recall": 0.9893,
                  "line_top10_intersection": 0.7206}
 JAX_CPU_SLABS = {"exact_R@1": 0.9893, "candidate_recall": 0.9893,
                  "line_top10_intersection": 0.7203}
+# The JAX package's recall on the CPU for the same fixture, tree training
+# and budget, on the BIG path (query_big_knn with n_intermediate 256, and
+# query_big_knn_perfect with refine_factor 8; jax_cpu_reference.py); the
+# port is held about 0.03 below it.
+JAX_CPU_BIG = {"big_line_R@10": 0.8203, "big_line_top10_intersection": 0.7207,
+               "big_perfect_R@1": 0.9902}
+THRESHOLDS.update({key: round(v - 0.03, 4) for key, v in JAX_CPU_BIG.items()})
 # The kernels of each path: a count of 0 on its run fails the smoke.
 PAIR_KERNELS = ("bitonic_topk", "block_scan", "rerank_fused",
                 "segmented_reduce", "gather_rows")
 PARTS_KERNELS = PAIR_KERNELS + ("lut_gather",)
+ALL_KERNELS = PARTS_KERNELS
 
 N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
+# The SIFT1B phase: 10M vectors (a cut of SIFT1B's 10^9 forced by the
+# smoke's run time) in chunk files of 2M, a tree trained on 200k, 1024
+# queries in batches of 64, and its recall floors.
+N_1B, N_1B_TRAIN, N_1B_CHUNK, BATCH_1B = 10_000_000, 200_000, 2_000_000, 64
+SIFT1B_FLOORS = {"exact_R@1": 0.95, "refine_R@1": 0.95,
+                 "candidate_recall": 0.95, "line_top10_intersection": 0.5,
+                 "big_perfect_R@1": 0.95}
 
 
 class SmokeFailure(RuntimeError):
@@ -114,27 +151,48 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, reps=20, warmup=3, attempts=3):
+# timings taken with CUDA events because no profiler session recorded any
+# device time (each one an upper bound: it includes the gaps between launches)
+EVENT_TIMED = []
+
+
+def _profiled_us(torch, fn, reps):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def device_ms(torch, fn, reps=20, warmup=3, attempts=4):
     """Mean milliseconds the card spends in the kernels fn() launches, from
     the profiler's device events: a run of launches timed with CUDA events
     would measure the host's launch rate for kernels this short.  Now and
-    then a profiler session records no device events at all; the session
-    is then repeated, up to `attempts` times.  0.0 when none recorded any."""
-    from torch.profiler import ProfilerActivity, profile
+    then a profiler session records no device events at all; a throwaway
+    session then runs and the session is repeated, up to `attempts` times.
+    If none recorded any, the launches are timed with CUDA events instead
+    and the timing is counted in EVENT_TIMED."""
     for _ in range(warmup):
         fn()
     for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        us = _profiled_us(torch, fn, reps)
         if us > 0:
             return us / 1e3 / reps
-    return 0.0
+        _profiled_us(torch, lambda: torch.ones(8, device="cuda") + 1, 1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    EVENT_TIMED.append(ms)
+    return ms
 
 
 def bound(bytes_moved, ops):
@@ -162,7 +220,12 @@ def topk_cases(torch, gen):
               ("refine_exact_topk", 256, 800, 100),
               ("sift1b_pair_select", 256 * 2, 256 * 256, 256),
               ("sift1b_final_topk", 256, 8192, 100),
-              ("sift1b_refine_line_topk", 256, 8192, 800)]
+              ("sift1b_refine_line_topk", 256, 8192, 800),
+              # the BIG path's stage 2 at SIFT1B widths (batch 64, and
+              # 256), and the whole 65536-wide row: merge mode
+              ("sift1b_big_final_bins", 64, 256 * 256, 32768),
+              ("sift1b_big_final_bins_all", 64, 256 * 256, 256 * 256),
+              ("sift1b_big_final_bins_b256", 256, 256 * 256, 32768)]
     for name, b, n, k in shapes:
         x = torch.rand((b, n), generator=gen, device="cuda") * 1e4
         x[: b // 2] = torch.round(x[: b // 2] / 1e3)
@@ -173,9 +236,12 @@ def topk_cases(torch, gen):
 
 def topk_modes(prim, n, k):
     """Kernel A's modes that take rows of n elements, k kept: a sort of at
-    most TOPK_SORT_MAX elements, a select of at most TOPK_SORT_MAX."""
-    return [mode for mode, size in (("sort", n), ("select", k))
-            if size <= prim.TOPK_SORT_MAX]
+    most TOPK_SORT_MAX elements, a select of at most TOPK_SORT_MAX, and,
+    for k above that, a merge of at most TOPK_MERGE_MAX."""
+    return [mode for mode, size, cap in (
+        ("sort", n, prim.TOPK_SORT_MAX), ("select", k, prim.TOPK_SORT_MAX),
+        ("merge", k if k > prim.TOPK_SORT_MAX else 0, prim.TOPK_MERGE_MAX))
+        if 0 < size <= cap]
 
 
 def scan_plans(prim, rows, n):
@@ -253,21 +319,41 @@ def scan_cases(torch, gen):
 
 
 def rerank_cases(torch, gen):
-    b, k, lp, c1 = 256, 1024, 16, 16
-    # compact line parts A | B << 4 | lambda_u8 << 8, two to an int32 word,
-    # with lambda in [-0.5, 1.5) as the build gives it: a projection inside
-    # or near its segment (lambda_u8 = (lambda + 4) * 32)
-    ab = torch.randint(0, 256, (b, k, lp), generator=gen, device="cuda")
-    lam8 = torch.randint(112, 176, (b, k, lp), generator=gen, device="cuda")
-    half = ab | (lam8 << 8)
-    words = half[..., 0::2] | (half[..., 1::2] << 16)
-    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
-    t3 = torch.randn((b, k, 1), generator=gen, device="cuda")
-    ids = torch.arange(k, device="cuda", dtype=torch.int32).expand(b, k)
-    rows = torch.cat([ids[..., None], t3.view(torch.int32),
-                      words.to(torch.int32)], dim=-1).contiguous()
-    q = (torch.rand((b, lp, c1), generator=gen, device="cuda") * 5e3)
-    yield "line_rerank", (rows, q.contiguous()), (b, k, 2 + lp // 2, lp, c1)
+    """The line re-rank at batch 256 (1024 candidates, lp 16) in the compact
+    layout, then the wide one (one uint32 a line part) at the same shape
+    and at SIFT1B's batch 64 x 8192 candidates x lp 32, each with c1 = 16
+    and the widest c1 = 256 (a 32 KB table at lp 32).  Lambda lies in
+    [-0.5, 1.5) as the build gives it: a projection inside or near its
+    segment."""
+    for name, b, k, lp, c1, compact in (
+            ("line_rerank", 256, 1024, 16, 16, True),
+            ("wide_line_rerank", 256, 1024, 16, 16, False),
+            ("wide_line_rerank_c1_256", 256, 1024, 16, 256, False),
+            ("sift1b_wide_line_rerank", 64, 8192, 32, 16, False),
+            ("sift1b_wide_line_rerank_c1_256", 64, 8192, 32, 256, False)):
+        a = torch.randint(0, c1, (b, k, lp), generator=gen, device="cuda")
+        bb = torch.randint(0, c1, (b, k, lp), generator=gen, device="cuda")
+        if compact:
+            # A | B << 4 | lambda_u8 << 8, two parts to an int32 word
+            # (lambda_u8 = (lambda + 4) * 32)
+            lam = torch.randint(112, 176, (b, k, lp), generator=gen,
+                                device="cuda")
+            half = a | (bb << 4) | (lam << 8)
+            words = half[..., 0::2] | (half[..., 1::2] << 16)
+        else:
+            # A | B << 8 | lambda_u16 << 16 (lambda_u16 = (lambda + 4) *
+            # 8192)
+            lam = torch.randint(28672, 45056, (b, k, lp), generator=gen,
+                                device="cuda")
+            words = a | (bb << 8) | (lam << 16)
+        words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+        t3 = torch.randn((b, k, 1), generator=gen, device="cuda")
+        ids = torch.arange(k, device="cuda", dtype=torch.int32).expand(b, k)
+        rows = torch.cat([ids[..., None], t3.view(torch.int32),
+                          words.to(torch.int32)], dim=-1).contiguous()
+        q = (torch.rand((b, lp, c1), generator=gen, device="cuda") * 5e3)
+        yield name, (rows, q.contiguous(), compact), (b, k, rows.shape[2],
+                                                      lp, c1)
 
 
 def reduce_cases(torch, gen):
@@ -342,7 +428,7 @@ def check_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     # the first profiler session of a process may record no device events
-    device_ms(torch, lambda: torch.ones(8, device="cuda") + 1, reps=1)
+    _profiled_us(torch, lambda: torch.ones(8, device="cuda") + 1, 1)
     # the least device time a launch shows: a shape at it is at the floor
     floor = device_ms(torch, lambda: torch.empty(1, device="cuda").fill_(0))
     print(f"launch floor (device ms of a one-element fill_) {floor:.4f}",
@@ -353,8 +439,7 @@ def check_kernels(torch):
         """Add one shape's numbers (and `extra` ones of that shape alone); a
         kernel's totals sum its shapes."""
         if ms <= 0 or plain_ms <= 0 or (lib_ms is not None and lib_ms <= 0):
-            raise SmokeFailure(f"{name} {case}: no profiler session recorded "
-                               "device time")
+            raise SmokeFailure(f"{name} {case}: no time recorded")
         r = results.setdefault(name, {
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
@@ -390,11 +475,19 @@ def check_kernels(torch):
                                    "version")
         b_ms, b_by = bound(b * n * 4 + b * k * 8, b * n)
         # select mode reads a row longer than one tile again on every pass
+        # (so does merge mode's select, for k < n); merge mode then reads
+        # and writes its scratch rows of sort_len pairs in the run sorts and
+        # in each merge pass (the last one writes k pairs)
         reads = 1.0
-        if plan.mode == "select" and n > plan.items * plan.threads:
+        if plan.mode in ("select", "merge") and k < n and \
+                n > plan.items * plan.threads:
             reads += float(radix_passes(torch, x, k, prim.TOPK_DIGIT_BITS)
                            .double().mean())
-        pass_ms = bound(reads * b * n * 4 + b * k * 8, b * n)[0]
+        scratch = 0
+        if plan.mode == "merge":
+            passes = (plan.sort_len // prim.TOPK_SORT_MAX).bit_length() - 1
+            scratch = b * plan.sort_len * 8 * (2 * passes + 2 * int(k < n))
+        pass_ms = bound(reads * b * n * 4 + b * k * 8 + scratch, b * n)[0]
         record("bitonic_topk", "pqt_tpu_torch/csrc/topk.cu",
                "pqt_tpu/ops/pallas/primitives.py:79",
                f"{case} ({b},{n})->{k} {plan.mode}",
@@ -405,7 +498,9 @@ def check_kernels(torch):
                pass_bound_ms=pass_ms, other_mode=alt and alt.mode,
                other_mode_ms=device_ms(
                    torch, lambda: prim._topk_launch(x, k, alt))
-               if alt else None)
+               if alt else None,
+               sort_ms=device_ms(torch, lambda: torch.sort(x, stable=True))
+               if plan.mode == "merge" else None)
 
     for case, (x, excl), (b, n) in scan_cases(torch, gen):
         # the mode the wrapper picks, and every other mode that takes the
@@ -437,9 +532,10 @@ def check_kernels(torch):
         del x
         torch.cuda.empty_cache()
 
-    for case, (rows, q), (b, k, w, lp, c1) in rerank_cases(torch, gen):
-        got = rr.rerank_fused(rows, q)
-        want = rr.rerank_plain(rows, q)
+    for case, (rows, q, compact), (b, k, w, lp, c1) in rerank_cases(torch,
+                                                                    gen):
+        got = rr.rerank_fused(rows, q, compact)
+        want = rr.rerank_plain(rows, q, compact)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
@@ -447,10 +543,12 @@ def check_kernels(torch):
         b_ms, b_by = bound(b * k * w * 4 + b * lp * c1 * 4 + b * k * 4,
                            4 * b * k * lp)
         record("rerank_fused", "pqt_tpu_torch/csrc/rerank.cu",
-               "pqt_tpu/ops/pallas/rerank.py:84", f"{case} ({b},{k},{w})",
-               device_ms(torch, lambda: rr.rerank_fused(rows, q)),
-               device_ms(torch, lambda: rr.rerank_plain(rows, q)),
-               None, b_ms, b_by, err)
+               "pqt_tpu/ops/pallas/rerank.py:84",
+               f"{case} ({b},{k},{w}) c1 {c1} "
+               f"{'compact' if compact else 'wide'}",
+               device_ms(torch, lambda: rr.rerank_fused(rows, q, compact)),
+               device_ms(torch, lambda: rr.rerank_plain(rows, q, compact)),
+               None, b_ms, b_by, err, mode="compact" if compact else "wide")
 
     for case, (x, parts), (b, d, _) in reduce_cases(torch, gen):
         got = prim.segmented_reduce(x, parts)
@@ -578,6 +676,29 @@ def topk_hard_rows(torch, gen):
     yield "odd width 70001, k = 1", wide, 1
     yield "B = 1", levels[:1].contiguous(), 128
     yield "B = 1, odd width 70001", wide[:1].contiguous(), 256
+    # merge mode (k > 16384): 65536-wide rows
+    m = 1 << 16
+    yield "merge: all equal", torch.full((3, m), 3.0, device="cuda"), 32768
+    yield "merge: all +inf, k = n", torch.full((3, m), float("inf"),
+                                               device="cuda"), m
+    # runs of equal values that straddle the 16384-pair runs and the
+    # 4096-pair merge tiles
+    pos = torch.arange(m, device="cuda")
+    yield "merge: ties across run boundaries", ((pos + 5000) // 10000 % 3
+                                                ).to(torch.float32).expand(
+        2, m).contiguous(), 40000
+    yield "merge: ties across run boundaries, k = n", (
+        (pos // 12289) % 4).to(torch.float32).expand(2, m).contiguous(), m
+    tail = torch.randint(0, 9, (2, m), generator=gen,
+                         device="cuda").to(torch.float32)
+    tail[:, m // 2:] = float("inf")
+    yield "merge: +inf tail, k = n", tail, m
+    yield "merge: +inf tail, cut in the tail", tail, 40000
+    mz = torch.where(torch.rand((2, m), generator=gen, device="cuda")
+                     < 0.5, 0.0, -0.0)
+    mz[:, ::7] = -1.0
+    yield "merge: +0.0 and -0.0 mixed", mz, 50000
+    yield "merge: odd width 70001, k = 20000", wide, 20000
 
 
 def scan_hard_rows(torch, gen):
@@ -725,14 +846,22 @@ def reset_launches(torch):
     torch.cuda.synchronize()
     for c in counters():
         c.launches = 0
+    top, rerank = counters()[0], counters()[2]
+    top.mode_launches = dict.fromkeys(top.mode_launches, 0)
+    rerank.wide_launches = 0
 
 
-def read_launches(label, required):
-    """The counts since the last reset; fails if a kernel of the path has
-    none."""
+def read_launches(label, required, modes=()):
+    """The counts since the last reset, with kernel A's by mode and kernel
+    C's wide-layout ones; fails if a kernel of the path, or a mode in
+    `modes` ("bitonic_topk:merge", "rerank_fused:wide"), has none."""
+    top, rerank = counters()[0], counters()[2]
     launches = {c.__name__: c.launches for c in counters()}
+    launches.update({f"bitonic_topk:{m}": n
+                     for m, n in top.mode_launches.items()})
+    launches["rerank_fused:wide"] = rerank.wide_launches
     print(f"launches on the {label}: " + json.dumps(launches), flush=True)
-    for name in required:
+    for name in tuple(required) + tuple(modes):
         if launches[name] == 0:
             raise SmokeFailure(f"{name} was never launched by the {label}")
     return launches
@@ -744,86 +873,96 @@ def query_modes(P, cfg, tree, db, names):
         "line": lambda x: P.query_knn(cfg, tree, db, x, K),
         "refine": lambda x: P.query_knn_refine(cfg, tree, db, x, K),
         "candidates": lambda x: P.query_candidates(cfg, tree, db, x),
+        "big_line": lambda x: P.query_big_knn(cfg, tree, db, x, K, 256),
+        "big_perfect": lambda x: P.query_big_knn_perfect(cfg, tree, db, x,
+                                                         K, 8, 256),
     }
     return {n: modes[n] for n in names}
 
 
-def serve(torch, modes, qd):
+def serve(torch, modes, qd, batch=BATCH):
     """Every mode over the queries twice, in batches, after one warm-up
     batch.  QPS is every query of the window over the window's whole time,
     so a stall inside it counts; per-batch percentiles are reported beside
     it.  Returns (the first pass's outputs, latency) by mode."""
     outputs, latency = {}, {}
+    n_queries = qd.shape[0]
     for name, fn in modes.items():
-        fn(qd[:BATCH])                        # warm-up
+        fn(qd[:batch])                        # warm-up
         samples, outs = [], []
         torch.cuda.synchronize()
         t_window = time.perf_counter()
         for rep in range(2):
-            for s in range(0, N_QUERIES, BATCH):
+            for s in range(0, n_queries, batch):
                 t1 = time.perf_counter()
-                out = fn(qd[s:s + BATCH])
+                out = fn(qd[s:s + batch])
                 torch.cuda.synchronize()
                 samples.append(time.perf_counter() - t1)
                 if rep == 0:
                     outs.append(out)
         window_s = time.perf_counter() - t_window
         outputs[name] = outs
-        latency[name] = {"qps": 2 * N_QUERIES / window_s,
+        latency[name] = {"qps": 2 * n_queries / window_s,
                          "p50_ms": float(np.percentile(samples, 50)) * 1e3,
                          "p90_ms": float(np.percentile(samples, 90)) * 1e3,
-                         "max_ms": max(samples) * 1e3,
+                         "max_ms": max(samples) * 1e3, "batch": batch,
+                         "queries": 2 * n_queries,
                          "batch_ms": [t * 1e3 for t in samples]}
     return outputs, latency
 
 
 def path_recall(torch, label, outputs, gt):
-    """Recall of the modes a path served, against the exact neighbours."""
+    """Recall of the modes a path served, against the exact neighbours:
+    R@1, R@10 and the top-10 intersection of every result mode, candidate
+    recall of the candidate set."""
     from pqt_tpu_torch.utils.metrics import (candidate_recall,
                                              intersection_at, recall_at)
-    got, metrics = {}, {}
-    for name in ("exact", "line", "refine"):
-        if name not in outputs:
+    metrics = {}
+    for name, outs in outputs.items():
+        if name == "candidates":
+            cand = torch.cat([o[0] for o in outs]).cpu().numpy()
+            valid = torch.cat([o[1] for o in outs]).cpu().numpy()
+            metrics["candidate_recall"] = candidate_recall(cand, valid, gt)
             continue
-        ids = torch.cat([o.indices for o in outputs[name]]).cpu().numpy()
-        dists = torch.cat([o.dists for o in outputs[name]]).cpu().numpy()
-        if ids.shape != (N_QUERIES, K) or not np.isfinite(
+        ids = torch.cat([o.indices for o in outs]).cpu().numpy()
+        dists = torch.cat([o.dists for o in outs]).cpu().numpy()
+        if ids.shape != (gt.shape[0], K) or not np.isfinite(
                 dists[ids >= 0]).all():
             raise SmokeFailure(f"{label} {name}: bad result shape or "
                                "distances")
-        got[name] = ids
-    if "exact" in got:
-        metrics["exact_R@1"] = recall_at(got["exact"], gt, (1,))["R@1"]
-        metrics["exact_top10_intersection"] = intersection_at(
-            got["exact"], gt, (10,))["top10_intersection"]
-    if "refine" in got:
-        metrics["refine_R@1"] = recall_at(got["refine"], gt, (1,))["R@1"]
-    if "line" in got:
-        metrics["line_top10_intersection"] = intersection_at(
-            got["line"], gt, (10,))["top10_intersection"]
-        metrics["line_R@1"] = recall_at(got["line"], gt, (1,))["R@1"]
-    if "candidates" in outputs:
-        cand = torch.cat([o[0] for o in outputs["candidates"]]).cpu().numpy()
-        valid = torch.cat([o[1] for o in outputs["candidates"]]).cpu().numpy()
-        metrics["candidate_recall"] = candidate_recall(cand, valid, gt)
+        for key, v in recall_at(ids, gt, (1, 10)).items():
+            metrics[f"{name}_{key}"] = v
+        metrics[f"{name}_top10_intersection"] = intersection_at(
+            ids, gt, (10,))["top10_intersection"]
     return metrics
 
 
-def report(label, metrics, latency, reference, ref_name):
+def report(label, metrics, latency, reference, ref_name,
+           thresholds=THRESHOLDS):
     """Print a path's recall beside its limits and reference, and its
     serving numbers; returns the metrics below their limits."""
     print(f"-- {label}", flush=True)
-    for key, lim in THRESHOLDS.items():
+    for key, lim in thresholds.items():
         if key in metrics:
-            print(f"{key:26s} {metrics[key]:.4f}  (threshold {lim}, "
+            print(f"{key:30s} {metrics[key]:.4f}  (threshold {lim}, "
                   f"{ref_name} {reference.get(key, 'not run')})", flush=True)
     for name, lat in latency.items():
-        print(f"{name:10s} QPS {lat['qps']:.0f} ({2 * N_QUERIES} queries in "
-              f"batches of {BATCH})  batch latency p50 {lat['p50_ms']:.3f} "
-              f"p90 {lat['p90_ms']:.3f} max {lat['max_ms']:.3f} ms",
-              flush=True)
-    return [f"{label} {k}" for k, lim in THRESHOLDS.items()
+        print(f"{name:12s} QPS {lat['qps']:.0f} ({lat['queries']} queries "
+              f"in batches of {lat['batch']})  batch latency p50 "
+              f"{lat['p50_ms']:.3f} p90 {lat['p90_ms']:.3f} max "
+              f"{lat['max_ms']:.3f} ms", flush=True)
+    return [f"{label} {k}" for k, lim in thresholds.items()
             if k in metrics and metrics[k] < lim]
+
+
+def serve_path(torch, label, modes, qd, required, need=(), batch=BATCH,
+               **info):
+    """Serve one path with the launch counts reset just before it and read
+    just after it."""
+    reset_launches(torch)
+    out, lat = serve(torch, modes, qd, batch)
+    return dict(launches=read_launches(label, required, need),
+                serving=lat, outputs=out, **info)
 
 
 def query_paths(torch, P):
@@ -836,6 +975,7 @@ def query_paths(torch, P):
         pair_filter=False)
     parts_cfg = cfg.replace(pipeline="parts", pair_filter=True)
     slabs_cfg = parts_cfg.replace(gather_mode="slabs", slab_size=32)
+    wide_cfg = cfg.replace(payload_compact=False)
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     data, subcenters = make_sift_like(N_DB, cfg.dim, rng)
@@ -864,24 +1004,33 @@ def query_paths(torch, P):
     paths = {}
     out, lat = serve(torch, query_modes(P, cfg, tree, db, all_modes), qd)
     paths["pair"] = {"launches": read_launches("pair path", PAIR_KERNELS),
-                     "serving": lat, "outputs": out, "cfg": cfg,
+                     "serving": lat, "outputs": out, "cfg": cfg, "db": db,
                      "reference": (ROUND5, "round 5")}
 
     # phase 5: the parts path, then its slab-gather variant
-    reset_launches(torch)
-    out, lat = serve(torch, query_modes(P, parts_cfg, tree, db, all_modes),
-                     qd)
-    paths["parts"] = {"launches": read_launches("parts path", PARTS_KERNELS),
-                      "serving": lat, "outputs": out, "cfg": parts_cfg,
-                      "reference": (JAX_CPU_PARTS, "JAX on the CPU")}
-    reset_launches(torch)
-    out, lat = serve(torch, query_modes(P, slabs_cfg, tree, db,
-                                        ("exact", "line", "candidates")), qd)
-    paths["parts_slabs"] = {
-        "launches": read_launches("parts path with slab gathers",
-                                  PARTS_KERNELS),
-        "serving": lat, "outputs": out, "cfg": slabs_cfg,
-        "reference": (JAX_CPU_SLABS, "JAX on the CPU")}
+    paths["parts"] = serve_path(
+        torch, "parts path", query_modes(P, parts_cfg, tree, db, all_modes),
+        qd, PARTS_KERNELS, cfg=parts_cfg, db=db,
+        reference=(JAX_CPU_PARTS, "JAX on the CPU"))
+    paths["parts_slabs"] = serve_path(
+        torch, "parts path with slab gathers",
+        query_modes(P, slabs_cfg, tree, db, ("exact", "line", "candidates")),
+        qd, PARTS_KERNELS, cfg=slabs_cfg, db=db,
+        reference=(JAX_CPU_SLABS, "JAX on the CPU"))
+
+    # phase 6: the BIG two-stage path, line and perfect, on the same
+    # database; then the pair path's line mode over the wide payload
+    for name in ("big_line", "big_perfect"):
+        paths[name] = serve_path(
+            torch, f"BIG path ({name[4:]})",
+            query_modes(P, cfg, tree, db, (name,)), qd, ALL_KERNELS, cfg=cfg,
+            db=db, reference=(JAX_CPU_BIG, "JAX on the CPU"))
+    wide_db = P.build_database(wide_cfg, tree, data, device="cuda")
+    paths["pair_wide"] = serve_path(
+        torch, "pair path over the wide payload",
+        query_modes(P, wide_cfg, tree, wide_db, ("line",)), qd,
+        PAIR_KERNELS, ("rerank_fused:wide",), cfg=wide_cfg, db=wide_db,
+        reference=({}, "compact payload"))
 
     _, gt = brute_force_knn(qd, torch.as_tensor(data, device="cuda"), K)
     gt = gt.cpu().numpy()
@@ -890,23 +1039,189 @@ def query_paths(torch, P):
     for label, path in paths.items():
         c = path["cfg"]
         metrics = path_recall(torch, label, path["outputs"], gt)
-        failed += report(label, metrics, path["serving"], *path["reference"])
+        thresholds = THRESHOLDS
+        if label == "pair_wide":
+            ref = paths["pair"]["recall"]["line_top10_intersection"]
+            path["reference"] = ({"line_top10_intersection": ref},
+                                 "compact payload")
+            thresholds = {"line_top10_intersection": round(ref - 0.01, 4)}
+        failed += report(label, metrics, path["serving"], *path["reference"],
+                         thresholds)
+        path["recall"] = metrics
         profiles = {m: profile_batch(
-            torch, query_modes(P, c, tree, db, (m,))[m], qd[:BATCH])
-            for m in ("exact", "line")}
+            torch, query_modes(P, c, tree, path["db"], (m,))[m], qd[:BATCH])
+            for m in path["serving"] if m in ("exact", "line", "big_line",
+                                              "big_perfect")}
         for m, pr in profiles.items():
             print(f"profile {label} {m}: " + json.dumps(pr), flush=True)
         summary["paths"][label] = {
             "pipeline": c.pipeline, "pair_filter": c.pair_filter,
-            "gather_mode": c.gather_mode, "launches": path["launches"],
+            "gather_mode": c.gather_mode,
+            "payload_compact": c.payload_compact,
+            "launches": path["launches"],
             "serving": path["serving"], "recall": metrics,
             "profiles": profiles}
     if failed:
         raise SmokeFailure(f"recall below threshold: {failed}")
-    launches = {c.__name__: sum(p["launches"][c.__name__]
-                                for p in paths.values())
-                for c in counters()}
-    return launches, summary
+    return summary
+
+
+def host_rss_gib():
+    """(current, peak) resident host memory of this process, GiB."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    with open("/proc/self/status") as f:
+        cur = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:")) / 2 ** 20
+    return cur, peak
+
+
+def meminfo_line():
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return ", ".join(f"{k} {info[k].strip()}" for k in
+                     ("MemTotal", "MemAvailable") if k in info)
+
+
+def sift1b_fixture(torch, n, seed=0):
+    """rehearsal_50m.py's cluster model at n points (n_coarse = max(1024,
+    n // 320) coarse clusters of 16 subclusters each, so the points spread
+    over SIFT-like bins at any n), drawn on the card: (subcenters on the
+    card, a function that draws `size` uint8 points on the card)."""
+    rng = np.random.default_rng(seed)
+    _, sub = make_sift_like(1, 128, rng, n_coarse=max(1024, n // 320),
+                            subs_per_coarse=16)
+    sub = torch.as_tensor(sub, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(size):
+        which = torch.randint(0, sub.shape[0], (size,), generator=gen,
+                              device="cuda")
+        x = sub[which] + 5.0 * torch.randn((size, sub.shape[1]),
+                                           generator=gen, device="cuda")
+        return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+    return sub, draw
+
+
+def sift1b_phase(torch, P, workdir):
+    """SIFT1B_CONFIG at full width over 10M vectors, out of core: chunk
+    files, host merge with the spill, sidecar save, load onto the card;
+    then exact and refine through vectors_csr, line, candidates, BIG line
+    and BIG perfect at batch 64."""
+    from pqt_tpu_torch.io import native
+    from pqt_tpu_torch.ops.distance import brute_force_knn
+
+    cfg = P.SIFT1B_CONFIG.replace(kmeans_iters=8, train_subsample=100_000)
+    print(f"-- sift1b: {N_1B} vectors of SIFT1B's 10^9, a cut forced by "
+          "the smoke's run time; every width as SIFT1B_CONFIG (hash 2^29, "
+          f"{cfg.max_bins} bins, {cfg.max_candidates} candidates, "
+          f"pair_top_m {cfg.pair_top_m}, enum_width {cfg.enum_width}, "
+          f"k1_query {cfg.k1_query}, lp {cfg.line_parts}); host "
+          f"{meminfo_line()}", flush=True)
+    if native.get_lib() is None:
+        raise SmokeFailure("the native host runtime did not load: "
+                           f"{native.load_error()}")
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    t_phase = t0 = time.perf_counter()
+    _, draw = sift1b_fixture(torch, N_1B)
+    data = torch.empty((N_1B, 128), dtype=torch.uint8, device="cuda")
+    for s in range(0, N_1B, N_1B_CHUNK):
+        data[s:s + N_1B_CHUNK] = draw(min(N_1B_CHUNK, N_1B - s))
+    qd = draw(N_QUERIES).to(torch.float32)
+    torch.cuda.synchronize()
+    times["fixture_s"] = time.perf_counter() - t0
+
+    reset_launches(torch)
+    t0 = time.perf_counter()
+    tree = P.train_tree(cfg, data[:N_1B_TRAIN], device="cuda")
+    torch.cuda.synchronize()
+    times["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = []
+    for i, s in enumerate(range(0, N_1B, N_1B_CHUNK)):
+        paths.append(os.path.join(workdir, f"chunk{i}.npz"))
+        P.encode_chunk_to_file(cfg, tree, data[s:s + N_1B_CHUNK].cpu().numpy(),
+                               s, paths[-1], keep_vectors=True,
+                               device="cuda")
+    times["encode_s"] = time.perf_counter() - t0
+    # the encode's per-part norms (kernel D); k1_build = c1 asks for no top-k
+    build_launches = read_launches("SIFT1B train and encode",
+                                   ("segmented_reduce",))
+    t0 = time.perf_counter()
+    host_db = P.merge_chunk_files(cfg, tree, paths, keep_vectors=True,
+                                  spill_path=os.path.join(workdir, "spill"),
+                                  to_device=False)
+    times["merge_s"] = time.perf_counter() - t0
+    for path in paths:
+        os.remove(path)
+    nonempty = int(np.count_nonzero(host_db.counts))
+    largest = int(host_db.counts.max())
+    t0 = time.perf_counter()
+    base = os.path.join(workdir, "db")
+    P.save_database(base, cfg, host_db, adopt_memmaps=True)
+    times["save_s"] = time.perf_counter() - t0
+    del host_db
+    t0 = time.perf_counter()
+    db = P.load_database(base, cfg, device="cuda")
+    torch.cuda.synchronize()
+    times["load_s"] = time.perf_counter() - t0
+    if db.vectors is not None or db.vectors_csr is None:
+        raise SmokeFailure("sift1b: the loaded database should hold "
+                           "vectors_csr only")
+    rss = host_rss_gib()
+    print(f"sift1b: fixture {times['fixture_s']:.1f} s, train "
+          f"{times['train_s']:.1f} s, encode {times['encode_s']:.1f} s, "
+          f"merge {times['merge_s']:.1f} s, save {times['save_s']:.1f} s, "
+          f"load {times['load_s']:.1f} s; non-empty bins {nonempty}, "
+          f"largest bin {largest}; host RSS {rss[0]:.2f} GiB (peak "
+          f"{rss[1]:.2f})", flush=True)
+
+    loaded_gib = torch.cuda.memory_allocated() / 2 ** 30
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    modes = query_modes(P, cfg, tree, db, ("exact", "line", "refine",
+                                           "candidates", "big_line"))
+    # BIG perfect re-ranks by id: the vectors by id, attached on the card
+    by_id = db._replace(vectors=data)
+    modes.update(query_modes(P, cfg, tree, by_id, ("big_perfect",)))
+    path = serve_path(torch, "SIFT1B phase", modes, qd, ALL_KERNELS,
+                      ("bitonic_topk:merge",), batch=BATCH_1B)
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"sift1b: device memory held after the load {loaded_gib:.2f} GiB "
+          f"(tables, payload, vectors_csr, the data by id, the tree), "
+          f"peak while serving {serve_peak:.2f} GiB", flush=True)
+    _, gt = brute_force_knn(qd, data, K)
+    metrics = path_recall(torch, "sift1b", path["outputs"], gt.cpu().numpy())
+    # BIG line R@10 within 0.05 of the pair path's (the JAX package's own
+    # rule, tests/test_query_big.py)
+    floors = dict(SIFT1B_FLOORS, **{
+        "big_line_R@10": round(metrics["line_R@10"] - 0.05, 4)})
+    failed = report("sift1b", metrics, path["serving"],
+                    {"big_line_R@10": metrics["line_R@10"]},
+                    "reference (the pair path's line_R@10 for BIG line)",
+                    floors)
+    profiles = {m: profile_batch(torch, modes[m], qd[:BATCH_1B])
+                for m in ("exact", "big_line")}
+    for m, pr in profiles.items():
+        print(f"profile sift1b {m}: " + json.dumps(pr), flush=True)
+    peak = max(load_peak, serve_peak,
+               torch.cuda.max_memory_allocated() / 2 ** 30)
+    rss = host_rss_gib()
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"sift1b: {times['phase_s']:.1f} s in all, peak device memory "
+          f"{peak:.2f} GiB (with the float64 oracle), host RSS "
+          f"{rss[0]:.2f} GiB (peak {rss[1]:.2f})", flush=True)
+    if failed:
+        raise SmokeFailure(f"sift1b recall below its floor: {failed}")
+    return {"n": N_1B, "cut": "10M of SIFT1B's 10^9 (the smoke's run time)",
+            "times": times, "nonempty_bins": nonempty, "largest_bin": largest,
+            "peak_device_gib": peak, "loaded_device_gib": loaded_gib,
+            "serving_peak_device_gib": serve_peak, "host_rss_gib": rss[0],
+            "host_peak_rss_gib": rss[1], "build_launches": build_launches,
+            "launches": path["launches"], "serving": path["serving"],
+            "recall": metrics, "floors": floors, "profiles": profiles}
 
 
 # kernel E/F/G rows: one CUDA kernel stands for the three TPU lookups
@@ -956,6 +1271,8 @@ def main(json_path=None):
                   f"{c['plain_ms']:.4f}  library {c['library_ms']}  bound "
                   f"{c['bound_ms']:.4f}{other}", flush=True)
     print(f"launch floor {floor:.4f} ms", flush=True)
+    print(f"timings taken with CUDA events (no profiler session recorded "
+          f"device time): {len(EVENT_TIMED)}", flush=True)
 
     check_other_paths(torch)
     print("other kernel paths (hard top-k rows in every mode, multi-row long "
@@ -963,7 +1280,14 @@ def main(json_path=None):
           "lookups, every row-copy unit): equal to their plain versions",
           flush=True)
 
-    launches, summary = query_paths(torch, P)
+    summary = query_paths(torch, P)
+    peak_before = torch.cuda.max_memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="pqt_sift1b_") as workdir:
+        summary["sift1b"] = sift1b_phase(torch, P, workdir)
+    runs = [p["launches"] for p in summary["paths"].values()] + [
+        summary["sift1b"]["build_launches"], summary["sift1b"]["launches"]]
+    launches = {c.__name__: sum(r[c.__name__] for r in runs)
+                for c in counters()}
     rows = []
     for r in kernels.values():
         r["launches"] = launches[r["name"]]
@@ -974,7 +1298,9 @@ def main(json_path=None):
                  for name, where in LUT_ROWS]
     summary["card"] = card
     summary["launch_floor_ms"] = floor
-    summary["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    summary["event_timed_ms"] = EVENT_TIMED
+    summary["peak_memory_gib"] = max(peak_before / 2**30,
+                                     summary["sift1b"]["peak_device_gib"])
     summary["run_s"] = time.perf_counter() - t_start
     print(f"run {summary['run_s']:.1f} s from the card check, peak device "
           f"memory {summary['peak_memory_gib']:.2f} GiB", flush=True)

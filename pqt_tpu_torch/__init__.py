@@ -1,10 +1,14 @@
 """pqt_tpu_torch: the PyTorch and CUDA port of the Product-Quantization-Tree
 ANN engine `pqt_tpu`.
 
-It trains a two-level PQ tree, builds the in-memory database and serves
-`query_knn` (exact or line re-rank), `query_knn_refine` and
-`query_candidates` on the pair and the parts pipelines, with the
-pair-occupancy filter and in rows or slab gather mode.  The per-row top-k,
+It trains a two-level PQ tree, builds the database in memory or out of core
+(chunks encoded on the card, merged on the host into a CSR database that
+may spill to disk and be saved as raw sidecars), and serves `query_knn`
+(exact or line re-rank), `query_knn_refine` and `query_candidates` on the
+pair and the parts pipelines, with the pair-occupancy filter and in rows
+or slab gather mode, over raw vectors by id or in CSR order
+(`vectors_csr`), and the BIG two-stage query (`query_big_knn`,
+`query_big_knn_perfect`).  The per-row top-k,
 the prefix sums, the line re-rank, the segment sums, the table lookups and
 the row gathers of those paths are hand-written CUDA kernels for Hopper
 (`ops/cuda`, sources in `csrc/`), built with nvcc at first use; on CPU
@@ -24,16 +28,26 @@ torch.backends.cudnn.allow_tf32 = False
 
 from pqt_tpu_torch.config import (GIST1M_CONFIG, PQTConfig,  # noqa: E402
                                   SIFT1B_CONFIG, SIFT1M_CONFIG)
-from pqt_tpu_torch.io.artifacts import load_database, load_tree  # noqa: E402
-from pqt_tpu_torch.models.db import PQTDatabase, build_database  # noqa: E402
+from pqt_tpu_torch.io.artifacts import (load_database,  # noqa: E402
+                                        load_tree, save_database, save_tree)
+from pqt_tpu_torch.models.db import (ChunkedDBBuilder,  # noqa: E402
+                                     ChunkFormatError, PQTDatabase,
+                                     build_database, encode_chunk_to_file,
+                                     merge_chunk_files,
+                                     merge_chunk_files_range)
 from pqt_tpu_torch.models.query import (QueryResult,  # noqa: E402
                                         query_candidates, query_knn,
                                         query_knn_refine)
+from pqt_tpu_torch.models.query_big import (query_big_knn,  # noqa: E402
+                                            query_big_knn_perfect)
 from pqt_tpu_torch.models.tree import PQTree, train_tree  # noqa: E402
 
 __all__ = [
     "PQTConfig", "SIFT1M_CONFIG", "SIFT1B_CONFIG", "GIST1M_CONFIG",
     "PQTree", "train_tree", "PQTDatabase", "build_database",
+    "ChunkedDBBuilder", "ChunkFormatError", "encode_chunk_to_file",
+    "merge_chunk_files", "merge_chunk_files_range",
     "QueryResult", "query_knn", "query_knn_refine", "query_candidates",
-    "load_tree", "load_database",
+    "query_big_knn", "query_big_knn_perfect",
+    "load_tree", "load_database", "save_tree", "save_database",
 ]

@@ -18,7 +18,7 @@
 // A full bitonic sort of the row does O(n log^2 n) compare-exchanges in
 // shared memory, 105 block-wide stages at n = 16384, and keeps 8 bytes an
 // element in shared memory (one 16384-row block per SM), far above that
-// bound.  So the kernel has two modes; the wrapper's _topk_plan picks one
+// bound.  So the kernel has three modes; the wrapper's _topk_plan picks one
 // from (n, k) (ops/cuda/primitives.py):
 //
 // * select, where k is small beside n: one block per row finds the key of
@@ -37,6 +37,19 @@
 //   select's passes lost to it on this card: the whole row, padded inside
 //   the block to a power of two with (+inf, INT_MAX), bitonic-sorted as
 //   (value, index) pairs in shared memory (n <= 16384).
+// * merge, for k above 16384, which no block's shared memory sorts: the
+//   select writes its k survivors, unsorted, to a scratch row in device
+//   memory (or, for k = n, the row itself is the list); each run of 16384
+//   pairs is bitonic-sorted in shared memory by one block, in place; then
+//   log2(runs) merge passes in device memory double the sorted runs, each
+//   block writing one 4096-pair tile of the output: two binary searches
+//   along the merge path find where its tile starts and ends in the two
+//   runs, it stages those pairs in shared memory, and every thread merges 8
+//   outputs from a split point of its own.  Pairs compare as (value,
+//   index), the first run winning equal pairs (only the (+inf, INT_MAX)
+//   padding repeats), so the order is the same total order as the other
+//   modes'.  Each merge pass reads and writes the scratch rows once; the
+//   runs' sorts are bound by shared memory, as in sort mode.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -52,6 +65,12 @@ constexpr int kSelectThreads = 512;        // most threads of a select block
 constexpr int kMaxWarps = kSelectThreads / 32;
 constexpr int kMaxSort = 16384;            // longest sort: 8 B a pair, 128 KB
 constexpr int kMaxSelectRow = 1 << 30;     // row positions stay inside int32
+constexpr int kRun = kMaxSort;             // merge mode: pairs a block sorts
+constexpr int kRunThreads = 1024;
+constexpr int kMergeThreads = 512;
+constexpr int kMergeItems = 8;             // outputs a merging thread makes
+constexpr int kMergeTile = kMergeThreads * kMergeItems;   // 32 KB of pairs
+constexpr int kMaxMerge = 1 << 20;         // merge mode's most pairs a row
 
 __device__ __forceinline__ bool pair_after(float va, int ia, float vb,
                                            int ib) {
@@ -127,14 +146,18 @@ __device__ __forceinline__ void load_keys(const float* __restrict__ xr, int n,
 
 // Select mode: one block per row.  RESIDENT: the row fits one tile of ITEMS
 // x blockDim keys, loaded once; otherwise every pass walks the row tile by
-// tile.  blockDim is a multiple of 32 (whole warps vote).
-template <int ITEMS, bool RESIDENT>
+// tile.  blockDim is a multiple of 32 (whole warps vote).  TO_SCRATCH (merge
+// mode): the k survivors go unsorted to row `row` of out_v / out_i, rows of
+// sort_len pairs, and nothing is sorted here.
+template <int ITEMS, bool RESIDENT, bool TO_SCRATCH>
 __global__ void __launch_bounds__(kSelectThreads, 2)
 radix_select_kernel(const float* __restrict__ x, int n, int k, int sort_len,
                     float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ float smem[];
-  float* sv = smem;
-  int* si = reinterpret_cast<int*>(smem + sort_len);
+  const size_t row = blockIdx.x;
+  float* sv = TO_SCRATCH ? out_v + row * sort_len : smem;
+  int* si = TO_SCRATCH ? out_i + row * sort_len
+                       : reinterpret_cast<int*>(smem + sort_len);
   __shared__ int hist[kBins];
   __shared__ int tie_base[ITEMS * kMaxWarps];
   __shared__ int s_bucket, s_before, s_count, s_slot, s_ties;
@@ -143,7 +166,6 @@ radix_select_kernel(const float* __restrict__ x, int n, int k, int sort_len,
   const int nwarps = blockDim.x >> 5;
   const int tile = ITEMS * blockDim.x;
   const unsigned lanes_below = (1u << lane) - 1u;
-  const size_t row = blockIdx.x;
   const float* xr = x + row * n;
 
   uint32_t key[ITEMS];
@@ -219,9 +241,11 @@ radix_select_kernel(const float* __restrict__ x, int n, int k, int sort_len,
     s_slot = 0;
     s_ties = 0;
   }
-  for (int t = k + tid; t < sort_len; t += blockDim.x) {
-    sv[t] = INFINITY;
-    si[t] = INT_MAX;
+  if (!TO_SCRATCH) {
+    for (int t = k + tid; t < sort_len; t += blockDim.x) {
+      sv[t] = INFINITY;
+      si[t] = INT_MAX;
+    }
   }
   __syncthreads();
   for (int base = 0; base < n; base += tile) {
@@ -290,10 +314,150 @@ radix_select_kernel(const float* __restrict__ x, int n, int k, int sort_len,
   }
 
   // 3. Sort the k survivors (padded with (+inf, INT_MAX)) and write them.
+  if (TO_SCRATCH) return;
   bitonic_sort_pairs(sv, si, sort_len);
   for (int t = tid; t < k; t += blockDim.x) {
     out_v[row * k + t] = sv[t];
     out_i[row * k + t] = si[t];
+  }
+}
+
+
+// Merge mode, step 2: one block sorts run `run` of a row's m pairs
+// (positions run * kRun ...), padded with (+inf, INT_MAX), in shared memory
+// and writes it to row `row` of dst (rows of len pairs); src_i null: the
+// indices are the positions.  Runs as its own copy in place (src == dst).
+// With one run only, the first k pairs go to out_v / out_i instead.
+__global__ void __launch_bounds__(kRunThreads)
+run_sort_kernel(const float* src_v, const int* src_i, int src_stride, int m,
+                int runs, int len, float* dst_v, int* dst_i, int k,
+                float* out_v, int* out_i) {
+  extern __shared__ float smem[];
+  float* sv = smem;
+  int* si = reinterpret_cast<int*>(smem + kRun);
+  const size_t row = blockIdx.x / runs;
+  const int run = blockIdx.x % runs;
+  const float* rv = src_v + row * src_stride;
+  const int* ri = src_i ? src_i + row * src_stride : nullptr;
+  for (int t = threadIdx.x; t < kRun; t += blockDim.x) {
+    const int p = run * kRun + t;
+    const bool live = p < m;
+    sv[t] = live ? rv[p] : INFINITY;
+    si[t] = live ? (ri ? ri[p] : p) : INT_MAX;
+  }
+  __syncthreads();
+  bitonic_sort_pairs(sv, si, kRun);
+  if (runs == 1) {
+    for (int t = threadIdx.x; t < k; t += blockDim.x) {
+      out_v[row * k + t] = sv[t];
+      out_i[row * k + t] = si[t];
+    }
+    return;
+  }
+  const size_t out = row * len + (size_t)run * kRun;
+  for (int t = threadIdx.x; t < kRun; t += blockDim.x) {
+    dst_v[out + t] = sv[t];
+    dst_i[out + t] = si[t];
+  }
+}
+
+__device__ __forceinline__ bool pair_before(float va, int ia, float vb,
+                                            int ib) {
+  return va < vb || (va == vb && ia < ib);
+}
+
+// The merge path: how many of the first `diag` pairs of the stable merge of
+// sorted lists a (na pairs) and b (nb pairs) come from a, a's pair going
+// first between equal pairs.
+__device__ __forceinline__ int merge_path(const float* av, const int* ai,
+                                          int na, const float* bv,
+                                          const int* bi, int nb, int diag) {
+  int lo = max(0, diag - nb), hi = min(diag, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int j = diag - 1 - mid;
+    if (pair_before(bv[j], bi[j], av[mid], ai[mid]))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// Merge mode, step 3: one pass merges the sorted runs of `width` pairs two
+// by two into runs of 2 * width, rows of len pairs; one block writes one
+// tile of kMergeTile outputs (a tile never straddles two merges: 2 * width
+// >= 2 * kRun is a multiple of it).  final: the pass makes the whole row,
+// and only its first k pairs are written, to out (rows of k).
+__global__ void __launch_bounds__(kMergeThreads)
+merge_pass_kernel(const float* __restrict__ src_v,
+                  const int* __restrict__ src_i, int len, int width,
+                  float* __restrict__ dst_v, int* __restrict__ dst_i, int k,
+                  bool final) {
+  __shared__ float tv[kMergeTile];
+  __shared__ int ti[kMergeTile];
+  __shared__ int split[2];
+  const int tiles = len / kMergeTile;
+  const size_t row = blockIdx.x / tiles;
+  const int o0 = (blockIdx.x % tiles) * kMergeTile;   // first output of
+                                                      // the tile in the row
+  const int pair0 = o0 / (2 * width) * (2 * width);
+  const float* av = src_v + row * len + pair0;
+  const int* ai = src_i + row * len + pair0;
+  const float* bv = av + width;
+  const int* bi = ai + width;
+  const int d0 = o0 - pair0;
+  if (threadIdx.x == 0 || threadIdx.x == 32)
+    split[threadIdx.x >> 5] = merge_path(
+        av, ai, width, bv, bi, width, d0 + (threadIdx.x >> 5) * kMergeTile);
+  __syncthreads();
+  const int a0 = split[0], na = split[1] - a0, b0 = d0 - a0;
+  for (int t = threadIdx.x; t < kMergeTile; t += blockDim.x) {
+    if (t < na) {
+      tv[t] = av[a0 + t];
+      ti[t] = ai[a0 + t];
+    } else {
+      tv[t] = bv[b0 + t - na];
+      ti[t] = bi[b0 + t - na];
+    }
+  }
+  __syncthreads();
+  // this thread's kMergeItems outputs, from its own split of the tile's
+  // two lists ([0, na) and [na, kMergeTile) of tv / ti)
+  const int d = threadIdx.x * kMergeItems;
+  int a = merge_path(tv, ti, na, tv + na, ti + na, kMergeTile - na, d);
+  int b = na + d - a;
+  float ov[kMergeItems];
+  int oi[kMergeItems];
+#pragma unroll
+  for (int j = 0; j < kMergeItems; ++j) {
+    const bool take_a =
+        b >= kMergeTile ||
+        (a < na && !pair_before(tv[b], ti[b], tv[a], ti[a]));
+    const int from = take_a ? a : b;
+    ov[j] = tv[from];
+    oi[j] = ti[from];
+    a += take_a;
+    b += !take_a;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kMergeItems; ++j) {
+    tv[d + j] = ov[j];
+    ti[d + j] = oi[j];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < kMergeTile; t += blockDim.x) {
+    const int o = o0 + t;
+    if (final) {
+      if (o < k) {
+        dst_v[row * k + o] = tv[t];
+        dst_i[row * k + o] = ti[t];
+      }
+    } else {
+      dst_v[row * len + o] = tv[t];
+      dst_i[row * len + o] = ti[t];
+    }
   }
 }
 
@@ -318,11 +482,12 @@ cudaError_t configure() {
   if (configured[dev]) return cudaSuccess;
   const cudaError_t errs[] = {
       allow_sort_smem(bitonic_sort_kernel),
-      allow_sort_smem(radix_select_kernel<4, true>),
-      allow_sort_smem(radix_select_kernel<8, true>),
-      allow_sort_smem(radix_select_kernel<16, true>),
-      allow_sort_smem(radix_select_kernel<32, true>),
-      allow_sort_smem(radix_select_kernel<32, false>)};
+      allow_sort_smem(radix_select_kernel<4, true, false>),
+      allow_sort_smem(radix_select_kernel<8, true, false>),
+      allow_sort_smem(radix_select_kernel<16, true, false>),
+      allow_sort_smem(radix_select_kernel<32, true, false>),
+      allow_sort_smem(radix_select_kernel<32, false, false>),
+      allow_sort_smem(run_sort_kernel)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
   configured[dev] = true;
@@ -363,27 +528,80 @@ extern "C" int pqt_topk(const float* x, int rows, int n, int k, int mode,
   const bool resident = (long long)items * threads >= n;
   switch (resident ? items : -items) {
     case 4:
-      radix_select_kernel<4, true><<<rows, threads, smem, s>>>(
+      radix_select_kernel<4, true, false><<<rows, threads, smem, s>>>(
           x, n, k, sort_len, out_v, out_i);
       break;
     case 8:
-      radix_select_kernel<8, true><<<rows, threads, smem, s>>>(
+      radix_select_kernel<8, true, false><<<rows, threads, smem, s>>>(
           x, n, k, sort_len, out_v, out_i);
       break;
     case 16:
-      radix_select_kernel<16, true><<<rows, threads, smem, s>>>(
+      radix_select_kernel<16, true, false><<<rows, threads, smem, s>>>(
           x, n, k, sort_len, out_v, out_i);
       break;
     case 32:
-      radix_select_kernel<32, true><<<rows, threads, smem, s>>>(
+      radix_select_kernel<32, true, false><<<rows, threads, smem, s>>>(
           x, n, k, sort_len, out_v, out_i);
       break;
     case -32:
-      radix_select_kernel<32, false><<<rows, threads, smem, s>>>(
+      radix_select_kernel<32, false, false><<<rows, threads, smem, s>>>(
           x, n, k, sort_len, out_v, out_i);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Merge mode (k > 16384, or a whole row of more than 16384): x (rows, n)
+// float32 -> (rows, k) values and int32 indices, like the other modes.
+// len: pairs of a scratch row, a power of two >= max(k, 16384), <= 2^20;
+// select_threads: the select's block (a multiple of 32 up to 512), used
+// when k < n.  v0/i0 and v1/i1: two scratch buffers of rows x len pairs the
+// caller allocates (the runs, and the merge passes' ping-pong).  Returns the
+// CUDA error code of the first launch that failed (0 = success).
+extern "C" int pqt_topk_merge(const float* x, int rows, int n, int k,
+                              int select_threads, int len, float* v0,
+                              int* i0, float* v1, int* i1, float* out_v,
+                              int* out_i, void* stream) {
+  if (rows < 1 || k < 1 || k > n || n > kMaxSelectRow ||
+      !power_of_two(len) || len < kRun || len > kMaxMerge || len < k ||
+      select_threads % 32 || select_threads < 32 ||
+      select_threads > kSelectThreads)
+    return (int)cudaErrorInvalidValue;
+  const int runs = len / kRun;
+  if ((long long)rows * (len / kMergeTile) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t run_smem = (size_t)kRun * (sizeof(float) + sizeof(int));
+  if (k < n) {
+    radix_select_kernel<32, false, true><<<rows, select_threads, 0, s>>>(
+        x, n, k, len, v0, i0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    run_sort_kernel<<<rows * runs, kRunThreads, run_smem, s>>>(
+        v0, i0, len, k, runs, len, v0, i0, k, out_v, out_i);
+  } else {
+    run_sort_kernel<<<rows * runs, kRunThreads, run_smem, s>>>(
+        x, nullptr, n, n, runs, len, v0, i0, k, out_v, out_i);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  float* cv = v0;
+  int* ci = i0;
+  float* nv = v1;
+  int* ni = i1;
+  for (int width = kRun; width < len; width *= 2) {
+    const bool final = 2 * width == len;
+    merge_pass_kernel<<<rows * (len / kMergeTile), kMergeThreads, 0, s>>>(
+        cv, ci, len, width, final ? out_v : nv, final ? out_i : ni, k, final);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    float* tv = cv;
+    int* ti = ci;
+    cv = nv;
+    ci = ni;
+    nv = tv;
+    ni = ti;
+  }
+  return 0;
 }

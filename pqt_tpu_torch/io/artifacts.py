@@ -3,10 +3,10 @@
 Port of pqt_tpu/io/artifacts.py.  Both artifacts are single .npz files
 carrying the config JSON (format version 2), so a tree or database that
 either package saved loads in the other; loads check the stored geometry
-against the requested config.  A database saved out of core keeps leaves in
-raw `<path>.npz.<leaf>.bin` sidecar files with their shape and dtype in the
-npz; the port reads them through numpy memmaps and copies them to the
-device.
+against the requested config.  A database saved out of core keeps its
+memmap leaves in raw `<path>.npz.<leaf>.bin` sidecar files with their shape
+and dtype in the npz; the port reads them through numpy memmaps and copies
+them to the device in row blocks.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Callable
 import numpy as np
 
 from pqt_tpu_torch.config import PQTConfig
-from pqt_tpu_torch.models.db import PQTDatabase, payload_width
+from pqt_tpu_torch.models.db import PQTDatabase, pack_payload, payload_width
 from pqt_tpu_torch.models.tree import PQTree
 from pqt_tpu_torch.utils.device import resolve_device
 
@@ -48,10 +48,6 @@ _TREE_FIELDS = ("dim", "p", "c1", "c2", "line_parts")
 _DB_FIELDS = _TREE_FIELDS + ("hash_size",)
 
 
-def _np(t):
-    return None if t is None else t.detach().cpu().numpy()
-
-
 def save_tree(path: str, cfg: PQTConfig, tree: PQTree) -> None:
     np.savez_compressed(
         _npz_path(path), __version__=_FORMAT_VERSION, config=cfg.to_json(),
@@ -70,24 +66,74 @@ def load_tree(path: str, cfg: PQTConfig, device="cuda") -> PQTree:
     return PQTree.from_numpy(cfg, cb1, cb2, dev)
 
 
-def save_database(path: str, cfg: PQTConfig, db: PQTDatabase) -> None:
-    """Persist a database with every leaf inline in one compressed npz."""
+def _np(t):
+    """A leaf (tensor, numpy array or memmap) as a host array."""
+    if t is None or isinstance(t, np.ndarray):
+        return t
+    return t.detach().cpu().numpy()
+
+
+def _stream_to_raw(arr: np.ndarray, out_path: str,
+                   rows_per_block: int = 1 << 20) -> None:
+    """Copy an array (a memmap, say) to a raw file in row blocks, never
+    reading the whole array into host RAM."""
+    with open(out_path, "wb") as f:
+        for s in range(0, arr.shape[0], rows_per_block):
+            f.write(np.ascontiguousarray(arr[s:s + rows_per_block])
+                    .tobytes())
+
+
+def _covers_its_file(leaf: np.memmap) -> bool:
+    """Whether a memmap maps its whole backing file from its first byte
+    (what a rename can adopt), not a view at an offset or of a part."""
+    src = getattr(leaf, "filename", None)
+    return bool(src) and os.path.exists(src) and leaf.offset == 0 and \
+        leaf.flags.c_contiguous and leaf.nbytes == os.path.getsize(src)
+
+
+def save_database(path: str, cfg: PQTConfig, db: PQTDatabase,
+                  adopt_memmaps: bool = False) -> None:
+    """Persist a database.
+
+    In-RAM leaves (tensors, numpy arrays) go into one compressed npz.
+    Memmap leaves (an out-of-core build's payload and CSR-ordered vectors)
+    go to raw sidecar files `<path>.npz.<leaf>.bin` in row blocks, their
+    shape and dtype in the npz, so saving a spilled database never reads it
+    into host RAM.  adopt_memmaps=True renames a memmap's backing file into
+    place instead of copying it, when the memmap covers that whole file
+    from offset 0 (any other view is copied); the caller must be done with
+    `db`.  Re-saving a loaded spilled database to its own path leaves its
+    sidecars as they are.
+    """
+    base = _npz_path(path)
     arrays = dict(__version__=_FORMAT_VERSION, config=cfg.to_json(),
                   prefix=_np(db.prefix), counts=_np(db.counts))
     for name in ("payload", "pair_occ", "vectors", "vectors_csr"):
         leaf = getattr(db, name)
-        if leaf is not None:
+        if leaf is None:
+            continue
+        if not isinstance(leaf, np.memmap):
             arrays[name] = _np(leaf)
-    np.savez_compressed(_npz_path(path), **arrays)
-
-
-def _pack_payload_wide(ids, codes, t3) -> np.ndarray:
-    """Format v1 stored ids/codes/t3 apart: pack them into wide rows."""
-    out = np.empty((ids.shape[0], 2 + codes.shape[1]), np.int32)
-    out[:, 0] = ids
-    out[:, 1] = np.ascontiguousarray(t3, np.float32).view(np.int32)
-    out[:, 2:] = np.ascontiguousarray(codes, np.uint32).view(np.int32)
-    return out
+            continue
+        side = base + f".{name}.bin"
+        src = getattr(leaf, "filename", None)
+        same_file = bool(src) and os.path.exists(src) and \
+            os.path.abspath(src) == os.path.abspath(side)
+        if same_file and _covers_its_file(leaf):
+            pass    # the sidecar already is the data; streaming would
+            #         truncate the file under its own live mapping
+        elif adopt_memmaps and _covers_its_file(leaf):
+            leaf.flush()
+            os.replace(src, side)
+        elif same_file:
+            raise ValueError(f"save_database: {name} is a partial view of "
+                             f"{side}, which saving to this path would "
+                             "overwrite")
+        else:
+            _stream_to_raw(leaf, side)
+        arrays[name + "__shape"] = np.asarray(leaf.shape, np.int64)
+        arrays[name + "__dtype"] = np.str_(np.dtype(leaf.dtype).str)
+    np.savez_compressed(base, **arrays)
 
 
 def load_database(path: str, cfg: PQTConfig, device="cuda") -> PQTDatabase:
@@ -107,8 +153,8 @@ def load_database(path: str, cfg: PQTConfig, device="cuda") -> PQTDatabase:
             return None
 
         payload = leaf("payload")
-        if payload is None:
-            payload = _pack_payload_wide(z["ids"], z["codes"], z["t3"])
+        if payload is None:     # format v1 stored ids/codes/t3 apart
+            payload = pack_payload(z["ids"], z["codes"], z["t3"])
         db = PQTDatabase.from_numpy(
             prefix=z["prefix"], counts=z["counts"], payload=payload,
             pair_occ=leaf("pair_occ"), vectors=leaf("vectors"),

@@ -14,11 +14,22 @@ The payload is ONE int32 row per vector in CSR order: column 0 the original
 id, column 1 t3's float bits, then the line codes -- wide (one uint32 per
 line part, A | B << 8 | lambda_u16 << 16) or, when c1 <= 16, compact (16
 bits per line part, A | B << 4 | lambda_u8 << 8, two parts per column).
-The chunked and out-of-core builders are not ported yet.
+
+The out-of-core half (port of pqt_tpu/models/db.py:100-138, 358-666)
+encodes chunks on the card and assembles the CSR on the host:
+`ChunkedDBBuilder` (in RAM, or spilled to disk with `spill_path`),
+`encode_chunk_to_file` + `merge_chunk_files` (the multi-process shape), and
+`merge_chunk_files_range` (one hash range).  Rows are placed in input order
+against per-bin cursors (io/native.py), so ids stay ascending inside every
+bin and the merged payload equals `build_database`'s for the same bins.  A
+spilled build keeps the raw vectors in CSR order (`vectors_csr`), which the
+queries read by CSR position.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -32,8 +43,38 @@ from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk, block_scan
 from pqt_tpu_torch.utils.device import resolve_device
 
 
+class ChunkFormatError(RuntimeError):
+    """An encoded chunk file lacks the arrays the requested merge needs."""
+
+
+# Rows copied to the device per step from a host array (bounds the host
+# copy of a memmap leaf to about 256 MB).
+_UPLOAD_BYTES = 1 << 28
+
+
+def to_device(a, dev: torch.device) -> torch.Tensor:
+    """A numpy array (or memmap) as a tensor on `dev`.  On the CPU the
+    tensor owns a copy; to a card the rows go in blocks of about 256 MB, so
+    a memmap's file is never copied into host RAM whole."""
+    a = np.asarray(a)
+    if dev.type == "cpu":
+        return torch.from_numpy(np.array(a))
+    out = torch.empty(a.shape, device=dev,
+                      dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+    step = max(1, _UPLOAD_BYTES // max(1, a[:1].nbytes))
+    with warnings.catch_warnings():
+        # read-only arrays (memmaps opened "r", numpy views of JAX arrays):
+        # the copy to the card only reads them
+        warnings.simplefilter("ignore", UserWarning)
+        for s in range(0, a.shape[0], step):
+            out[s:s + step].copy_(
+                torch.from_numpy(np.ascontiguousarray(a[s:s + step])))
+    return out
+
+
 class PQTDatabase(NamedTuple):
-    """Built database: tensors on one device."""
+    """Built database: tensors on one device (or, from an out-of-core
+    merge with to_device=False, numpy arrays and memmaps on the host)."""
     prefix: torch.Tensor        # (hash_size,) int32 CSR start of each bin
     counts: torch.Tensor        # (hash_size,) int32
     payload: torch.Tensor       # (n, payload_width(cfg)) int32, CSR order
@@ -69,8 +110,7 @@ class PQTDatabase(NamedTuple):
         dev = resolve_device(device)
 
         def put(a):
-            return None if a is None else torch.as_tensor(np.array(a),
-                                                          device=dev)
+            return None if a is None else to_device(a, dev)
 
         prefix, counts = put(prefix), put(counts)
         if prefix2 is None:
@@ -227,3 +267,345 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
         cfg, torch.cat(bins_l), torch.cat(packed_l))
     return PQTDatabase(prefix=prefix, counts=counts, payload=payload,
                        pair_occ=pair_occ, vectors=vectors, prefix2=prefix2)
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core half: host packers, host CSR assembly, chunked builders.
+# ---------------------------------------------------------------------------
+
+def pack_payload(ids: np.ndarray, codes: np.ndarray,
+                 t3: np.ndarray) -> np.ndarray:
+    """Host packing of (ids, uint32 line codes, t3) into WIDE payload rows."""
+    out = np.empty((ids.shape[0], 2 + codes.shape[1]), np.int32)
+    out[:, 0] = ids
+    out[:, 1] = np.ascontiguousarray(t3, np.float32).view(np.int32)
+    out[:, 2:] = np.ascontiguousarray(codes, np.uint32).view(np.int32)
+    return out
+
+
+def pack_payload_compact(ids: np.ndarray, codes: np.ndarray,
+                         t3: np.ndarray) -> np.ndarray:
+    """Compact rows: 16 bits per line part (A | B << 4 | lambda_u8 << 8), two
+    parts per column.  codes: (n, lp) uint32 in the wide bit layout with
+    lambda already on the u8 grid (build_line_codes(lambda_bits=8))."""
+    n, lp = codes.shape
+    codes = codes.astype(np.uint32)
+    a = codes & np.uint32(0xF)
+    b = (codes >> 8) & np.uint32(0xF)
+    lam8 = (codes >> 24) & np.uint32(0xFF)
+    part16 = a | (b << 4) | (lam8 << 8)
+    if lp % 2:
+        part16 = np.concatenate([part16, np.zeros((n, 1), np.uint32)], axis=1)
+    merged = part16[:, 0::2] | (part16[:, 1::2] << 16)
+    out = np.empty((n, 2 + merged.shape[1]), np.int32)
+    out[:, 0] = ids
+    out[:, 1] = np.ascontiguousarray(t3, np.float32).view(np.int32)
+    out[:, 2:] = np.ascontiguousarray(merged, np.uint32).view(np.int32)
+    return out
+
+
+def pack_payload_cfg(cfg: PQTConfig, ids: np.ndarray, codes: np.ndarray,
+                     t3: np.ndarray) -> np.ndarray:
+    """Host payload rows under `cfg`'s layout."""
+    if cfg.payload_is_compact:
+        return pack_payload_compact(ids, codes, t3)
+    return pack_payload(ids, codes, t3)
+
+
+def _csr_database(prefix, counts, payload, pair_occ, vectors, vectors_csr,
+                  to_device_: bool, device) -> PQTDatabase:
+    """A PQTDatabase of int32 host leaves: moved to `device` (the probe
+    table derived there), or kept as numpy arrays and memmaps
+    (to_device_=False)."""
+    if to_device_:
+        return PQTDatabase.from_numpy(prefix, counts, payload,
+                                      pair_occ=pair_occ, vectors=vectors,
+                                      vectors_csr=vectors_csr, device=device)
+    return PQTDatabase(prefix=prefix, counts=counts, payload=payload,
+                       pair_occ=pair_occ, vectors=vectors,
+                       prefix2=np.stack([prefix, prefix + counts], axis=1),
+                       vectors_csr=vectors_csr)
+
+
+def assemble_database(cfg: PQTConfig, bin_ids: np.ndarray, codes: np.ndarray,
+                      t3: np.ndarray, vectors: Optional[np.ndarray] = None,
+                      id_offset: int = 0,
+                      pair_occ: Optional[np.ndarray] = None,
+                      device="cuda") -> PQTDatabase:
+    """Host CSR assembly from encoded vectors: a stable counting sort by bin
+    id (native), the rows packed in input order, then one row gather into
+    CSR order.  codes: (n, lp) uint32 wide-layout line codes; vectors (by
+    id) and pair_occ ride along.  The leaves go to `device`."""
+    from pqt_tpu_torch.io import native
+    dev = resolve_device(device)
+    counts, prefix, order = native.build_csr(bin_ids, cfg.hash_size)
+    n = bin_ids.shape[0]
+    packed = pack_payload_cfg(
+        cfg, np.arange(id_offset, id_offset + n, dtype=np.int32), codes, t3)
+    return _csr_database(prefix, counts, native.gather_rows(packed, order),
+                         pair_occ, vectors, None, True, dev)
+
+
+def _encode_host(cfg: PQTConfig, tree: PQTree, data: np.ndarray,
+                 id_offset: int, encode_chunk: int,
+                 pair_occ: Optional[torch.Tensor]):
+    """Encode host rows on the tree's device, `encode_chunk` rows a step
+    (uint8 rows go up raw and are cast there): (bins (n,) int32, payload
+    rows (n, payload_width) int32) on the host; pair_occ, on the device, is
+    marked in place."""
+    dev = tree.cb1.device
+    n = data.shape[0]
+    bins = np.empty((n,), np.int32)
+    packed = np.empty((n, payload_width(cfg)), np.int32)
+    for s in range(0, n, encode_chunk):
+        chunk = torch.as_tensor(data[s:s + encode_chunk], device=dev)
+        bins_c, pc_c, packed_c = _encode_chunk(cfg, tree, chunk,
+                                               id_offset + s)
+        if pair_occ is not None:
+            _pair_occ_device(cfg, pc_c, pair_occ)
+        bins[s:s + encode_chunk] = bins_c.cpu().numpy()
+        packed[s:s + encode_chunk] = packed_c.cpu().numpy()
+    return bins, packed
+
+
+def _host_rows(data) -> np.ndarray:
+    data = np.asarray(data)
+    if data.dtype not in (np.uint8, np.float32):
+        data = data.astype(np.float32)
+    return data
+
+
+def _check_tree_device(tree: PQTree, device) -> torch.device:
+    dev = resolve_device(device)
+    if tree.cb1.device != dev:
+        raise ValueError(f"tree is on {tree.cb1.device}, build device is "
+                         f"{dev}")
+    return dev
+
+
+class ChunkedDBBuilder:
+    """Out-of-core database builder.
+
+    Feed chunks of any size with `add_chunk`: each is encoded on the device
+    in `encode_chunk`-row steps and only its bin ids and payload rows come
+    back to the host, while a global bin histogram accumulates.
+    `finalize()` is then one streaming counting sort: chunk by chunk, rows
+    are placed at their final CSR positions against per-bin cursors, in
+    input order.  Host RAM holds the largest chunk, the (hash_size,)
+    cursors and the output; with `spill_path` the encoded chunks go to disk
+    as they arrive and the output is a payload memmap at `spill_path` (plus
+    a CSR-ordered vector memmap `<spill_path>.vecs` with keep_vectors),
+    reread once at finalize.  In RAM, kept vectors stay by original id.
+    """
+
+    def __init__(self, cfg: PQTConfig, tree: PQTree,
+                 keep_vectors: bool = False, encode_chunk: int = 65536,
+                 spill_path: Optional[str] = None, device="cuda"):
+        self.cfg = cfg
+        self.tree = tree
+        self.device = _check_tree_device(tree, device)
+        self.keep_vectors = keep_vectors
+        self.encode_chunk = encode_chunk
+        self.spill_path = spill_path
+        self._chunks = []      # (bins, packed rows, raw vectors or None), or
+                               # the path of a spilled chunk file
+        self._vecs = []
+        self._vec_meta = None  # (dtype, dim) of the raw vectors
+        self._hist = np.zeros((cfg.hash_size,), np.int64)
+        self._n = 0
+        self._pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
+                                      dtype=torch.uint8, device=self.device)
+                          if cfg.pair_filter_enabled else None)
+
+    def add_chunk(self, data) -> None:
+        data = _host_rows(data)
+        bins, packed = _encode_host(self.cfg, self.tree, data, self._n,
+                                    self.encode_chunk, self._pair_occ)
+        self._hist += np.bincount(bins, minlength=self.cfg.hash_size)
+        if self.spill_path:
+            path = f"{self.spill_path}.chunk{len(self._chunks)}.npz"
+            arrays = dict(bins=bins, packed=packed)
+            if self.keep_vectors:
+                arrays["vecs"] = data
+            np.savez(path, **arrays)
+            self._chunks.append(path)
+        else:
+            self._chunks.append((bins, packed))
+            if self.keep_vectors:
+                self._vecs.append(data)
+        if self.keep_vectors:
+            self._vec_meta = (data.dtype, data.shape[1])
+        self._n += data.shape[0]
+
+    def finalize(self, to_device: bool = True, device=None) -> PQTDatabase:
+        """The CSR database: leaves on `device` (the builder's by default),
+        or, with to_device=False, numpy arrays and memmaps."""
+        occ = self._pair_occ
+        if isinstance(occ, torch.Tensor):
+            occ = occ.cpu().numpy()
+        return _streaming_merge(
+            self.cfg, self._chunks, self._hist, self._n, occ,
+            self._vec_meta if self.spill_path else None, self.spill_path,
+            np.concatenate(self._vecs) if self._vecs else None, to_device,
+            self.device if device is None else device)
+
+
+def _streaming_merge(cfg: PQTConfig, chunks, hist: np.ndarray, n: int,
+                     pair_occ, vec_meta, spill_path, vectors, to_device_,
+                     device) -> PQTDatabase:
+    """Place every chunk's rows at their CSR positions (the merge of
+    ChunkedDBBuilder.finalize and merge_chunk_files).  chunks: (bins,
+    packed) pairs, or chunk file paths (bins, packed and, when vec_meta is
+    given, vecs); vec_meta (dtype, dim) spills the vectors in CSR order."""
+    from pqt_tpu_torch.io import native
+    dev = resolve_device(device) if to_device_ else None
+    if int(hist.sum()) != n:
+        raise ValueError("bin histogram out of sync with row count")
+    if n > np.iinfo(np.int32).max:
+        raise NotImplementedError("CSR positions exceed int32; shard the "
+                                  "build")
+    w = payload_width(cfg)
+    # Host RAM at 2^29 slots: the int64 histogram and cursors (4 GiB each)
+    # and the int32 prefix and counts (2 GiB each); the probe table is
+    # derived on the device when the leaves go there.
+    cursor = np.cumsum(hist)
+    cursor -= hist
+    prefix = cursor.astype(np.int32)
+    counts = hist.astype(np.int32)
+    vec_mm = None
+    if spill_path:
+        payload = np.memmap(spill_path, np.int32, mode="w+", shape=(n, w))
+        if vec_meta is not None:
+            vec_mm = np.memmap(f"{spill_path}.vecs", vec_meta[0], mode="w+",
+                               shape=(n, vec_meta[1]))
+    else:
+        payload = np.empty((n, w), np.int32)
+    for chunk in chunks:
+        vecs_chunk = None
+        if isinstance(chunk, (str, os.PathLike)):
+            with np.load(chunk) as z:
+                bins, rows = z["bins"], z["packed"]
+                if vec_mm is not None:
+                    vecs_chunk = z["vecs"]
+        else:
+            bins, rows = chunk
+        pos = native.place_positions(bins, cursor)
+        native.scatter_rows(rows, pos, payload)
+        if vecs_chunk is not None:
+            native.scatter_rows(vecs_chunk, pos, vec_mm)
+    del cursor
+    return _csr_database(prefix, counts, payload, pair_occ, vectors, vec_mm,
+                         to_device_, dev)
+
+
+def encode_chunk_to_file(cfg: PQTConfig, tree: PQTree, data, id_offset: int,
+                         path: str, encode_chunk: int = 65536,
+                         keep_vectors: bool = False, device="cuda") -> int:
+    """Encode ONE out-of-core chunk on the device and write it to `path`
+    (npz: bins, packed, and vecs with keep_vectors, pair_occ when the pair
+    filter applies) -- the worker half of a multi-process build, in the
+    JAX package's chunk format.  Returns the row count."""
+    _check_tree_device(tree, device)
+    data = _host_rows(data)
+    pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
+                            dtype=torch.uint8, device=tree.cb1.device)
+                if cfg.pair_filter_enabled else None)
+    bins, packed = _encode_host(cfg, tree, data, id_offset, encode_chunk,
+                                pair_occ)
+    arrays = dict(bins=bins, packed=packed)
+    if keep_vectors:
+        arrays["vecs"] = data
+    if pair_occ is not None:
+        arrays["pair_occ"] = pair_occ.cpu().numpy()
+    np.savez(path, **arrays)
+    return data.shape[0]
+
+
+def merge_chunk_files_range(cfg: PQTConfig, paths, lo: int, hi: int,
+                            keep_vectors: bool = False):
+    """Merge encoded chunk files keeping ONLY hash bins [lo, hi): the
+    per-host half of a multi-host build, host RAM bounded by the slice.
+
+    Returns numpy (prefix (hi-lo,) int32 rebased to the slice, counts
+    (hi-lo,) int32, payload (n_local, w) int32, vectors_csr or None,
+    pair_occ or None -- the OR of the chunks' tables), ids ascending
+    inside every bin as in the global merge.
+    """
+    from pqt_tpu_torch.io import native
+    span = hi - lo
+    hist = np.zeros((span,), np.int64)
+    vec_meta = None
+    pair_occ = None
+    for p in paths:
+        with np.load(p) as z:
+            if keep_vectors and "vecs" not in z.files:
+                raise ChunkFormatError(
+                    f"chunk {p} has no raw vectors but keep_vectors=True "
+                    "was requested")
+            b = z["bins"]
+            m = (b >= lo) & (b < hi)
+            hist += np.bincount(b[m] - lo, minlength=span)
+            if "pair_occ" in z.files:
+                pair_occ = (z["pair_occ"] if pair_occ is None
+                            else pair_occ | z["pair_occ"])
+            if keep_vectors and vec_meta is None:
+                v = z["vecs"]
+                vec_meta = (v.dtype, int(v.shape[1]))
+    cursor = np.cumsum(hist)
+    cursor -= hist
+    prefix = cursor.astype(np.int32)
+    n_local = int(hist.sum())
+    payload = np.empty((n_local, payload_width(cfg)), np.int32)
+    vecs = (np.empty((n_local, vec_meta[1]), vec_meta[0])
+            if keep_vectors else None)
+    for p in paths:
+        with np.load(p) as z:
+            b, rows = z["bins"], z["packed"]
+            vc = z["vecs"] if keep_vectors else None
+        m = (b >= lo) & (b < hi)
+        pos = native.place_positions(b[m] - lo, cursor)
+        native.scatter_rows(rows[m], pos, payload)
+        if vc is not None:
+            native.scatter_rows(vc[m], pos, vecs)
+    return prefix, hist.astype(np.int32), payload, vecs, pair_occ
+
+
+def merge_chunk_files(cfg: PQTConfig, tree: PQTree, paths,
+                      keep_vectors: bool = False,
+                      spill_path: Optional[str] = None,
+                      to_device: bool = True, device="cuda") -> PQTDatabase:
+    """Assemble the global CSR database from `encode_chunk_to_file` chunks
+    (made by either package): host work only, the streaming counting sort
+    of ChunkedDBBuilder.finalize.  keep_vectors=True needs `spill_path`
+    (the vectors merge into a CSR-ordered memmap, `vectors_csr`).  The
+    leaves go to `device`, or stay numpy arrays and memmaps with
+    to_device=False.  The tree is not used; the argument keeps the JAX
+    package's signature."""
+    del tree
+    if keep_vectors and not spill_path:
+        raise ValueError("merge_chunk_files(keep_vectors=True) needs "
+                         "spill_path (vectors merge into a CSR memmap)")
+    hist = np.zeros((cfg.hash_size,), np.int64)
+    n = 0
+    occ = None
+    vec_meta = None
+    for p in paths:
+        with np.load(p) as z:
+            if keep_vectors and "vecs" not in z.files:
+                raise ChunkFormatError(
+                    f"chunk {p} has no raw vectors but "
+                    "merge_chunk_files(keep_vectors=True) was requested; "
+                    "re-encode it with encode_chunk_to_file("
+                    "keep_vectors=True) or merge with keep_vectors=False")
+            bins = z["bins"]
+            hist += np.bincount(bins, minlength=cfg.hash_size)
+            n += int(bins.shape[0])
+            if keep_vectors and vec_meta is None:
+                # from the first chunk only: reading an npz member loads it
+                # whole, so probing every chunk would double the vector I/O
+                v = z["vecs"]
+                vec_meta = (v.dtype, int(v.shape[1]))
+            if "pair_occ" in z.files:
+                occ = z["pair_occ"] if occ is None else occ | z["pair_occ"]
+    return _streaming_merge(cfg, list(paths), hist, n, occ, vec_meta,
+                            spill_path, None, to_device, device)

@@ -18,7 +18,12 @@ Port of pqt_tpu/models/query.py.  Per batch of queries:
   3. candidate payload rows, as capped per-row positions or as slab windows
      (`_collect_rows`);
   4. line re-rank from the payload rows (kernel C), and top-k (kernel A);
-     or the exact re-rank from the raw vectors, by id.
+     or the exact re-rank from the raw vectors: by id, or, for an
+     out-of-core database, from `vectors_csr` by CSR position
+     (`query_core_exact`, and the refine's second stage).
+
+The cores take `bin_offset` as their JAX signatures do: their tables may be
+one hash-range shard's, starting at that global slot.
 
 With duplicate masking off (`dedup_candidates=False`, the main path),
 every top-k and sort of a query is kernel A (ops/cuda/primitives.py, ties
@@ -193,13 +198,29 @@ def _enumerate_bins_pair(cfg: PQTConfig, h_pairs: torch.Tensor,
     return _finalize_bin_ids(cfg, acc, exact)
 
 
-def _probe_bins(cfg: PQTConfig, bins: torch.Tensor, prefix2: torch.Tensor):
+def _local_bins(bins: torch.Tensor, local: int, bin_offset):
+    """Bin ids of a hash-range shard whose first slot is global slot
+    `bin_offset`: (local ids, 0 outside the shard; in_range mask, or None
+    when there is no offset and every id is in range)."""
+    if bin_offset is None:
+        return bins, None
+    b = bins - bin_offset
+    in_range = (b >= 0) & (b < local)
+    return torch.where(in_range, b, 0).to(torch.int32), in_range
+
+
+def _probe_bins(cfg: PQTConfig, bins: torch.Tensor, prefix2: torch.Tensor,
+                bin_offset=None):
     """One extent-row gather (kernel H) per enumerated bin, then the first
     max_bins non-empty bins in enumeration order: (start, count) (B, nb)
-    int32."""
-    ext = gather_rows(prefix2, bins)                     # (B, E, 2)
+    int32.  With `bin_offset`, prefix2 is a shard's table and bins outside
+    it count as empty."""
+    safe, in_range = _local_bins(bins, prefix2.shape[0], bin_offset)
+    ext = gather_rows(prefix2, safe.contiguous())        # (B, E, 2)
     start = ext[..., 0]
     cnt = ext[..., 1] - ext[..., 0]
+    if in_range is not None:
+        cnt = torch.where(in_range, cnt, 0)
     return binning.compact_nonempty_bins(start, cnt,
                                          min(cfg.max_bins, bins.shape[1]))
 
@@ -227,7 +248,7 @@ def _parts_sequence_on(base: int, p: int, n_enum: int, device: torch.device):
 
 def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
                     sorted_codes: torch.Tensor, counts: torch.Tensor,
-                    pair_occ: Optional[torch.Tensor] = None):
+                    bin_offset=None, pair_occ: Optional[torch.Tensor] = None):
     """Traversal-sequence bin enumeration and occupancy compaction.
 
     Enumeration slot e combines, per part j, the code of rank
@@ -237,8 +258,10 @@ def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
     pair_filter_slack * max_bins survivors (a kernel-B compaction) then get
     their occupancy looked up (kernel E).  Without it every slot's occupancy
     is looked up.  The first max_bins non-empty bins are kept (kernel-B
-    compaction).  Returns (bins (B, max_bins) slot ids, bin_counts (B,
-    max_bins)); slots past the last non-empty bin have count 0.
+    compaction).  `counts` may be a hash-range shard's table whose first
+    slot is global slot `bin_offset`; bins outside it count as empty.
+    Returns (bins (B, max_bins) local slot ids, bin_counts (B, max_bins));
+    slots past the last non-empty bin have count 0.
     """
     B, p, L = sorted_codes.shape
     base = min(L, 16)                  # reference clamps to 16 (ProTree.cu:135)
@@ -246,9 +269,10 @@ def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
     ranks, cells = _parts_sequence_on(base, p, n_enum, sorted_codes.device)
     c16 = sorted_codes[:, :, :base]                          # (B, p, base)
     part_codes = torch.gather(c16, 2, ranks[None].expand(B, p, n_enum))
-    bin_ids = binning.hashed_bin_ids(part_codes.transpose(1, 2),
-                                     cfg.part_radix, cfg.hash_size
-                                     ).contiguous()
+    bin_ids, in_range = _local_bins(
+        binning.hashed_bin_ids(part_codes.transpose(1, 2), cfg.part_radix,
+                               cfg.hash_size), counts.shape[0], bin_offset)
+    bin_ids = bin_ids.contiguous()
 
     if pair_occ is not None and cfg.pair_filter_enabled:
         n_pairs = p // 2
@@ -260,7 +284,10 @@ def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
         occ = _pair_occupancy(cfg, pair_occ, pc)           # (B, p/2, base^2)
         slot_occ = torch.gather(occ, 2, cells[None].expand(B, n_pairs,
                                                            n_enum))
-        passes = torch.all(slot_occ > 0, dim=1).to(torch.int32)
+        passes = torch.all(slot_occ > 0, dim=1)
+        if in_range is not None:
+            passes = passes & in_range
+        passes = passes.to(torch.int32)
         # stage 1: compact by the pair filter; stage 2: true occupancy of
         # the survivors only, then the final compaction
         m1 = min(n_enum, int(cfg.pair_filter_slack * cfg.max_bins))
@@ -271,25 +298,30 @@ def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
         return binning.compact_nonempty_bins(bins1, cnt1, cfg.max_bins)
 
     bin_counts = lut_gather(counts, bin_ids)                 # (B, E)
+    if in_range is not None:
+        bin_counts = torch.where(in_range, bin_counts, 0)
     return binning.compact_nonempty_bins(bin_ids, bin_counts, cfg.max_bins)
 
 
 def _probe_parts(cfg: PQTConfig, tree: PQTree, counts, queries,
-                 pair_occ=None):
+                 pair_occ=None, bin_offset=None):
     """The parts pipeline's probed bins: (bins, bin_counts) (B, max_bins)."""
     sorted_d2, sorted_codes = _sorted_part_lists(cfg, tree, queries)
-    return _enumerate_bins(cfg, sorted_d2, sorted_codes, counts, pair_occ)
+    return _enumerate_bins(cfg, sorted_d2, sorted_codes, counts,
+                           bin_offset=bin_offset, pair_occ=pair_occ)
 
 
-def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
+def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt,
+                  *extra_tables):
     """Candidate payload rows from the probed bins' extents.
 
     "rows" mode: capped per-row positions, one payload-row gather (kernel
     H).  "slabs" mode: windows of slab_size consecutive rows per bin, one
-    gather of slab_size rows per window.  Returns (rows (B, K, W), valid
-    (B, K), positions (B, K) int32 CSR row of each candidate), K =
-    max_candidates (rows mode, positions 0 where invalid) or its
-    slab-rounded size.
+    gather of slab_size rows per window (H with a span).  Returns (rows
+    (B, K, W), valid (B, K), positions (B, K) int32 CSR row of each
+    candidate, extra_rows), K = max_candidates (rows mode, positions 0
+    where invalid) or its slab-rounded size; extra_rows holds the same rows
+    of each CSR-ordered table in `extra_tables` (such as vectors_csr).
     """
     if cfg.gather_mode == "slabs":
         S = cfg.slab_size
@@ -298,38 +330,53 @@ def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
             start, cnt, T, S, cfg.max_vec_per_bin)
         rows, valid = binning.fetch_slab_rows(payload, slab_starts,
                                               slab_valid, S)
+        extra = tuple(binning.fetch_slab_rows(t, slab_starts, slab_valid,
+                                              S)[0] for t in extra_tables)
         # row i of slab t sits at CSR position min(start, N - S) + i
         eff = torch.clamp_max(slab_starts, max(payload.shape[0] - S, 0))
         positions = (eff[..., None] + torch.arange(
             S, dtype=torch.int32, device=eff.device)).reshape(rows.shape[:2])
-        return rows, valid, positions
+        return rows, valid, positions, extra
     positions, valid = binning.gather_candidates(
         start, cnt, cfg.max_candidates, cfg.max_vec_per_bin)
     safe_pos = torch.where(valid, positions, 0)
-    return gather_rows(payload, safe_pos), valid, safe_pos
+    extra = tuple(gather_rows(t, safe_pos) for t in extra_tables)
+    return gather_rows(payload, safe_pos), valid, safe_pos, extra
+
+
+def _top_ids(dists: torch.Tensor, cand_ids: torch.Tensor, k: int):
+    """Kernel A's k smallest of each row and the candidate ids they belong
+    to, -1 where the distance is +inf: (ids (B, k'), dists (B, k')), k' =
+    min(k, K)."""
+    top_d, top_i = _topk(dists, min(k, dists.shape[-1]))
+    ids = torch.gather(cand_ids, 1, top_i)
+    return torch.where(torch.isfinite(top_d), ids, -1), top_d
 
 
 def _line_rerank(cfg: PQTConfig, tree: PQTree, payload, queries, start, cnt,
                  k: int, want_candidates: bool):
     """Candidate rows, line distances (kernel C) and top-k (kernel A): the
     shared tail of both pipelines' cores."""
-    rows, valid, positions = _collect_rows(cfg, payload, start, cnt)
+    rows, valid, positions, _ = _collect_rows(cfg, payload, start, cnt)
     cand_ids = rows[..., 0]
-    q_line = line_tables(cfg, tree, queries).contiguous()   # (B, lp, c1)
-    dists = rerank_fused(rows, q_line, cfg.payload_is_compact)
-    dists = torch.where(valid, dists, _INF)
+    dists = torch.where(valid, _line_dists(cfg, tree, queries, rows), _INF)
     if cfg.dedup_candidates:
         dists = _mask_duplicate_candidates(cand_ids, valid, dists)
     n_cand = torch.sum(valid, dim=-1)
     if want_candidates:
         return cand_ids, dists, n_cand, positions
-    top_d, top_i = _topk(dists, min(k, dists.shape[-1]))
-    top_ids = torch.gather(cand_ids, 1, top_i)
-    return torch.where(torch.isfinite(top_d), top_ids, -1), top_d, n_cand
+    return _top_ids(dists, cand_ids, k) + (n_cand,)
+
+
+def _line_dists(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """Line distances (kernel C) of payload rows (B, K, W): (B, K)."""
+    q_line = line_tables(cfg, tree, queries).contiguous()   # (B, lp, c1)
+    return rerank_fused(rows, q_line, cfg.payload_is_compact)
 
 
 def query_core_pair(cfg: PQTConfig, tree: PQTree, prefix2, payload,
-                    queries, k: int, pair_occ=None,
+                    queries, k: int, bin_offset=None, pair_occ=None,
                     want_candidates: bool = False):
     """Pair-pipeline query over the raw CSR tensors.
 
@@ -337,25 +384,67 @@ def query_core_pair(cfg: PQTConfig, tree: PQTree, prefix2, payload,
     -1 ids mark missing results.  With want_candidates=True, returns the
     whole candidate set before top-k instead: (cand_ids (B, K), dists
     (B, K) +inf where invalid, n_candidates, positions (B, K)).
+    `bin_offset`: prefix2 is the table of a hash-range shard starting at
+    that global slot.
     """
     queries = queries.to(torch.float32)
     _, h_pairs, exact = _pair_stage(cfg, tree, queries, pair_occ)
     bins = _enumerate_bins_pair(cfg, h_pairs, exact)
-    start, cnt = _probe_bins(cfg, bins, prefix2)
+    start, cnt = _probe_bins(cfg, bins, prefix2, bin_offset)
     return _line_rerank(cfg, tree, payload, queries, start, cnt, k,
                         want_candidates)
 
 
 def query_core(cfg: PQTConfig, tree: PQTree, prefix, counts, payload,
-               queries, k: int, pair_occ=None,
+               queries, k: int, bin_offset=None, pair_occ=None,
                want_candidates: bool = False):
     """Parts-pipeline query over the raw CSR tensors (prefix and counts the
-    (hash_size,) occupancy tables); same results as query_core_pair."""
+    (hash_size,) occupancy tables, or a shard's from global slot
+    `bin_offset`); same results as query_core_pair."""
     queries = queries.to(torch.float32)
-    bins, bin_counts = _probe_parts(cfg, tree, counts, queries, pair_occ)
+    bins, bin_counts = _probe_parts(cfg, tree, counts, queries, pair_occ,
+                                    bin_offset)
     return _line_rerank(cfg, tree, payload, queries,
                         lut_gather(prefix, bins.contiguous()), bin_counts, k,
                         want_candidates)
+
+
+def _row_sqdist(queries: torch.Tensor, vec_rows: torch.Tensor):
+    """Exact squared distances (B, K) of the rows (B, K, dim) to their
+    queries (B, dim): the float difference, and its row sums by kernel D."""
+    diff = vec_rows.to(torch.float32) - queries[:, None, :]
+    B, K, dim = diff.shape
+    return segmented_reduce((diff * diff).reshape(B * K, dim),
+                            1).reshape(B, K)
+
+
+def query_core_exact(cfg: PQTConfig, tree: PQTree, prefix2, payload,
+                     vectors_csr, queries, k: int, bin_offset=None,
+                     pair_occ=None):
+    """Exact re-rank over the raw CSR tensors, reading `vectors_csr`, the
+    raw vectors in CSR order (an out-of-core build's layout), by CSR
+    position: every gathered candidate ranked by its true squared distance
+    (rows by kernel H, in the gather mode's rows or slab windows; sums by
+    kernel D; top-k by kernel A).  Either pipeline; `bin_offset` as in
+    query_core_pair.  Returns (ids (B, k'), dists (B, k'), n_candidates),
+    k' = min(k, K)."""
+    queries = queries.to(torch.float32)
+    if cfg.pair_pipeline_enabled:
+        _, h_pairs, exact = _pair_stage(cfg, tree, queries, pair_occ)
+        bins = _enumerate_bins_pair(cfg, h_pairs, exact)
+        start, cnt = _probe_bins(cfg, bins, prefix2, bin_offset)
+    else:
+        counts = prefix2[:, 1] - prefix2[:, 0]
+        bins, cnt = _probe_parts(cfg, tree, counts, queries, pair_occ,
+                                 bin_offset)
+        start = gather_rows(prefix2, bins.contiguous())[..., 0]
+    rows, valid, _, (vec_rows,) = _collect_rows(cfg, payload, start, cnt,
+                                                vectors_csr)
+    cand_ids = rows[..., 0]
+    dists = torch.where(valid, _row_sqdist(queries, vec_rows), _INF)
+    if cfg.dedup_candidates:
+        dists = _mask_duplicate_candidates(cand_ids, valid, dists)
+    return _top_ids(dists, cand_ids, k) + (torch.sum(valid, dim=-1),)
 
 
 def _parts_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
@@ -381,28 +470,23 @@ def _pad_k(ids, dists, k):
     return ids, dists
 
 
-def _exact_top(queries, vectors, cand_ids, valid, k):
-    """Exact squared distances of the candidates (by original id; rows by
-    kernel H, sums by kernel D) and their top-k: (ids, dists)."""
-    safe = torch.where(valid, cand_ids, 0)
-    diff = gather_rows(vectors, safe).to(torch.float32) - queries[:, None, :]
-    B, K, dim = diff.shape
-    sq = segmented_reduce((diff * diff).reshape(B * K, dim), 1).reshape(B, K)
-    exact = torch.where(valid, sq, _INF)
-    top_d, top_i = _topk(exact, min(k, exact.shape[-1]))
-    ids = torch.gather(cand_ids, 1, top_i)
-    return torch.where(torch.isfinite(top_d), ids, -1), top_d
+def _exact_top(queries, vec_rows, cand_ids, valid, k):
+    """The top-k (kernel A) of the candidates by exact squared distance
+    from their gathered raw rows: (ids, dists)."""
+    return _top_ids(torch.where(valid, _row_sqdist(queries, vec_rows), _INF),
+                    cand_ids, k)
+
+
+def _rows_by_id(vectors: torch.Tensor, ids: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Raw rows (kernel H) of candidate ids from vectors by original id."""
+    return gather_rows(vectors, torch.where(valid, ids, 0))
 
 
 def _require_vectors(db: PQTDatabase, what: str) -> None:
-    if db.vectors is None:
-        if db.vectors_csr is not None:
-            raise NotImplementedError(
-                f"{what} over a database that holds only vectors_csr (an "
-                "out-of-core build) comes with the out-of-core slice "
-                "(query_core_exact, ROADMAP.md queue 1)")
+    if db.vectors is None and db.vectors_csr is None:
         raise ValueError(f"{what} needs raw vectors: build with "
-                         "keep_vectors=True")
+                         "keep_vectors=True (in RAM or spilled)")
 
 
 def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
@@ -410,10 +494,17 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
               exact_rerank: bool = False) -> QueryResult:
     """Batched approximate k-NN: queries (B, dim) -> ids sorted by the line
     (or, with exact_rerank, exact) distance.  The pipeline is the pair
-    pipeline when cfg.pair_pipeline_enabled, the parts pipeline otherwise."""
+    pipeline when cfg.pair_pipeline_enabled, the parts pipeline otherwise.
+    The exact re-rank reads db.vectors by id, or, for an out-of-core
+    database that holds only vectors_csr, those by CSR position
+    (query_core_exact)."""
     queries = queries.to(torch.float32)
-    if exact_rerank:
+    if exact_rerank and db.vectors is None:
         _require_vectors(db, "exact re-rank")
+        ids, dists, n_cand = query_core_exact(
+            cfg, tree, db.prefix2, db.payload, db.vectors_csr, queries, k,
+            pair_occ=db.pair_occ)
+    elif exact_rerank:
         if cfg.pair_pipeline_enabled:
             cand_ids, line_d, _, _ = query_core_pair(
                 cfg, tree, db.prefix2, db.payload, queries, k,
@@ -425,8 +516,9 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
             n_cand = torch.sum(valid, dim=-1)
             if cfg.dedup_candidates:
                 valid = valid & ~_duplicate_stats(cand_ids, valid)[0]
-        ids, dists = _exact_top(queries, db.vectors, cand_ids, valid,
-                                min(k, cfg.max_candidates))
+        ids, dists = _exact_top(queries, _rows_by_id(db.vectors, cand_ids,
+                                                     valid),
+                                cand_ids, valid, min(k, cfg.max_candidates))
     elif cfg.pair_pipeline_enabled:
         ids, dists, n_cand = query_core_pair(
             cfg, tree, db.prefix2, db.payload, queries, k,
@@ -459,12 +551,30 @@ def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                      queries: torch.Tensor, k: int, refine_factor: int = 8,
                      k_line: Optional[int] = None) -> QueryResult:
     """Two stages: line re-rank to k * refine_factor (or k_line) candidates,
-    then exact re-rank of those from the raw vectors."""
+    then exact re-rank of those from the raw vectors: db.vectors by id, or,
+    for a database that holds only vectors_csr, those at the CSR positions
+    the line top-k carried through (rows by kernel H, sums by kernel D)."""
     _require_vectors(db, "query_knn_refine")
     queries = queries.to(torch.float32)
-    stage1 = query_knn(cfg, tree, db, queries, k_line or k * refine_factor)
-    ids, dists = _exact_top(queries, db.vectors, stage1.indices,
-                            stage1.indices >= 0, k)
+    k1 = k_line or k * refine_factor
+    if db.vectors is not None:
+        stage1 = query_knn(cfg, tree, db, queries, k1)
+        ids1, n_cand = stage1.indices, stage1.n_candidates
+        vec_rows = _rows_by_id(db.vectors, ids1, ids1 >= 0)
+    else:
+        if cfg.pair_pipeline_enabled:
+            cand_ids, line_d, n_cand, pos = query_core_pair(
+                cfg, tree, db.prefix2, db.payload, queries, 0,
+                pair_occ=db.pair_occ, want_candidates=True)
+        else:
+            cand_ids, line_d, n_cand, pos = query_core(
+                cfg, tree, db.prefix, db.counts, db.payload, queries, 0,
+                pair_occ=db.pair_occ, want_candidates=True)
+        top_d, idx1 = _topk(line_d, min(k1, line_d.shape[-1]))
+        live = torch.isfinite(top_d)
+        ids1 = torch.where(live, torch.gather(cand_ids, 1, idx1), -1)
+        pos1 = torch.where(live, torch.gather(pos, 1, idx1), 0)
+        vec_rows = gather_rows(db.vectors_csr, pos1)
+    ids, dists = _exact_top(queries, vec_rows, ids1, ids1 >= 0, k)
     ids, dists = _pad_k(ids, dists, k)
-    return QueryResult(indices=ids, dists=dists,
-                       n_candidates=stage1.n_candidates)
+    return QueryResult(indices=ids, dists=dists, n_candidates=n_cand)

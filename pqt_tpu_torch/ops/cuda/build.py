@@ -39,13 +39,15 @@ _L = ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype).
 _SIGNATURES = {
     "topk": {"pqt_topk": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-                          _I)},
+                          _I),
+             "pqt_topk_merge": ((_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P), _I)},
     "scan": {"pqt_block_scan_rows": ((_P, _I, _L, _I, _I, _I, _I, _P, _P),
                                      _I),
              "pqt_block_scan_onepass": ((_P, _I, _L, _I, _I, _P,
                                          ctypes.c_uint, _P, _P), _I)},
-    "rerank": {"pqt_rerank_fused": ((_P, _P, _I, _I, _I, _I, _I, _P, _P),
-                                    _I)},
+    "rerank": {"pqt_rerank_fused": ((_P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                     _P), _I)},
     "reduce": {"pqt_segmented_reduce": ((_P, _L, _I, _P, _P), _I)},
     "lut": {"pqt_lut_gather": ((_P, _L, _I, _P, _L, _P, _P), _I)},
     "gather": {"pqt_gather_rows": ((_P, _L, _I, _P, _L, _I, _P, _P), _I)},

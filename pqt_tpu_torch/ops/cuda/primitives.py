@@ -23,9 +23,14 @@ from pqt_tpu_torch.ops.cuda import build
 # a pair, 128 KB): the whole row in sort mode, the k survivors in select
 # mode.  Select mode takes rows up to TOPK_SELECT_MAX_ROW elements, held in
 # registers up to TOPK_SELECT_ITEMS[-1] x TOPK_SELECT_THREADS = 16384 and
-# read again on every pass above that.
+# read again on every pass above that.  Merge mode keeps more than
+# TOPK_SORT_MAX, up to TOPK_MERGE_MAX: the select's survivors (or the whole
+# row) sorted in runs of TOPK_SORT_MAX, then merged in device memory,
+# TOPK_MERGE_TILE outputs a block.
 TOPK_SORT_MAX = 16384
 TOPK_SELECT_MAX_ROW = 1 << 30
+TOPK_MERGE_MAX = 1 << 20
+TOPK_MERGE_TILE = 4096
 TOPK_SELECT_THREADS = 512
 TOPK_SELECT_ITEMS = (4, 8, 16, 32)
 TOPK_DIGIT_BITS = 8
@@ -82,29 +87,44 @@ def bitonic_topk_plain(x: torch.Tensor, k: int):
 
 class TopkPlan(NamedTuple):
     """How kernel A runs a (rows, n) -> k call."""
-    mode: str       # "sort" (the whole row) or "select" (radix select + sort)
+    mode: str       # "sort" (the whole row), "select" (radix select +
+                    # sort) or "merge" (select + run sorts + merges)
     items: int      # keys a select thread holds per tile (0 in sort mode)
-    threads: int    # threads of a block (one block per row)
-    sort_len: int   # pairs the block sorts: n or k, up to a power of two
+    threads: int    # threads of a (select) block, one block per row
+    sort_len: int   # pairs the block sorts: n or k, up to a power of two;
+                    # merge mode: pairs of a scratch row, whole runs
 
 
 def _pow2_at_least(v: int) -> int:
     return 1 << max(1, (v - 1).bit_length())
 
 
+def _select_shape(n: int):
+    """(items, threads) of a select block over rows of n elements."""
+    items = next((i for i in TOPK_SELECT_ITEMS
+                  if n <= i * TOPK_SELECT_THREADS), TOPK_SELECT_ITEMS[-1])
+    needed = -(-n // items)                   # threads that hold the row
+    return items, min(TOPK_SELECT_THREADS, 32 * -(-needed // 32))
+
+
 def _topk_plan(n: int, k: int, mode: Optional[str] = None) -> TopkPlan:
     """Kernel A's mode and launch shape for rows of n elements, k kept.
 
     Sort mode for rows of at most TOPK_SORT_ROW elements and for k above
-    n / 2, select mode otherwise; `mode` forces one.  Raises
-    NotImplementedError for what neither mode takes: a sort of more than
-    TOPK_SORT_MAX elements, or a row longer than TOPK_SELECT_MAX_ROW.
+    n / 2 (rows of at most TOPK_SORT_MAX), select mode for other k up to
+    TOPK_SORT_MAX, merge mode for k above it; `mode` forces one.  Raises
+    NotImplementedError for what no mode takes: a sort of more than
+    TOPK_SORT_MAX elements, a select of more than TOPK_SORT_MAX, a merge of
+    more than TOPK_MERGE_MAX, or a row longer than TOPK_SELECT_MAX_ROW.
     """
     if not 1 <= k <= n:
         raise ValueError(f"bitonic_topk: k={k} outside [1, {n}]")
     if mode is None:
         short = n <= TOPK_SORT_ROW or 2 * k > n
-        mode = "sort" if short and n <= TOPK_SORT_MAX else "select"
+        if short and n <= TOPK_SORT_MAX:
+            mode = "sort"
+        else:
+            mode = "select" if k <= TOPK_SORT_MAX else "merge"
     if mode == "sort":
         if n > TOPK_SORT_MAX:
             raise NotImplementedError(
@@ -112,17 +132,18 @@ def _topk_plan(n: int, k: int, mode: Optional[str] = None) -> TopkPlan:
                 "elements")
         sort_len = _pow2_at_least(n)
         return TopkPlan("sort", 0, min(1024, sort_len // 2), sort_len)
-    if mode != "select":
+    if mode not in ("select", "merge"):
         raise ValueError(f"bitonic_topk: unknown mode {mode!r}")
-    if k > TOPK_SORT_MAX or n > TOPK_SELECT_MAX_ROW:
+    cap = TOPK_SORT_MAX if mode == "select" else TOPK_MERGE_MAX
+    if k > cap or n > TOPK_SELECT_MAX_ROW:
         raise NotImplementedError(
-            f"bitonic_topk: k={k} of rows of {n} elements (select mode keeps "
-            f"k <= {TOPK_SORT_MAX} of rows up to {TOPK_SELECT_MAX_ROW})")
-    items = next((i for i in TOPK_SELECT_ITEMS
-                  if n <= i * TOPK_SELECT_THREADS), TOPK_SELECT_ITEMS[-1])
-    needed = -(-n // items)                   # threads that hold the row
-    threads = min(TOPK_SELECT_THREADS, 32 * -(-needed // 32))
-    return TopkPlan("select", items, threads, _pow2_at_least(k))
+            f"bitonic_topk: k={k} of rows of {n} elements ({mode} mode keeps "
+            f"k <= {cap} of rows up to {TOPK_SELECT_MAX_ROW})")
+    if mode == "select":
+        return TopkPlan("select", *_select_shape(n), _pow2_at_least(k))
+    # the merge mode's select runs the row tile by tile (32 keys a thread)
+    return TopkPlan("merge", TOPK_SELECT_ITEMS[-1], _select_shape(n)[1],
+                    max(TOPK_SORT_MAX, _pow2_at_least(k)))
 
 
 def _topk_launch(x: torch.Tensor, k: int, plan: TopkPlan):
@@ -134,11 +155,21 @@ def _topk_launch(x: torch.Tensor, k: int, plan: TopkPlan):
         return out_v, out_i
     lib = build.load("topk")
     with torch.cuda.device(x.device):
-        err = lib.pqt_topk(_ptr(x), B, N, k, int(plan.mode == "select"),
-                           plan.items, plan.threads, plan.sort_len,
-                           _ptr(out_v), _ptr(out_i), _stream(x))
+        if plan.mode == "merge":
+            scratch = [torch.empty((B, plan.sort_len), dtype=dt,
+                                   device=x.device)
+                       for dt in (torch.float32, torch.int32) * 2]
+            err = lib.pqt_topk_merge(_ptr(x), B, N, k, plan.threads,
+                                     plan.sort_len,
+                                     *(_ptr(t) for t in scratch),
+                                     _ptr(out_v), _ptr(out_i), _stream(x))
+        else:
+            err = lib.pqt_topk(_ptr(x), B, N, k, int(plan.mode == "select"),
+                               plan.items, plan.threads, plan.sort_len,
+                               _ptr(out_v), _ptr(out_i), _stream(x))
     build.check(err, "bitonic_topk")
     bitonic_topk.launches += 1
+    bitonic_topk.mode_launches[plan.mode] += 1
     return out_v, out_i
 
 
@@ -149,7 +180,8 @@ def bitonic_topk(x: torch.Tensor, k: int):
     of the negated row and a stable ascending sort (-0.0 and +0.0 equal, as
     in the sort).  Inputs must not be NaN.  On the card the kernel runs in
     the mode `_topk_plan` picks; any N up to TOPK_SELECT_MAX_ROW, with k up
-    to TOPK_SORT_MAX where N is above that too.
+    to TOPK_MERGE_MAX.  `bitonic_topk.mode_launches` counts the launches by
+    mode.
     """
     _, N = x.shape
     plan = _topk_plan(N, k)
@@ -160,6 +192,7 @@ def bitonic_topk(x: torch.Tensor, k: int):
 
 
 bitonic_topk.launches = 0
+bitonic_topk.mode_launches = {"sort": 0, "select": 0, "merge": 0}
 
 
 def block_scan_plain(x: torch.Tensor, exclusive: bool = False):

@@ -5,9 +5,10 @@ pqt_tpu/ops/pallas/rerank.py:rerank_fused.  It takes the gathered payload
 rows row-major, (B, K, W) int32 as `payload[positions]` yields them, and the
 query line tables (B, lp, c1) float32, and returns the reconstructed squared
 distances (B, K).  On a CPU tensor it runs the plain version; on a CUDA
-tensor it launches the kernel or raises.  The kernel decodes the compact
-payload (c1 <= 16, lp <= 32) only.  `rerank_fused.launches` counts the
-launches.
+tensor it launches the kernel or raises.  The kernel decodes both payload
+layouts, compact and wide, with the (lp, c1) table in shared memory (at
+most RERANK_MAX_TABLE_BYTES).  `rerank_fused.launches` counts the launches,
+`rerank_fused.wide_launches` those of the wide layout.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import torch
 from pqt_tpu_torch.ops import linecodes
 from pqt_tpu_torch.ops.cuda import build
 from pqt_tpu_torch.ops.cuda.primitives import _ptr, _stream
+
+# A block's query table, lp * c1 float32 in shared memory (csrc/rerank.cu).
+RERANK_MAX_TABLE_BYTES = 48 * 1024
 
 
 def rerank_plain(rows: torch.Tensor, q_line: torch.Tensor,
@@ -43,11 +47,10 @@ def rerank_fused(rows: torch.Tensor, q_line: torch.Tensor,
                          f"{compact})")
     if rows.device.type == "cpu":
         return rerank_plain(rows, q_line, compact)
-    if not compact or lp > 32:
+    if lp * c1 * 4 > RERANK_MAX_TABLE_BYTES:
         raise NotImplementedError(
-            "rerank_fused: the CUDA kernel decodes the compact payload "
-            "(c1 <= 16, lp <= 32) only; wider configs come with the slice "
-            "that serves them (ROADMAP.md queue 1)")
+            f"rerank_fused: a ({lp}, {c1}) table exceeds the kernel's "
+            f"{RERANK_MAX_TABLE_BYTES} bytes of shared memory")
     if (rows.device.type != "cuda" or q_line.device != rows.device
             or rows.dtype != torch.int32 or q_line.dtype != torch.float32
             or not rows.is_contiguous() or not q_line.is_contiguous()):
@@ -61,10 +64,12 @@ def rerank_fused(rows: torch.Tensor, q_line: torch.Tensor,
     lib = build.load("rerank")
     with torch.cuda.device(rows.device):
         err = lib.pqt_rerank_fused(_ptr(rows), _ptr(q_line), B, K, W, lp, c1,
-                                   _ptr(out), _stream(rows))
+                                   int(compact), _ptr(out), _stream(rows))
     build.check(err, "rerank_fused")
     rerank_fused.launches += 1
+    rerank_fused.wide_launches += not compact
     return out
 
 
 rerank_fused.launches = 0
+rerank_fused.wide_launches = 0

@@ -173,8 +173,8 @@ def test_port_artifacts_load_in_jax(trees, tmp_path):
 
 def test_load_database_reads_sidecar_leaves(trees, tmp_path):
     """An out-of-core JAX build keeps payload and vectors_csr in raw .bin
-    sidecars; the port loads them (and refuses to serve exact re-rank from
-    vectors_csr alone until that slice is ported)."""
+    sidecars; the port loads them and serves exact re-rank from vectors_csr
+    alone, with the JAX package's results."""
     tree, data = trees["small"]
     builder = JDB.ChunkedDBBuilder(PAIR_CFG, tree, keep_vectors=True,
                                    encode_chunk=1024,
@@ -190,7 +190,13 @@ def test_load_database_reads_sidecar_leaves(trees, tmp_path):
     np.testing.assert_array_equal(db.vectors_csr.numpy(),
                                   np.asarray(jdb.vectors_csr))
     assert db.vectors is None
-    with pytest.raises(NotImplementedError):
-        T.query_knn(tcfg, ttree, db, torch.from_numpy(data[:4]), 5, True)
+    want = P.query_knn(PAIR_CFG, tree,
+                       JA.load_database(str(tmp_path / "db"), PAIR_CFG),
+                       jnp.asarray(data[:4]), 5, True)
+    got = T.query_knn(tcfg, ttree, db, torch.from_numpy(data[:4]), 5, True)
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(want.indices))
+    np.testing.assert_allclose(got.dists.numpy(), np.asarray(want.dists),
+                               rtol=1e-5, atol=1e-6)
     line = T.query_knn(tcfg, ttree, db, torch.from_numpy(data[:4]), 5)
     assert (line.indices.numpy() >= 0).all()

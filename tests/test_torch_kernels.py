@@ -19,7 +19,10 @@ import torch
 from jax.experimental import pallas as pl
 
 import pqt_tpu.utils.cache
-from pqt_tpu.models.db import pack_payload_compact
+from pqt_tpu.config import PQTConfig
+from pqt_tpu.models.db import (pack_payload, pack_payload_compact,
+                               unpack_payload_cfg)
+from pqt_tpu.ops.linecodes import reconstruct_dists_idx
 from pqt_tpu.ops.pallas import primitives as PP
 from pqt_tpu.ops.pallas.rerank import BLOCK, rerank_fused as pallas_rerank
 from pqt_tpu_torch.ops.cuda import primitives as prim
@@ -81,6 +84,9 @@ TOPK_SHAPES = {
     "sift1b_pair_select": ((512, 65536, 256), "select"),
     "sift1b_final_topk": ((256, 8192, 100), "select"),
     "sift1b_refine_line_topk": ((256, 8192, 800), "select"),
+    "sift1b_big_pair_merge": ((128, 65536, 256), "select"),
+    "sift1b_big_final_bins": ((64, 65536, 32768), "merge"),
+    "big_final_bins_all": ((64, 65536, 65536), "merge"),
 }
 
 
@@ -91,6 +97,12 @@ def test_topk_plan_picks_the_mode(name):
     assert plan.mode == mode
     assert plan.sort_len >= (n if mode == "sort" else k)
     assert plan.sort_len & (plan.sort_len - 1) == 0
+    if mode == "merge":
+        # whole runs of one block's sort, whole merge tiles
+        assert prim.TOPK_SORT_MAX <= plan.sort_len <= prim.TOPK_MERGE_MAX
+        assert plan.sort_len % prim.TOPK_MERGE_TILE == 0
+        assert plan.threads % 32 == 0 and plan.items == 32
+        return
     assert plan.sort_len <= prim.TOPK_SORT_MAX
     if mode == "select":
         # whole warps, and a row of up to 16384 held in one tile
@@ -100,21 +112,25 @@ def test_topk_plan_picks_the_mode(name):
 
 
 def test_topk_plan_limits():
-    """Rows above 16384 elements take select mode; what neither mode takes
-    raises."""
+    """Rows above 16384 elements take select mode, and k above 16384 merge
+    mode up to its cap; what no mode takes raises."""
     for n in (16385, 65536, 70001, prim.TOPK_SELECT_MAX_ROW):
         assert prim._topk_plan(n, 256).mode == "select"
         with pytest.raises(NotImplementedError):
             prim._topk_plan(n, 256, "sort")
+    assert prim._topk_plan(70001, 16385).mode == "merge"
     with pytest.raises(NotImplementedError):
-        prim._topk_plan(70001, 16385)
+        prim._topk_plan(70001, 16385, "select")
+    with pytest.raises(NotImplementedError):
+        prim._topk_plan(prim.TOPK_MERGE_MAX + 1, prim.TOPK_MERGE_MAX + 1)
     with pytest.raises(NotImplementedError):
         prim._topk_plan(prim.TOPK_SELECT_MAX_ROW + 1, 1)
     with pytest.raises(ValueError):
         prim._topk_plan(16, 17)
     x = torch.zeros((2, 70001))
     with pytest.raises(NotImplementedError):
-        bitonic_topk(x, 16385)
+        bitonic_topk(torch.zeros((1, prim.TOPK_MERGE_MAX + 1)),
+                     prim.TOPK_MERGE_MAX + 1)
     assert bitonic_topk(x, 3)[1].tolist() == [[0, 1, 2]] * 2
 
 
@@ -181,6 +197,93 @@ def test_select_model_matches_lax_top_k(b, n, k):
     rng = np.random.default_rng(b * n + k)
     x = _tie_heavy(rng, b, n)
     got_v, got_i = _select_model(x, k, seed=k)
+    neg, lax_i = jax.lax.top_k(-jnp.asarray(x), k)
+    np.testing.assert_array_equal(got_v, -np.asarray(neg))
+    np.testing.assert_array_equal(got_i, np.asarray(lax_i))
+    plain_v, plain_i = bitonic_topk_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got_v, plain_v.numpy())
+    np.testing.assert_array_equal(got_i, plain_i.numpy())
+
+
+def _pair_keys(v, i):
+    """(value, index) pairs as one sortable uint64: the value's
+    order-preserving key above the index (the padding's INT_MAX last)."""
+    return (_float_keys(v).astype(np.uint64) << np.uint64(32)) | \
+        i.astype(np.uint64)
+
+
+def _merge_path(a, b, diag):
+    """csrc/topk.cu's merge_path over uint64 pair keys: how many of the
+    first `diag` outputs of the stable merge come from a."""
+    lo, hi = max(0, diag - len(b)), min(diag, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if b[diag - 1 - mid] < a[mid]:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _merge_model(x, k, seed=0):
+    """Merge mode as csrc/topk.cu runs it, row by row: the select's k
+    survivors in any order (the whole row for k = n) in a scratch row of
+    len pairs, runs of TOPK_SORT_MAX sorted by (value, index), then merge
+    passes in which every 4096-pair tile finds its split points by
+    merge_path and each of its 512 threads merges 8 outputs from a split of
+    its own."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[1]
+    plan = prim._topk_plan(n, k)
+    assert plan.mode == "merge"
+    L, R, tile, items = (plan.sort_len, prim.TOPK_SORT_MAX,
+                         prim.TOPK_MERGE_TILE, 8)
+    out_v, out_i = [], []
+    for row in x:
+        if k < n:
+            _, taken = _select_model(row[None], k, seed)
+            taken = rng.permutation(taken[0])      # the select's any order
+        else:
+            taken = np.arange(n)
+        keys = np.full(L, _pair_keys(np.array([np.inf], np.float32),
+                                     np.array([2 ** 31 - 1]))[0], np.uint64)
+        keys[:k] = _pair_keys(row[taken], taken)
+        keys = np.concatenate([np.sort(keys[r:r + R])
+                               for r in range(0, L, R)])
+        width = R
+        while width < L:
+            nxt = np.empty_like(keys)
+            for o0 in range(0, L, tile):
+                p0 = o0 // (2 * width) * (2 * width)
+                a, b = keys[p0:p0 + width], keys[p0 + width:p0 + 2 * width]
+                d0 = o0 - p0
+                a0, a1 = _merge_path(a, b, d0), _merge_path(a, b, d0 + tile)
+                ta, tb = a[a0:a1], b[d0 - a0:d0 + tile - a1]
+                for t in range(0, tile, items):
+                    ia = _merge_path(ta, tb, t)
+                    ib = t - ia
+                    for j in range(items):
+                        take_a = ib >= len(tb) or (ia < len(ta)
+                                                   and not tb[ib] < ta[ia])
+                        nxt[o0 + t + j] = ta[ia] if take_a else tb[ib]
+                        ia, ib = ia + take_a, ib + (not take_a)
+            keys, width = nxt, 2 * width
+        idx = (keys[:k] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        out_v.append(row[idx])
+        out_i.append(idx.astype(np.int32))
+    return np.stack(out_v), np.stack(out_i)
+
+
+@pytest.mark.parametrize("b,n,k", [(2, 65536, 32768), (1, 65536, 65536),
+                                   (1, 40000, 20000)])
+def test_merge_model_matches_lax_top_k(b, n, k):
+    """The model of merge mode (select, run sorts, tiled merge passes)
+    equals lax.top_k of the negated row and the plain version on tie-heavy
+    rows: ties at the cut, across run boundaries and at the tiles' split
+    points, +inf tails, and the (+inf, INT_MAX) padding of k < len."""
+    rng = np.random.default_rng(b * n + k)
+    x = _tie_heavy(rng, b, n)
+    got_v, got_i = _merge_model(x, k, seed=k)
     neg, lax_i = jax.lax.top_k(-jnp.asarray(x), k)
     np.testing.assert_array_equal(got_v, -np.asarray(neg))
     np.testing.assert_array_equal(got_i, np.asarray(lax_i))
@@ -271,6 +374,38 @@ def test_rerank_matches_pallas(B, K, lp):
     assert got.shape == (B, K)
     # the two sum the line parts in different orders
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("c1,lp,lambda_bits", [(16, 16, 16), (256, 32, 16),
+                                               (256, 8, 8)])
+def test_rerank_wide_matches_jax_unpack(c1, lp, lambda_bits):
+    """The wide layout (one uint32 a line part, A | B << 8 | lam_u16 << 16):
+    rerank_fused(compact=False) equals the JAX package's
+    unpack_payload_cfg + reconstruct_dists_idx, c1 up to 256."""
+    rng = np.random.default_rng(c1 + lp)
+    B, K = 3, 500
+    a = rng.integers(0, c1, (B * K, lp)).astype(np.uint32)
+    b = rng.integers(0, c1, (B * K, lp)).astype(np.uint32)
+    lam = rng.integers(0, 65536, (B * K, lp)).astype(np.uint32)
+    if lambda_bits == 8:
+        lam &= np.uint32(0xFF00)
+    rows = pack_payload(np.arange(B * K, dtype=np.int32), a | (b << 8)
+                        | (lam << 16), rng.normal(0, 1, B * K)
+                        ).reshape(B, K, 2 + lp)
+    q_line = rng.uniform(0.0, 50.0, (B, lp, c1)).astype(np.float32)
+    jcfg = PQTConfig(dim=lp * 4, p=4, c1=c1, c2=4, line_parts=lp,
+                     k1_build=4, k1_query=4, payload_compact=False,
+                     lambda_bits=lambda_bits)
+    _, ja, jb, jlam, jt3 = unpack_payload_cfg(jcfg, jnp.asarray(rows))
+    want = np.asarray(reconstruct_dists_idx(ja, jb, jlam,
+                                            jnp.asarray(q_line), jt3))
+    got = rerank_fused(torch.from_numpy(rows), torch.from_numpy(q_line),
+                       compact=False)
+    assert got.shape == (B, K)
+    # the two sum the line parts in different orders
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError):
+        rerank_fused(torch.from_numpy(rows), torch.from_numpy(q_line))
 
 
 @pytest.mark.parametrize("shape,parts", [((8, 128), 4), ((16, 128), 16),

@@ -147,6 +147,11 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_paths_of_later_slices_raise(clustered_data):
+    """The paths of earlier slices' "later" list are all served now: the
+    parts pipeline, slab gathers, and exact and refine queries over a
+    database that holds only vectors_csr (raw vectors in CSR order), which
+    equal the in-RAM database's results.  Only a database without raw
+    vectors refuses them."""
     from pqt_tpu_torch.models.db import PQTDatabase
     db_vecs, queries = clustered_data
     cfg = T.PQTConfig(dim=32, p=4, c1=4, c2=4, line_parts=8,
@@ -163,8 +168,17 @@ def test_paths_of_later_slices_raise(clustered_data):
         res = T.query_knn(cfg_now, tree, db, q, 5)
         assert res.indices.shape == (4, 5) and (res.indices[:, 0] >= 0).all()
     csr_only = PQTDatabase(*db[:4], vectors=None, prefix2=db.prefix2,
-                           vectors_csr=db.vectors)
-    with pytest.raises(NotImplementedError):
-        T.query_knn(cfg, tree, csr_only, q, 5, exact_rerank=True)
-    with pytest.raises(NotImplementedError):
-        T.query_knn_refine(cfg, tree, csr_only, q, 5)
+                           vectors_csr=db.vectors[db.ids.long()])
+    for got, want in (
+            (T.query_knn(cfg, tree, csr_only, q, 5, exact_rerank=True),
+             T.query_knn(cfg, tree, db, q, 5, exact_rerank=True)),
+            (T.query_knn_refine(cfg, tree, csr_only, q, 5),
+             T.query_knn_refine(cfg, tree, db, q, 5))):
+        assert torch.equal(got.indices, want.indices)
+        assert torch.equal(got.dists, want.dists)
+        assert (got.indices[:, 0] >= 0).all()
+    bare = csr_only._replace(vectors_csr=None)
+    with pytest.raises(ValueError):
+        T.query_knn(cfg, tree, bare, q, 5, exact_rerank=True)
+    with pytest.raises(ValueError):
+        T.query_knn_refine(cfg, tree, bare, q, 5)
