@@ -10,21 +10,26 @@ Phases (any failure exits non-zero before the last line is printed):
   2. builds the hand-written CUDA kernels from pqt_tpu_torch/csrc (nvcc,
      one process per source, in parallel) and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card, at
-     the shapes the query paths give it (top-k, prefix sums, lookups and
-     row gathers exact; line re-rank within rtol 1e-5, atol 1e-4, in the
-     compact and the wide payload layout; segment sums within rtol 1e-5,
-     atol 1e-3), and times kernel, plain version and the one PyTorch call
-     computing the same function by their device time (torch.profiler;
-     CUDA events, counted and printed, where no profiler session records
-     device time), beside the launch floor (a one-element fill_).  The top-k, the prefix
-     sums and the lookups also run at SIFT1B_CONFIG's widths (2^29-slot
-     tables: about 10 GiB of device memory at the peak), the top-k with
-     kernel A's merge mode (32768 and 65536 kept of 65536-wide rows, also
-     timed beside torch.sort); top-k and prefix sums run in the mode their
-     wrapper picks and in every other mode that takes the shape (all held
-     and timed), the lookups with a sectors' bound beside the byte bound;
-     then the kernels are held on inputs that are hard for them (not
-     timed);
+     the shapes the query paths give it (top-k, prefix sums, lookups, row
+     gathers and the exact re-rank's distances with integer-valued queries
+     exact; line re-rank within rtol 1e-5, atol 1e-4, in the compact and
+     the wide payload layout; segment sums within rtol 1e-5, atol 1e-3),
+     and times kernel, plain version and the one PyTorch call computing the
+     same function by their device time (torch.profiler; CUDA events,
+     counted and printed, where no profiler session records device time),
+     beside the launch floor (a one-element fill_).  The top-k, the prefix
+     sums, the lookups, the row gathers, the segment sums and the exact
+     distances also run at SIFT1B_CONFIG's widths (2^29-slot tables, the
+     probe table's 4 GiB among them; the phase's peak device memory is
+     printed), the top-k with kernel A's merge mode (32768 and 65536 kept
+     of 65536-wide rows, also timed beside torch.sort); top-k and prefix
+     sums run in the mode their wrapper picks and in every other mode that
+     takes the shape (all held and timed), the lookups and row gathers with
+     a sectors' bound beside the byte bound, the exact distances
+     (`gather_sqdist`, kernels H and D fused) beside the five launches they
+     replaced (H's rows, the float copy, the difference, the square and
+     D's row sums); then the kernels are held on inputs that are hard for
+     them (not timed);
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -52,7 +57,8 @@ Phases (any failure exits non-zero before the last line is printed):
 
 Every kernel launch count is reset just before each path (4, 5, the slab
 variant of 5, each of 6, and 7's serving) and read just after it; a kernel
-of that path with no launch fails the run.  Recall of every path is
+of that path with no launch fails the run (`gather_sqdist` on every path
+that serves exact, refine or BIG perfect).  Recall of every path is
 checked against an exact float64 brute force on the card: the SIFT1M
 paths against their thresholds (the BIG paths 0.03 below the JAX
 package's recall on the CPU, the wide payload's line top-10 at most 0.01
@@ -100,6 +106,12 @@ PAIR_KERNELS = ("bitonic_topk", "block_scan", "rerank_fused",
                 "segmented_reduce", "gather_rows")
 PARTS_KERNELS = PAIR_KERNELS + ("lut_gather",)
 ALL_KERNELS = PARTS_KERNELS
+# the exact re-rank's distances, kernels H and D fused: every path that
+# serves exact, refine or BIG perfect must launch it
+EXACT_KERNELS = ("gather_sqdist",)
+# where the fused kernel appears in the per-kernel line: a mode of the rows
+# of the two TPU kernels it replaces on the exact re-rank
+SQDIST_ROWS = ("segmented_reduce", "gather_rows")
 
 N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
 # The SIFT1B phase: 10M vectors (a cut of SIFT1B's 10^9 forced by the
@@ -357,12 +369,15 @@ def rerank_cases(torch, gen):
 
 
 def reduce_cases(torch, gen):
-    """Squares of uint8-range values (query components, or differences of
-    uint8 vectors and queries), as the distance tables' per-part norms
-    (p = 4, line_parts = 16) and the exact re-rank's row sums give them."""
+    """Squares of uint8-range values, as the distance tables' per-part norms
+    give them: a query batch of 256 (p = 4, line_parts = 16), then
+    SIFT1B_CONFIG's encode, 65536 vectors a step (p = 4, line_parts = 32).
+    The exact re-rank's row sums are `gather_sqdist`'s."""
     for name, rows, d, parts in (("part_norms", 256, 128, 4),
                                  ("line_part_norms", 256, 128, 16),
-                                 ("exact_row_sums", 256 * 1024, 128, 1)):
+                                 ("sift1b_encode_part_norms", 65536, 128, 4),
+                                 ("sift1b_encode_line_part_norms", 65536, 128,
+                                  32)):
         v = torch.randint(-255, 256, (rows, d), generator=gen,
                           device="cuda").to(torch.float32)
         yield name, ((v * v).contiguous(), parts), (rows, d, parts)
@@ -402,7 +417,12 @@ def gather_cases(torch, gen):
     """The row gathers of both paths at batch 256: compact payload rows (1M
     x 10 int32) for 1024 candidates, in rows mode and as 32 slabs of 32
     rows; uint8 vectors (1M x 128) for 1024 exact and 800 refine
-    candidates; the (start, end) extent rows of 512 probed bins."""
+    candidates (the old exact route's first launch); the (start,
+    end) extent rows of 512 probed bins.  Then SIFT1B_CONFIG's widths at
+    batch 64: the extent rows of 32768 enumerated bins from the 2^29-slot
+    probe table (4 GiB), and 8192 candidates' compact payload rows (lp 32:
+    72 bytes) and vectors_csr rows (128 bytes) from 10M rows.  Positions
+    are uniform over the table."""
     n = 1_000_000
     payload = torch.randint(-(1 << 30), 1 << 30, (n, 10), generator=gen,
                             device="cuda", dtype=torch.int32)
@@ -410,14 +430,77 @@ def gather_cases(torch, gen):
                             dtype=torch.uint8)
     prefix2 = torch.randint(0, n, (1 << 20, 2), generator=gen, device="cuda",
                             dtype=torch.int32)
+
+    def positions(tab, b, k, span):
+        return torch.randint(0, tab.shape[0] - span + 1, (b, k),
+                             generator=gen, device="cuda", dtype=torch.int32)
+
     for name, tab, k, span in (("payload_rows", payload, 1024, 1),
                                ("payload_slabs", payload, 32, 32),
                                ("vectors_exact", vectors, 1024, 1),
                                ("vectors_refine", vectors, 800, 1),
                                ("extent_rows", prefix2, 512, 1)):
-        pos = torch.randint(0, tab.shape[0] - span + 1, (256, k),
-                            generator=gen, device="cuda", dtype=torch.int32)
-        yield name, (tab, pos, span), (256, k, span)
+        yield name, (tab, positions(tab, 256, k, span), span)
+    del payload, vectors, prefix2
+    for name, make, k in (
+            ("sift1b_extent_rows", lambda: torch.randint(
+                0, N_1B, (1 << 29, 2), generator=gen, device="cuda",
+                dtype=torch.int32), 32768),
+            ("sift1b_payload_rows", lambda: torch.randint(
+                -(1 << 30), 1 << 30, (N_1B, 18), generator=gen,
+                device="cuda", dtype=torch.int32), 8192),
+            ("sift1b_vectors_csr", lambda: torch.randint(
+                0, 256, (N_1B, 128), generator=gen, device="cuda",
+                dtype=torch.uint8), 8192)):
+        tab = make()
+        yield name, (tab, positions(tab, 64, k, 1), 1)
+        del tab
+        torch.cuda.empty_cache()
+
+
+def sqdist_cases(torch, gen):
+    """The exact re-rank's distances (`gather_sqdist`) at the shapes the
+    paths give it, with integer-valued queries: SIFT1M exact (256, 1024)
+    and refine (256, 800) rows of a 1M x 128 uint8 table, the exact shape
+    again over a 1M x 128 float32 table, then SIFT1B exact (64, 8192) and
+    refine and BIG perfect (64, 800) rows of a 10M x 128 uint8 table (1.28
+    GB).  Positions are uniform over the table."""
+    def case(tab, b, k):
+        return (tab, torch.randint(0, tab.shape[0], (b, k), generator=gen,
+                                   device="cuda", dtype=torch.int32),
+                torch.randint(0, 256, (b, tab.shape[1]), generator=gen,
+                              device="cuda").to(torch.float32))
+
+    vectors = torch.randint(0, 256, (1_000_000, 128), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+    yield "sift1m_exact", case(vectors, 256, 1024)
+    yield "sift1m_refine", case(vectors, 256, 800)
+    yield "sift1m_exact_float32", case(vectors.to(torch.float32), 256, 1024)
+    vectors = torch.randint(0, 256, (N_1B, 128), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+    yield "sift1b_exact", case(vectors, 64, 8192)
+    yield "sift1b_refine_big_perfect", case(vectors, 64, 800)
+    del vectors
+    torch.cuda.empty_cache()
+
+
+def old_exact_route(ga, prim, tab, pos, q):
+    """The exact re-rank's distances by the route `gather_sqdist` replaced:
+    kernel H's row gather, the float copy, the difference, the square and
+    kernel D's row sums (five launches)."""
+    b, k = pos.shape
+    diff = ga.gather_rows(tab, pos).to(q.dtype) - q[:, None, :]
+    return prim.segmented_reduce((diff * diff).reshape(b * k, -1),
+                                 1).reshape(b, k)
+
+
+def sectors_touched(torch, pos, row_bytes):
+    """The distinct 32-byte sectors the rows at `pos` lie in: a random read
+    moves every sector it touches whole."""
+    start = pos.to(torch.int64).reshape(-1) * row_bytes
+    first, last = start // 32, (start + row_bytes - 1) // 32
+    spans = [first + j for j in range(int((last - first).max()) + 1)]
+    return int(torch.unique(torch.cat([s[s <= last] for s in spans])).numel())
 
 
 def check_kernels(torch):
@@ -591,13 +674,15 @@ def check_kernels(torch):
         del table, idx, touched
         torch.cuda.empty_cache()
 
-    for case, (tab, pos, span), (b, k, _) in gather_cases(torch, gen):
+    for case, (tab, pos, span) in gather_cases(torch, gen):
+        b, k = pos.shape
         got = ga.gather_rows(tab, pos, span)
         want = ga.gather_rows_plain(tab, pos, span)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise SmokeFailure(f"gather_rows {case}: differs from the plain "
                                "version")
+        del got, want
         row_bytes = tab.shape[1] * tab.element_size()
         # one PyTorch call on the same rows: the positions of every row
         # gathered are made beforehand for the slab case
@@ -613,7 +698,36 @@ def check_kernels(torch):
                f"({b},{k}) span {span}",
                device_ms(torch, lambda: ga.gather_rows(tab, pos, span)),
                device_ms(torch, lambda: ga.gather_rows_plain(tab, pos, span)),
-               device_ms(torch, lambda: tab[full]), b_ms, b_by, 0.0)
+               device_ms(torch, lambda: tab[full]), b_ms, b_by, 0.0,
+               sector_bound_ms=bound(b * k * 4 + b * k * span * row_bytes
+                                     + sectors_touched(torch, full, row_bytes)
+                                     * 32, 0)[0])
+        del tab, pos, full
+
+    for case, (tab, pos, q) in sqdist_cases(torch, gen):
+        (b, k), dim = pos.shape, tab.shape[1]
+        got = prim.gather_sqdist(tab, pos, q)
+        want = prim.gather_sqdist_plain(tab, pos, q)
+        old = old_exact_route(ga, prim, tab, pos, q)
+        torch.cuda.synchronize()
+        # integer terms of at most 255^2, sums below 2^24: exact in any order
+        if not (torch.equal(got, want) and torch.equal(old, want)):
+            raise SmokeFailure(f"gather_sqdist {case}: differs from the plain "
+                               "version or from the old route")
+        del got, want, old
+        touched = int(torch.unique(pos).numel())
+        b_ms, b_by = bound(touched * dim * tab.element_size() + b * k * 8
+                           + b * dim * 4, 2 * b * k * dim)
+        record("gather_sqdist", "pqt_tpu_torch/csrc/sqdist.cu",
+               "benchmarks/micro_gather2.py:165 + "
+               "pqt_tpu/ops/pallas/primitives.py:145",
+               f"{case} ({tab.shape[0]},{dim}) {tab.dtype} at ({b},{k})",
+               device_ms(torch, lambda: prim.gather_sqdist(tab, pos, q)),
+               device_ms(torch, lambda: prim.gather_sqdist_plain(tab, pos, q)),
+               None, b_ms, b_by, 0.0,
+               old_route_ms=device_ms(
+                   torch, lambda: old_exact_route(ga, prim, tab, pos, q)))
+        del tab, pos, q
     return results, floor
 
 
@@ -631,11 +745,12 @@ def profile_batch(torch, fn, x, reps=3):
                 fn(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        # by the kernel's whole name: PyTorch's elementwise kernels share
+        # their first hundred characters whatever operation they run
         kernels = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name[:60]
-                kernels[name] = kernels.get(name, 0.0) + (
+                kernels[e.name] = kernels.get(e.name, 0.0) + (
                     e.device_time_total / 1e3 / reps)
     except (RuntimeError, AttributeError) as err:   # the profiler is a probe
         return {"not_measured": repr(err)}
@@ -646,7 +761,7 @@ def profile_batch(torch, fn, x, reps=3):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "n_kernel_names": len(kernels),
-            "top_kernels_ms": [[k, v] for k, v in top]}
+            "top_kernels_ms": [[k[:240], v] for k, v in top]}
 
 
 def topk_hard_rows(torch, gen):
@@ -750,6 +865,60 @@ def lut_hard_cases(torch, gen):
         dtype=torch.int32)
 
 
+def sqdist_hard_cases(torch, gen):
+    """Inputs on which the exact distances are easiest to get wrong: (name,
+    tab, pos, q, exact).  `exact`: integer rows and queries whose sums stay
+    below 2^24, equal to the bit in any order; the others within rtol
+    1e-5."""
+    def table(n, dim, dtype=torch.uint8):
+        return torch.randint(0, 256, (n, dim), generator=gen,
+                             device="cuda").to(dtype)
+
+    def pos(n, b=3, k=77):
+        return torch.randint(0, n, (b, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def queries(b, dim, fractional=False):
+        q = torch.randint(0, 256, (b, dim), generator=gen,
+                          device="cuda").to(torch.float32)
+        if fractional:
+            q += torch.rand((b, dim), generator=gen, device="cuda") - 0.5
+        return q
+
+    for dim, unit, exact in ((960, "16-byte units, two a lane", False),
+                             (24, "8-byte units", True),
+                             (100, "4-byte units", True),
+                             (13, "1-byte units", True),
+                             (2048, "units past the register slice", False)):
+        yield f"dim {dim} uint8 ({unit})", table(5000, dim), pos(5000), \
+            queries(3, dim), exact
+    yield "dim 960 fractional queries", table(5000, 960), pos(5000), \
+        queries(3, 960, True), False
+    yield "dim 960 float32 (units past the register slice)", table(
+        2000, 960, torch.float32), pos(2000), queries(3, 960), False
+    yield "dim 3 float32 (4-byte units)", table(5000, 3, torch.float32), \
+        pos(5000), queries(3, 3), True
+    frac = table(5000, 128, torch.float32)
+    frac += torch.rand(frac.shape, generator=gen, device="cuda") - 0.5
+    yield "dim 128 fractional float32 rows", frac, pos(5000), \
+        queries(3, 128), False
+    # a uint8 table 8 bytes past a 16-byte boundary: 8-byte units
+    flat = torch.randint(0, 256, (5000 * 128 + 8,), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    yield "dim 128 off a 16-byte boundary", flat[8:].view(5000, 128), \
+        pos(5000), queries(3, 128), True
+    tab = table(5000, 128)
+    last = pos(5000, 4, 1000)
+    last[:, ::3] = 4999
+    yield "positions at row N - 1", tab, last, queries(4, 128), True
+    yield "every position 0", tab, torch.zeros((4, 1000), dtype=torch.int32,
+                                               device="cuda"), \
+        queries(4, 128), True
+    yield "B = 1, K = 1", tab, pos(5000, 1, 1), queries(1, 128), True
+    yield "fractional queries at dim 128", tab, pos(5000, 8, 513), \
+        queries(8, 128, True), False
+
+
 def check_other_paths(torch):
     """Kernel paths beyond the query paths' shapes, for correctness only
     (not timed), each in the mode the wrapper picks and in every mode that
@@ -758,9 +927,12 @@ def check_other_paths(torch):
     summing to 2^31 - 1, ragged widths, an input off a 16-byte boundary,
     50 back-to-back onepass scans); lookups of 1 to 9 elements, of a ragged
     shape, from indices off a 16-byte boundary (4097 of them) and from a
-    128 KB table; segments shorter than a warp and of odd lengths; and row
+    128 KB table; segments shorter than a warp and of odd lengths; row
     gathers in every copy unit (rows of 3, 6 and 12
-    bytes, a table that starts off a 16-byte boundary, a span of 5)."""
+    bytes, a table that starts off a 16-byte boundary, a span of 5); and
+    the exact distances in every load unit, past the query slice a lane
+    keeps in registers, at the table's last row and its first, with
+    fractional queries and rows, and a position outside the table (NaN)."""
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
 
@@ -826,6 +998,25 @@ def check_other_paths(torch):
                            ga.gather_rows_plain(tab, pos, span)):
             raise SmokeFailure(f"gather_rows {dtype} width {w} offset "
                                f"{offset} span {span} differs")
+    for name, tab, pos, q, exact in sqdist_hard_cases(torch, gen):
+        got = prim.gather_sqdist(tab, pos, q)
+        want = prim.gather_sqdist_plain(tab, pos, q)
+        ok = (torch.equal(got, want) if exact else
+              torch.allclose(got, want, rtol=1e-5, atol=0.0))
+        if not ok:
+            raise SmokeFailure(f"gather_sqdist {name} {tuple(tab.shape)} at "
+                               f"{tuple(pos.shape)} differs (max abs error "
+                               f"{float((got - want).abs().max())})")
+    # a position outside the table reads nothing and yields NaN
+    tab, q = torch.zeros((10, 128), dtype=torch.uint8, device="cuda"), \
+        torch.ones((1, 128), device="cuda")
+    got = prim.gather_sqdist(tab, torch.tensor([[0, -1, 10, 9]],
+                                               dtype=torch.int32,
+                                               device="cuda"), q)
+    if not (torch.equal(got[0, ::3], torch.full((2,), 128.0, device="cuda"))
+            and bool(got[0, 1:3].isnan().all())):
+        raise SmokeFailure(f"gather_sqdist: positions outside the table "
+                           f"gave {got.tolist()}")
     torch.cuda.synchronize()
 
 
@@ -839,7 +1030,8 @@ def counters():
     from pqt_tpu_torch.ops.cuda import primitives as prim
     from pqt_tpu_torch.ops.cuda import rerank as rr
     return (prim.bitonic_topk, prim.block_scan, rr.rerank_fused,
-            prim.segmented_reduce, ga.lut_gather, ga.gather_rows)
+            prim.segmented_reduce, ga.lut_gather, ga.gather_rows,
+            prim.gather_sqdist)
 
 
 def reset_launches(torch):
@@ -1003,19 +1195,20 @@ def query_paths(torch, P):
     all_modes = ("exact", "line", "refine", "candidates")
     paths = {}
     out, lat = serve(torch, query_modes(P, cfg, tree, db, all_modes), qd)
-    paths["pair"] = {"launches": read_launches("pair path", PAIR_KERNELS),
+    paths["pair"] = {"launches": read_launches("pair path",
+                                               PAIR_KERNELS + EXACT_KERNELS),
                      "serving": lat, "outputs": out, "cfg": cfg, "db": db,
                      "reference": (ROUND5, "round 5")}
 
     # phase 5: the parts path, then its slab-gather variant
     paths["parts"] = serve_path(
         torch, "parts path", query_modes(P, parts_cfg, tree, db, all_modes),
-        qd, PARTS_KERNELS, cfg=parts_cfg, db=db,
+        qd, PARTS_KERNELS + EXACT_KERNELS, cfg=parts_cfg, db=db,
         reference=(JAX_CPU_PARTS, "JAX on the CPU"))
     paths["parts_slabs"] = serve_path(
         torch, "parts path with slab gathers",
         query_modes(P, slabs_cfg, tree, db, ("exact", "line", "candidates")),
-        qd, PARTS_KERNELS, cfg=slabs_cfg, db=db,
+        qd, PARTS_KERNELS + EXACT_KERNELS, cfg=slabs_cfg, db=db,
         reference=(JAX_CPU_SLABS, "JAX on the CPU"))
 
     # phase 6: the BIG two-stage path, line and perfect, on the same
@@ -1023,8 +1216,9 @@ def query_paths(torch, P):
     for name in ("big_line", "big_perfect"):
         paths[name] = serve_path(
             torch, f"BIG path ({name[4:]})",
-            query_modes(P, cfg, tree, db, (name,)), qd, ALL_KERNELS, cfg=cfg,
-            db=db, reference=(JAX_CPU_BIG, "JAX on the CPU"))
+            query_modes(P, cfg, tree, db, (name,)), qd,
+            ALL_KERNELS + (EXACT_KERNELS if name == "big_perfect" else ()),
+            cfg=cfg, db=db, reference=(JAX_CPU_BIG, "JAX on the CPU"))
     wide_db = P.build_database(wide_cfg, tree, data, device="cuda")
     paths["pair_wide"] = serve_path(
         torch, "pair path over the wide payload",
@@ -1186,8 +1380,9 @@ def sift1b_phase(torch, P, workdir):
     # BIG perfect re-ranks by id: the vectors by id, attached on the card
     by_id = db._replace(vectors=data)
     modes.update(query_modes(P, cfg, tree, by_id, ("big_perfect",)))
-    path = serve_path(torch, "SIFT1B phase", modes, qd, ALL_KERNELS,
-                      ("bitonic_topk:merge",), batch=BATCH_1B)
+    path = serve_path(torch, "SIFT1B phase", modes, qd,
+                      ALL_KERNELS + EXACT_KERNELS, ("bitonic_topk:merge",),
+                      batch=BATCH_1B)
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"sift1b: device memory held after the load {loaded_gib:.2f} GiB "
           f"(tables, payload, vectors_csr, the data by id, the tree), "
@@ -1253,6 +1448,7 @@ def main(json_path=None):
           f"(nvcc {nvcc_s:.2f} s)", flush=True)
 
     kernels, floor = check_kernels(torch)
+    check_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for r in kernels.values():
         print(f"{r['name']:16s} ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
               f"library {r['library_ms']}  bound {r['bound_ms']:.4f} "
@@ -1263,6 +1459,8 @@ def main(json_path=None):
                 other += f"  passes' bound {c['pass_bound_ms']:.4f}"
             if "sector_bound_ms" in c:
                 other += f"  sectors' bound {c['sector_bound_ms']:.4f}"
+            if "old_route_ms" in c:
+                other += f"  old route {c['old_route_ms']:.4f}"
             if c.get("other_mode"):
                 other += f"  {c['other_mode']} mode {c['other_mode_ms']:.4f}"
             for mode, ms in c.get("other_modes", {}).items():
@@ -1271,6 +1469,8 @@ def main(json_path=None):
                   f"{c['plain_ms']:.4f}  library {c['library_ms']}  bound "
                   f"{c['bound_ms']:.4f}{other}", flush=True)
     print(f"launch floor {floor:.4f} ms", flush=True)
+    print(f"kernel checks: peak device memory {check_peak:.2f} GiB",
+          flush=True)
     print(f"timings taken with CUDA events (no profiler session recorded "
           f"device time): {len(EVENT_TIMED)}", flush=True)
 
@@ -1289,8 +1489,12 @@ def main(json_path=None):
     launches = {c.__name__: sum(r[c.__name__] for r in runs)
                 for c in counters()}
     rows = []
+    sqdist = dict(kernels.pop("gather_sqdist"),
+                  launches=launches["gather_sqdist"])
     for r in kernels.values():
         r["launches"] = launches[r["name"]]
+        if r["name"] in SQDIST_ROWS:
+            r["modes"] = {"gather_sqdist": sqdist}
         if r["name"] != "lut_gather":
             rows.append(r)
             continue
@@ -1298,6 +1502,7 @@ def main(json_path=None):
                  for name, where in LUT_ROWS]
     summary["card"] = card
     summary["launch_floor_ms"] = floor
+    summary["kernel_check_peak_gib"] = check_peak
     summary["event_timed_ms"] = EVENT_TIMED
     summary["peak_memory_gib"] = max(peak_before / 2**30,
                                      summary["sift1b"]["peak_device_gib"])

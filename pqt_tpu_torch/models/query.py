@@ -20,7 +20,9 @@ Port of pqt_tpu/models/query.py.  Per batch of queries:
   4. line re-rank from the payload rows (kernel C), and top-k (kernel A);
      or the exact re-rank from the raw vectors: by id, or, for an
      out-of-core database, from `vectors_csr` by CSR position
-     (`query_core_exact`, and the refine's second stage).
+     (`query_core_exact`, and the refine's second stage), each candidate's
+     row read once through its position and its squared distance written
+     by one kernel (`gather_sqdist`, kernels H and D fused).
 
 The cores take `bin_offset` as their JAX signatures do: their tables may be
 one hash-range shard's, starting at that global slot.
@@ -28,9 +30,10 @@ one hash-range shard's, starting at that global slot.
 With duplicate masking off (`dedup_candidates=False`, the main path),
 every top-k and sort of a query is kernel A (ops/cuda/primitives.py, ties
 lowest index first, like `lax.top_k` and a stable sort), every prefix sum
-kernel B, every table lookup kernel E (`lut_gather`) and every row gather
-kernel H (`gather_rows`), so bin ids, extents and candidate ids equal the
-JAX package's bit for bit given the same distance tables.  Duplicate
+kernel B, every table lookup kernel E (`lut_gather`) and every gather of
+extent and payload rows kernel H (`gather_rows`), so bin ids, extents and
+candidate ids equal the JAX package's bit for bit given the same distance
+tables.  Duplicate
 masking sorts the candidate ids with `torch.sort` (ROADMAP.md queue 2).
 Queries run on the device of the tree and database tensors.  Bin-hash terms
 are uint32 values held in int64.
@@ -50,7 +53,7 @@ from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
 from pqt_tpu_torch.ops import binning, distseq
 from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
 from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk, block_scan,
-                                               segmented_reduce)
+                                               gather_sqdist)
 from pqt_tpu_torch.ops.cuda.rerank import rerank_fused
 
 _INF = float("inf")
@@ -311,17 +314,16 @@ def _probe_parts(cfg: PQTConfig, tree: PQTree, counts, queries,
                            bin_offset=bin_offset, pair_occ=pair_occ)
 
 
-def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt,
-                  *extra_tables):
+def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
     """Candidate payload rows from the probed bins' extents.
 
     "rows" mode: capped per-row positions, one payload-row gather (kernel
     H).  "slabs" mode: windows of slab_size consecutive rows per bin, one
     gather of slab_size rows per window (H with a span).  Returns (rows
     (B, K, W), valid (B, K), positions (B, K) int32 CSR row of each
-    candidate, extra_rows), K = max_candidates (rows mode, positions 0
-    where invalid) or its slab-rounded size; extra_rows holds the same rows
-    of each CSR-ordered table in `extra_tables` (such as vectors_csr).
+    candidate), K = max_candidates (rows mode, positions 0 where invalid)
+    or its slab-rounded size (slabs mode: an invalid slot's position may
+    lie past the payload's end when the payload is shorter than a slab).
     """
     if cfg.gather_mode == "slabs":
         S = cfg.slab_size
@@ -330,18 +332,15 @@ def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt,
             start, cnt, T, S, cfg.max_vec_per_bin)
         rows, valid = binning.fetch_slab_rows(payload, slab_starts,
                                               slab_valid, S)
-        extra = tuple(binning.fetch_slab_rows(t, slab_starts, slab_valid,
-                                              S)[0] for t in extra_tables)
         # row i of slab t sits at CSR position min(start, N - S) + i
         eff = torch.clamp_max(slab_starts, max(payload.shape[0] - S, 0))
         positions = (eff[..., None] + torch.arange(
             S, dtype=torch.int32, device=eff.device)).reshape(rows.shape[:2])
-        return rows, valid, positions, extra
+        return rows, valid, positions
     positions, valid = binning.gather_candidates(
         start, cnt, cfg.max_candidates, cfg.max_vec_per_bin)
     safe_pos = torch.where(valid, positions, 0)
-    extra = tuple(gather_rows(t, safe_pos) for t in extra_tables)
-    return gather_rows(payload, safe_pos), valid, safe_pos, extra
+    return gather_rows(payload, safe_pos), valid, safe_pos
 
 
 def _top_ids(dists: torch.Tensor, cand_ids: torch.Tensor, k: int):
@@ -357,7 +356,7 @@ def _line_rerank(cfg: PQTConfig, tree: PQTree, payload, queries, start, cnt,
                  k: int, want_candidates: bool):
     """Candidate rows, line distances (kernel C) and top-k (kernel A): the
     shared tail of both pipelines' cores."""
-    rows, valid, positions, _ = _collect_rows(cfg, payload, start, cnt)
+    rows, valid, positions = _collect_rows(cfg, payload, start, cnt)
     cand_ids = rows[..., 0]
     dists = torch.where(valid, _line_dists(cfg, tree, queries, rows), _INF)
     if cfg.dedup_candidates:
@@ -409,13 +408,13 @@ def query_core(cfg: PQTConfig, tree: PQTree, prefix, counts, payload,
                         want_candidates)
 
 
-def _row_sqdist(queries: torch.Tensor, vec_rows: torch.Tensor):
-    """Exact squared distances (B, K) of the rows (B, K, dim) to their
-    queries (B, dim): the float difference, and its row sums by kernel D."""
-    diff = vec_rows.to(torch.float32) - queries[:, None, :]
-    B, K, dim = diff.shape
-    return segmented_reduce((diff * diff).reshape(B * K, dim),
-                            1).reshape(B, K)
+def _row_sqdist(queries: torch.Tensor, table: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Exact squared distances (B, K) of the raw rows table[positions] to
+    their queries (B, dim), by one kernel that reads each row once
+    (`gather_sqdist`).  positions (B, K) int32 must lie inside the table:
+    callers map an invalid slot to row 0 and mask its distance."""
+    return gather_sqdist(table, positions, queries.contiguous())
 
 
 def query_core_exact(cfg: PQTConfig, tree: PQTree, prefix2, payload,
@@ -424,10 +423,11 @@ def query_core_exact(cfg: PQTConfig, tree: PQTree, prefix2, payload,
     """Exact re-rank over the raw CSR tensors, reading `vectors_csr`, the
     raw vectors in CSR order (an out-of-core build's layout), by CSR
     position: every gathered candidate ranked by its true squared distance
-    (rows by kernel H, in the gather mode's rows or slab windows; sums by
-    kernel D; top-k by kernel A).  Either pipeline; `bin_offset` as in
-    query_core_pair.  Returns (ids (B, k'), dists (B, k'), n_candidates),
-    k' = min(k, K)."""
+    (payload rows by kernel H, in the gather mode's rows or slab windows;
+    the raw rows at the candidates' positions read and their distances
+    summed by `gather_sqdist`; top-k by kernel A).  Either pipeline;
+    `bin_offset` as in query_core_pair.  Returns (ids (B, k'), dists (B,
+    k'), n_candidates), k' = min(k, K)."""
     queries = queries.to(torch.float32)
     if cfg.pair_pipeline_enabled:
         _, h_pairs, exact = _pair_stage(cfg, tree, queries, pair_occ)
@@ -438,10 +438,10 @@ def query_core_exact(cfg: PQTConfig, tree: PQTree, prefix2, payload,
         bins, cnt = _probe_parts(cfg, tree, counts, queries, pair_occ,
                                  bin_offset)
         start = gather_rows(prefix2, bins.contiguous())[..., 0]
-    rows, valid, _, (vec_rows,) = _collect_rows(cfg, payload, start, cnt,
-                                                vectors_csr)
+    rows, valid, positions = _collect_rows(cfg, payload, start, cnt)
     cand_ids = rows[..., 0]
-    dists = torch.where(valid, _row_sqdist(queries, vec_rows), _INF)
+    dists = torch.where(valid, _row_sqdist(
+        queries, vectors_csr, torch.where(valid, positions, 0)), _INF)
     if cfg.dedup_candidates:
         dists = _mask_duplicate_candidates(cand_ids, valid, dists)
     return _top_ids(dists, cand_ids, k) + (torch.sum(valid, dim=-1),)
@@ -470,17 +470,11 @@ def _pad_k(ids, dists, k):
     return ids, dists
 
 
-def _exact_top(queries, vec_rows, cand_ids, valid, k):
+def _exact_top(queries, table, positions, cand_ids, valid, k):
     """The top-k (kernel A) of the candidates by exact squared distance
-    from their gathered raw rows: (ids, dists)."""
-    return _top_ids(torch.where(valid, _row_sqdist(queries, vec_rows), _INF),
-                    cand_ids, k)
-
-
-def _rows_by_id(vectors: torch.Tensor, ids: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
-    """Raw rows (kernel H) of candidate ids from vectors by original id."""
-    return gather_rows(vectors, torch.where(valid, ids, 0))
+    from their raw rows table[positions] (0 where invalid): (ids, dists)."""
+    return _top_ids(torch.where(valid, _row_sqdist(queries, table, positions),
+                                _INF), cand_ids, k)
 
 
 def _require_vectors(db: PQTDatabase, what: str) -> None:
@@ -516,9 +510,9 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
             n_cand = torch.sum(valid, dim=-1)
             if cfg.dedup_candidates:
                 valid = valid & ~_duplicate_stats(cand_ids, valid)[0]
-        ids, dists = _exact_top(queries, _rows_by_id(db.vectors, cand_ids,
-                                                     valid),
-                                cand_ids, valid, min(k, cfg.max_candidates))
+        ids, dists = _exact_top(queries, db.vectors,
+                                torch.where(valid, cand_ids, 0), cand_ids,
+                                valid, min(k, cfg.max_candidates))
     elif cfg.pair_pipeline_enabled:
         ids, dists, n_cand = query_core_pair(
             cfg, tree, db.prefix2, db.payload, queries, k,
@@ -553,14 +547,14 @@ def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     """Two stages: line re-rank to k * refine_factor (or k_line) candidates,
     then exact re-rank of those from the raw vectors: db.vectors by id, or,
     for a database that holds only vectors_csr, those at the CSR positions
-    the line top-k carried through (rows by kernel H, sums by kernel D)."""
+    the line top-k carried through (`gather_sqdist`)."""
     _require_vectors(db, "query_knn_refine")
     queries = queries.to(torch.float32)
     k1 = k_line or k * refine_factor
     if db.vectors is not None:
         stage1 = query_knn(cfg, tree, db, queries, k1)
         ids1, n_cand = stage1.indices, stage1.n_candidates
-        vec_rows = _rows_by_id(db.vectors, ids1, ids1 >= 0)
+        table, rows_at = db.vectors, torch.where(ids1 >= 0, ids1, 0)
     else:
         if cfg.pair_pipeline_enabled:
             cand_ids, line_d, n_cand, pos = query_core_pair(
@@ -573,8 +567,8 @@ def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
         top_d, idx1 = _topk(line_d, min(k1, line_d.shape[-1]))
         live = torch.isfinite(top_d)
         ids1 = torch.where(live, torch.gather(cand_ids, 1, idx1), -1)
-        pos1 = torch.where(live, torch.gather(pos, 1, idx1), 0)
-        vec_rows = gather_rows(db.vectors_csr, pos1)
-    ids, dists = _exact_top(queries, vec_rows, ids1, ids1 >= 0, k)
+        table = db.vectors_csr
+        rows_at = torch.where(live, torch.gather(pos, 1, idx1), 0)
+    ids, dists = _exact_top(queries, table, rows_at, ids1, ids1 >= 0, k)
     ids, dists = _pad_k(ids, dists, k)
     return QueryResult(indices=ids, dists=dists, n_candidates=n_cand)

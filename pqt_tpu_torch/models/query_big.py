@@ -14,8 +14,9 @@ On the card: every top-k is kernel A (stage 2 at SIFT1B_CONFIG's widths
 keeps 32768 of each 65536-wide row, kernel A's merge mode), the counts and
 CSR starts of the enumerated bins are kernel E, the compaction and the
 candidate positions kernel B, the payload rows kernel H and the line
-re-rank kernel C; the perfect variant's raw vectors are kernel H and their
-sums kernel D.  As in the JAX package, the BIG path uses no pair_occ.
+re-rank kernel C; the perfect variant reads the survivors' raw vectors and
+sums their squared distances in one kernel (`gather_sqdist`).  As in the
+JAX package, the BIG path uses no pair_occ.
 Stage 2 needs p = 4 (two part-pairs); an odd p, or the perfect variant
 without db.vectors, raises ValueError.
 """
@@ -29,8 +30,8 @@ from pqt_tpu_torch.models.db import PQTDatabase
 from pqt_tpu_torch.models.query import (QueryResult, _INF, _line_dists,
                                         _local_bins,
                                         _mask_duplicate_candidates, _pad_k,
-                                        _row_sqdist, _rows_by_id,
-                                        _sorted_part_lists, _top_ids, _topk)
+                                        _row_sqdist, _sorted_part_lists,
+                                        _top_ids, _topk)
 from pqt_tpu_torch.models.tree import PQTree
 from pqt_tpu_torch.ops import binning
 from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
@@ -134,9 +135,8 @@ def query_big_knn_perfect(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     k1 = min(k * refine_factor, cfg.max_candidates)
     stage1 = query_big_knn(cfg, tree, db, queries, k1, n_intermediate)
     live = stage1.indices >= 0
-    exact = torch.where(
-        live, _row_sqdist(queries, _rows_by_id(db.vectors, stage1.indices,
-                                               live)), _INF)
+    exact = torch.where(live, _row_sqdist(
+        queries, db.vectors, torch.where(live, stage1.indices, 0)), _INF)
     dists, top_i = _topk(exact, min(k, k1))
     ids = torch.gather(stage1.indices, 1, top_i)
     ids, dists = _pad_k(ids, dists, k)

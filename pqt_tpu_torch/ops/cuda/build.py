@@ -2,8 +2,9 @@
 
 The sources: `topk.cu` (kernel A, row top-k), `scan.cu` (B, row prefix
 sums), `rerank.cu` (C, line re-rank), `reduce.cu` (D, segment sums),
-`lut.cu` (E/F/G, table lookup) and `gather.cu` (H, row gather).  Each `.cu`
-source has a plain C interface and is compiled by `nvcc` into its
+`lut.cu` (E/F/G, table lookup), `gather.cu` (H, row gather) and
+`sqdist.cu` (H and D fused for the exact re-rank).  Each `.cu` source has a
+plain C interface and is compiled by `nvcc` into its
 own shared library for Hopper (`sm_90a`), then loaded with ctypes.  No
 source includes PyTorch's headers, so a build takes seconds.  The libraries
 go to `pqt_tpu_torch/_build/<hash of sources and flags>/`, so an edited
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "reduce": {"pqt_segmented_reduce": ((_P, _L, _I, _P, _P), _I)},
     "lut": {"pqt_lut_gather": ((_P, _L, _I, _P, _L, _P, _P), _I)},
     "gather": {"pqt_gather_rows": ((_P, _L, _I, _P, _L, _I, _P, _P), _I)},
+    "sqdist": {"pqt_gather_sqdist": ((_P, _L, _I, _I, _P, _I, _I, _P, _P,
+                                      _P), _I)},
 }
 
 _lock = threading.Lock()

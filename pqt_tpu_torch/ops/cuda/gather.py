@@ -20,26 +20,7 @@ from __future__ import annotations
 import torch
 
 from pqt_tpu_torch.ops.cuda import build
-from pqt_tpu_torch.ops.cuda.primitives import _ptr, _stream
-
-
-def _on_cpu(table: torch.Tensor, index: torch.Tensor, what: str) -> bool:
-    """Check what the kernel takes, on any device (so the CPU runs catch a
-    caller that would fail on the card); True for CPU tensors, which run
-    the plain version."""
-    if (not table.is_contiguous() or not index.is_contiguous()
-            or index.dtype != torch.int32):
-        raise ValueError(f"{what}: expected a contiguous table and contiguous "
-                         f"int32 indices, got {table.dtype} (contiguous: "
-                         f"{table.is_contiguous()}) and {index.dtype} "
-                         f"(contiguous: {index.is_contiguous()})")
-    if table.device.type == "cpu" and index.device.type == "cpu":
-        return True
-    if table.device.type != "cuda" or index.device != table.device:
-        raise ValueError(f"{what}: expected CPU tensors or tensors on one "
-                         f"CUDA device, got {table.device} and "
-                         f"{index.device}")
-    return False
+from pqt_tpu_torch.ops.cuda.primitives import _on_cpu, _ptr, _stream
 
 
 def lut_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Row top-k, row prefix sum and segment sums: hand-written CUDA kernels
-and plain versions.
+"""Row top-k, row prefix sum, segment sums and the exact re-rank's
+distances: hand-written CUDA kernels and plain versions.
 
 `bitonic_topk` (kernel A, csrc/topk.cu), `block_scan` (kernel B,
 csrc/scan.cu) and `segmented_reduce` (kernel D, csrc/reduce.cu) replace the
-TPU kernels of the same names in pqt_tpu/ops/pallas/primitives.py.  On a
+TPU kernels of the same names in pqt_tpu/ops/pallas/primitives.py.
+`gather_sqdist` (csrc/sqdist.cu) is kernels H and D redesigned for the job
+the exact re-rank gives them together: each candidate's raw row read once
+through its position and its squared distance to the query written.  On a
 CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches its kernel or raises.
 Each wrapper counts its launches in its `launches` attribute.
@@ -68,6 +71,25 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _on_cpu(table: torch.Tensor, index: torch.Tensor, what: str) -> bool:
+    """Check what a table kernel takes, on any device (so the CPU runs catch
+    a caller that would fail on the card); True for CPU tensors, which run
+    the plain version."""
+    if (not table.is_contiguous() or not index.is_contiguous()
+            or index.dtype != torch.int32):
+        raise ValueError(f"{what}: expected a contiguous table and contiguous "
+                         f"int32 indices, got {table.dtype} (contiguous: "
+                         f"{table.is_contiguous()}) and {index.dtype} "
+                         f"(contiguous: {index.is_contiguous()})")
+    if table.device.type == "cpu" and index.device.type == "cpu":
+        return True
+    if table.device.type != "cuda" or index.device != table.device:
+        raise ValueError(f"{what}: expected CPU tensors or tensors on one "
+                         f"CUDA device, got {table.device} and "
+                         f"{index.device}")
+    return False
 
 
 def _check_input(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -349,3 +371,54 @@ def segmented_reduce(x: torch.Tensor, parts: int) -> torch.Tensor:
 
 
 segmented_reduce.launches = 0
+
+
+def gather_sqdist_plain(tab: torch.Tensor, pos: torch.Tensor,
+                        q: torch.Tensor) -> torch.Tensor:
+    return ((tab[pos.long()].to(torch.float32) - q[:, None, :]) ** 2).sum(-1)
+
+
+def gather_sqdist(tab: torch.Tensor, pos: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """The exact re-rank's squared distances, kernels H and D fused
+    (csrc/sqdist.cu): tab (N, dim) uint8 or float32 rows, pos (B, K) int32
+    rows of tab, every one in [0, N), q (B, dim) float32 queries -> (B, K)
+    float32, out[b, k] = sum_j (float(tab[pos[b, k], j]) - q[b, j])^2.
+
+    Validity stays with the caller: map an invalid slot to row 0 and mask
+    its distance.  With uint8 rows and integer-valued queries at dim 128
+    the result is exact and equals the plain version to the bit; otherwise
+    they differ by the order of the additions.
+    """
+    if tab.dim() != 2 or tab.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"gather_sqdist: expected a 2-D uint8 or float32 "
+                         f"table, got {tab.dtype} {tuple(tab.shape)}")
+    if (pos.dim() != 2 or q.dtype != torch.float32 or not q.is_contiguous()
+            or tuple(q.shape) != (pos.shape[0], tab.shape[1])):
+        raise ValueError(f"gather_sqdist: expected (B, K) positions and "
+                         f"contiguous (B, {tab.shape[1]}) float32 queries, "
+                         f"got {tuple(pos.shape)} and {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if _on_cpu(tab, pos, "gather_sqdist"):
+        if q.device.type != "cpu":
+            raise ValueError(f"gather_sqdist: queries on {q.device}, rows on "
+                             "the CPU")
+        return gather_sqdist_plain(tab, pos, q)
+    if q.device != tab.device:
+        raise ValueError(f"gather_sqdist: queries on {q.device}, rows on "
+                         f"{tab.device}")
+    B, K = pos.shape
+    out = torch.empty((B, K), dtype=torch.float32, device=tab.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load("sqdist")
+    with torch.cuda.device(tab.device):
+        err = lib.pqt_gather_sqdist(_ptr(tab), tab.shape[0], tab.shape[1],
+                                    tab.element_size(), _ptr(pos), B, K,
+                                    _ptr(q), _ptr(out), _stream(tab))
+    build.check(err, "gather_sqdist")
+    gather_sqdist.launches += 1
+    return out
+
+
+gather_sqdist.launches = 0
