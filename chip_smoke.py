@@ -13,7 +13,9 @@ Phases (any failure exits non-zero before the last line is printed):
      the shapes the query paths give it (top-k, prefix sums, lookups, row
      gathers and the exact re-rank's distances with integer-valued queries
      exact; line re-rank within rtol 1e-5, atol 1e-4, in the compact and
-     the wide payload layout; segment sums within rtol 1e-5, atol 1e-3),
+     the wide payload layout; segment sums of integer values exact, in
+     plain mode and in square mode, the latter beside the old route of
+     x * x then plain mode),
      and times kernel, plain version and the one PyTorch call computing the
      same function by their device time (torch.profiler; CUDA events,
      counted and printed, where no profiler session records device time),
@@ -24,7 +26,8 @@ Phases (any failure exits non-zero before the last line is printed):
      printed), the top-k with kernel A's merge mode (32768 and 65536 kept
      of 65536-wide rows, also timed beside torch.sort); top-k and prefix
      sums run in the mode their wrapper picks and in every other mode that
-     takes the shape (all held and timed), the lookups and row gathers with
+     takes the shape, row gathers in every `rows` of their plan (all held
+     and timed), the lookups and row gathers with
      a sectors' bound beside the byte bound, the exact distances
      (`gather_sqdist`, kernels H and D fused) beside the five launches they
      replaced (H's rows, the float copy, the difference, the square and
@@ -58,11 +61,13 @@ Phases (any failure exits non-zero before the last line is printed):
 Every kernel launch count is reset just before each path (4, 5, the slab
 variant of 5, each of 6, and 7's serving) and read just after it; a kernel
 of that path with no launch fails the run (`gather_sqdist` on every path
-that serves exact, refine or BIG perfect).  Recall of every path is
-checked against an exact float64 brute force on the card: the SIFT1M
-paths against their thresholds (the BIG paths 0.03 below the JAX
-package's recall on the CPU, the wide payload's line top-10 at most 0.01
-below the compact one's), the SIFT1B phase against its floors.
+that serves exact, refine or BIG perfect), and so do launch counts or a
+recall that differ from the reference run's (REFERENCE_LAUNCHES,
+REFERENCE_RECALL).  Recall of every path is checked against an exact
+float64 brute force on the card: the SIFT1M paths against their
+thresholds (the BIG paths 0.03 below the JAX package's recall on the CPU,
+the wide payload's line top-10 at most 0.01 below the compact one's), the
+SIFT1B phase against its floors.
 
 Timings are the card's, with its name and power limit printed beside them.
 """
@@ -112,6 +117,62 @@ EXACT_KERNELS = ("gather_sqdist",)
 # where the fused kernel appears in the per-kernel line: a mode of the rows
 # of the two TPU kernels it replaces on the exact re-rank
 SQDIST_ROWS = ("segmented_reduce", "gather_rows")
+
+# Every path's launch counts and recall on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W) before kernels H and D were redesigned: a kernel redesign changes
+# neither, so a path that differs from them fails the run.  Launches in the
+# order of LAUNCH_KEYS (read_launches' names).
+LAUNCH_KEYS = ("bitonic_topk", "block_scan", "rerank_fused",
+               "segmented_reduce", "lut_gather", "gather_rows",
+               "gather_sqdist", "bitonic_topk:sort", "bitonic_topk:select",
+               "bitonic_topk:merge", "rerank_fused:wide")
+REFERENCE_LAUNCHES = {
+    "pair": (108, 73, 36, 140, 0, 72, 18, 45, 63, 0, 0),
+    "parts": (108, 108, 18, 90, 108, 36, 18, 81, 27, 0, 0),
+    "parts_slabs": (72, 81, 9, 63, 81, 27, 9, 54, 18, 0, 0),
+    "big_line": (45, 18, 9, 27, 18, 9, 0, 18, 27, 0, 0),
+    "big_perfect": (54, 18, 9, 27, 18, 9, 9, 27, 27, 0, 0),
+    "pair_wide": (27, 18, 9, 27, 0, 18, 0, 9, 18, 0, 9),
+    "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0),
+    "sift1b": (891, 396, 165, 561, 264, 330, 99, 396, 429, 66, 0),
+}
+_EXACT_1M = {"R@1": 0.9931640625, "R@10": 0.9931640625,
+             "top10_intersection": 0.99345703125}
+_REFINE_1M = dict(_EXACT_1M, top10_intersection=0.993359375)
+_LINE_1M = {"R@1": 0.1591796875, "R@10": 0.8115234375}
+
+
+def _modes(**by_mode):
+    return {f"{mode}_{key}": v for mode, metrics in by_mode.items()
+            for key, v in metrics.items()}
+
+
+REFERENCE_RECALL = {
+    "pair": _modes(exact=_EXACT_1M, refine=_REFINE_1M, line=dict(
+        _LINE_1M, top10_intersection=0.726953125)),
+    "parts": _modes(exact=_EXACT_1M, refine=_REFINE_1M, line=dict(
+        _LINE_1M, top10_intersection=0.72705078125)),
+    "parts_slabs": _modes(exact=_EXACT_1M, line={
+        "R@1": 0.16015625, "R@10": 0.810546875,
+        "top10_intersection": 0.72724609375}),
+    "big_line": _modes(big_line=dict(
+        _LINE_1M, top10_intersection=0.72685546875)),
+    "big_perfect": _modes(big_perfect=dict(
+        _EXACT_1M, top10_intersection=0.99326171875)),
+    "pair_wide": _modes(line={"R@1": 0.15625, "R@10": 0.80859375,
+                              "top10_intersection": 0.72685546875}),
+    "sift1b": _modes(
+        exact={"R@1": 0.9990234375, "R@10": 1.0,
+               "top10_intersection": 0.99990234375},
+        refine={"R@1": 1.0, "R@10": 1.0, "top10_intersection": 1.0},
+        big_perfect={"R@1": 1.0, "R@10": 1.0, "top10_intersection": 1.0},
+        **{m: {"R@1": 0.16015625, "R@10": 0.7724609375,
+               "top10_intersection": 0.6328125}
+           for m in ("line", "big_line")}),
+}
+for _label in ("pair", "parts", "parts_slabs"):
+    REFERENCE_RECALL[_label]["candidate_recall"] = 0.9931640625
+REFERENCE_RECALL["sift1b"]["candidate_recall"] = 1.0
 
 N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
 # The SIFT1B phase: 10M vectors (a cut of SIFT1B's 10^9 forced by the
@@ -369,10 +430,12 @@ def rerank_cases(torch, gen):
 
 
 def reduce_cases(torch, gen):
-    """Squares of uint8-range values, as the distance tables' per-part norms
-    give them: a query batch of 256 (p = 4, line_parts = 16), then
+    """Integer values of uint8 range, signed, as the distance tables' per-part
+    norms see them: a query batch of 256 (p = 4, line_parts = 16), then
     SIFT1B_CONFIG's encode, 65536 vectors a step (p = 4, line_parts = 32).
-    The exact re-rank's row sums are `gather_sqdist`'s."""
+    Each is summed in square mode (the tables' norms) and, squared
+    beforehand, in plain mode.  The exact re-rank's row sums are
+    `gather_sqdist`'s."""
     for name, rows, d, parts in (("part_norms", 256, 128, 4),
                                  ("line_part_norms", 256, 128, 16),
                                  ("sift1b_encode_part_norms", 65536, 128, 4),
@@ -380,7 +443,7 @@ def reduce_cases(torch, gen):
                                   32)):
         v = torch.randint(-255, 256, (rows, d), generator=gen,
                           device="cuda").to(torch.float32)
-        yield name, ((v * v).contiguous(), parts), (rows, d, parts)
+        yield name, (v, parts), (rows, d, parts)
 
 
 def lut_cases(torch, gen):
@@ -633,22 +696,42 @@ def check_kernels(torch):
                device_ms(torch, lambda: rr.rerank_plain(rows, q, compact)),
                None, b_ms, b_by, err, mode="compact" if compact else "wide")
 
-    for case, (x, parts), (b, d, _) in reduce_cases(torch, gen):
-        got = prim.segmented_reduce(x, parts)
-        want = prim.segmented_reduce_plain(x, parts)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        # sums of up to 128 squares below 2^16, added in another order
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-3):
-            raise SmokeFailure(f"segmented_reduce {case}: max abs error {err}")
-        b_ms, b_by = bound(b * d * 4 + b * parts * 4, b * d)
-        record("segmented_reduce", "pqt_tpu_torch/csrc/reduce.cu",
-               "pqt_tpu/ops/pallas/primitives.py:145",
-               f"{case} ({b},{d})->{parts}",
-               device_ms(torch, lambda: prim.segmented_reduce(x, parts)),
-               device_ms(torch, lambda: prim.segmented_reduce_plain(x, parts)),
-               device_ms(torch, lambda: x.view(b, parts, d // parts).sum(-1)),
-               b_ms, b_by, err)
+    for case, (v, parts), (b, d, _) in reduce_cases(torch, gen):
+        # plain mode on the squares (as the kernel was first timed), then
+        # square mode on the values beside the old route (x * x, then plain
+        # mode).  Integer terms below 2^16, sums below 2^24: exact in any
+        # order, equal to the bit
+        sq = (v * v).contiguous()
+        for square, x in ((False, sq), (True, v)):
+            plan = prim._reduce_plan(b * parts, d // parts, x.data_ptr())
+            want = prim.segmented_reduce_plain(x, parts, square)
+            got = prim.segmented_reduce(x, parts, square=square)
+            old = prim.segmented_reduce(v * v, parts) if square else want
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not (torch.equal(got, want) and torch.equal(old, want)):
+                raise SmokeFailure(f"segmented_reduce {case} square={square}: "
+                                   f"max abs error {err}")
+            del got, old, want
+            xv = x.view(b, parts, d // parts)
+            b_ms, b_by = bound(b * d * 4 + b * parts * 4,
+                               b * d * (2 if square else 1))
+            record("segmented_reduce", "pqt_tpu_torch/csrc/reduce.cu",
+                   "pqt_tpu/ops/pallas/primitives.py:145",
+                   f"{case} ({b},{d})->{parts} {plan.mode}"
+                   f"{' square' if square else ''}",
+                   device_ms(torch, lambda: prim.segmented_reduce(
+                       x, parts, square=square)),
+                   device_ms(torch, lambda: prim.segmented_reduce_plain(
+                       x, parts, square)),
+                   device_ms(torch, (lambda: torch.einsum("bps,bps->bp", xv,
+                                                          xv))
+                             if square else (lambda: xv.sum(-1))),
+                   b_ms, b_by, err, mode=plan.mode, square=square,
+                   **({"old_route_ms": device_ms(
+                       torch, lambda: prim.segmented_reduce(v * v, parts))}
+                      if square else {}))
+        del v, sq
 
     for case, (table, idx), (b, e) in lut_cases(torch, gen):
         got = ga.lut_gather(table, idx)
@@ -675,15 +758,20 @@ def check_kernels(torch):
         torch.cuda.empty_cache()
 
     for case, (tab, pos, span) in gather_cases(torch, gen):
+        # the plan's shape and every other `rows` of it: each held against
+        # the plain version, each timed
         b, k = pos.shape
-        got = ga.gather_rows(tab, pos, span)
+        row_bytes = tab.shape[1] * tab.element_size()
+        plan = ga._gather_plan(pos.numel(), row_bytes, span, tab.data_ptr())
+        others = [r for r in ga.GATHER_ROWS_CHOICES if r != plan.rows]
         want = ga.gather_rows_plain(tab, pos, span)
+        got = [ga.gather_rows(tab, pos, span)] + [
+            ga._gather_launch(tab, pos, span, r) for r in others]
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not all(torch.equal(g, want) for g in got):
             raise SmokeFailure(f"gather_rows {case}: differs from the plain "
                                "version")
         del got, want
-        row_bytes = tab.shape[1] * tab.element_size()
         # one PyTorch call on the same rows: the positions of every row
         # gathered are made beforehand for the slab case
         full = (pos[..., None] + torch.arange(span, device="cuda",
@@ -695,13 +783,18 @@ def check_kernels(torch):
         record("gather_rows", "pqt_tpu_torch/csrc/gather.cu",
                "benchmarks/micro_gather2.py:165",
                f"{case} ({tab.shape[0]},{tab.shape[1]}) {tab.dtype} at "
-               f"({b},{k}) span {span}",
+               f"({b},{k}) span {span} {plan.mode} {plan.unit} B x "
+               f"{plan.units}",
                device_ms(torch, lambda: ga.gather_rows(tab, pos, span)),
                device_ms(torch, lambda: ga.gather_rows_plain(tab, pos, span)),
                device_ms(torch, lambda: tab[full]), b_ms, b_by, 0.0,
+               mode=plan.mode,
                sector_bound_ms=bound(b * k * 4 + b * k * span * row_bytes
                                      + sectors_touched(torch, full, row_bytes)
-                                     * 32, 0)[0])
+                                     * 32, 0)[0],
+               other_modes={f"rows {r}": device_ms(
+                   torch, lambda: ga._gather_launch(tab, pos, span, r))
+                   for r in others})
         del tab, pos, full
 
     for case, (tab, pos, q) in sqdist_cases(torch, gen):
@@ -919,6 +1012,66 @@ def sqdist_hard_cases(torch, gen):
         queries(8, 128, True), False
 
 
+def reduce_hard_cases(torch, gen):
+    """Segment sums that are easiest to get wrong: (name, x, parts, square,
+    exact).  Every segment length of 1 to 130 in both modes, on an input
+    that starts on a 16-byte boundary (vec4 mode where seg % 4 == 0) and one
+    4 bytes past it (scalar mode), with integer values (sums below 2^24,
+    equal to the bit); then fractional signed values (within 1e-5 of the
+    sum of the terms' magnitudes), ragged
+    row counts and segments longer than a warp's loads."""
+    for seg in range(1, 131):
+        parts, b = 1 + seg % 3, 1 + seg % 7
+        flat = torch.randint(-255, 256, (b * parts * seg + 1,), generator=gen,
+                             device="cuda").to(torch.float32)
+        for off in (0, 1):
+            x = flat[off:off + b * parts * seg].view(b, parts * seg)
+            for square in (False, True):
+                yield f"seg {seg} offset {4 * off} B", x, parts, square, True
+    frac = torch.randn((37, 4 * 96), generator=gen, device="cuda") * 100
+    for parts in (1, 3, 4, 32, 96):
+        for square in (False, True):
+            yield "fractional", frac, parts, square, False
+    long_rows = torch.randint(0, 9, (3, 3000), generator=gen,
+                              device="cuda").to(torch.float32)
+    for parts in (1, 3):
+        yield "segments of 3000 and 1000", long_rows, parts, True, True
+
+
+def gather_hard_cases(torch, gen):
+    """Row gathers that are easiest to get wrong: (name, tab, pos, span).
+    72-byte payload rows, 8-byte extent rows, 128-byte vectors, rows of
+    1, 3, 5 and 13 bytes and of 3 int16, in spans of 1, 8 and 32, from
+    tables that start on a 16-byte boundary or 4 or 8 bytes past it, with
+    rows 0 and N - span among the positions, and ragged position counts."""
+    n = 3000
+    for dtype, width in ((torch.int32, 18), (torch.int32, 2),
+                         (torch.uint8, 128), (torch.uint8, 1),
+                         (torch.uint8, 3), (torch.uint8, 5),
+                         (torch.uint8, 13), (torch.int16, 3)):
+        es = torch.tensor([], dtype=dtype).element_size()
+        flat = torch.randint(-99 if dtype != torch.uint8 else 0, 99,
+                             (n * width + 16 // es,), generator=gen,
+                             device="cuda").to(dtype)
+        for off_bytes in (0, 4, 8):
+            if off_bytes % es:
+                continue
+            tab = flat[off_bytes // es:off_bytes // es + n * width].view(
+                n, width)
+            for span in (1, 8, 32):
+                pos = torch.randint(0, n - span + 1, (3, 77), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                pos[0, :2] = torch.tensor([0, n - span])
+                pos[2, -1] = n - span
+                yield (f"{width} x {dtype} offset {off_bytes} B", tab, pos,
+                       span)
+    tab = torch.randint(0, 99, (n, 18), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for k in range(1, 10):
+        yield f"{k} positions", tab, torch.randint(
+            0, n, (k,), generator=gen, device="cuda", dtype=torch.int32), 1
+
+
 def check_other_paths(torch):
     """Kernel paths beyond the query paths' shapes, for correctness only
     (not timed), each in the mode the wrapper picks and in every mode that
@@ -927,10 +1080,11 @@ def check_other_paths(torch):
     summing to 2^31 - 1, ragged widths, an input off a 16-byte boundary,
     50 back-to-back onepass scans); lookups of 1 to 9 elements, of a ragged
     shape, from indices off a 16-byte boundary (4097 of them) and from a
-    128 KB table; segments shorter than a warp and of odd lengths; row
-    gathers in every copy unit (rows of 3, 6 and 12
-    bytes, a table that starts off a 16-byte boundary, a span of 5); and
-    the exact distances in every load unit, past the query slice a lane
+    128 KB table; segment sums of every length from 1 to 130 in both
+    modes, aligned (vec4) and 4 bytes off (scalar) (reduce_hard_cases);
+    row gathers in every unit, span and `rows`, from
+    tables off a 16-byte boundary, and rows outside the table (zeros;
+    gather_hard_cases); and the exact distances in every load unit, past the query slice a lane
     keeps in registers, at the table's last row and its first, with
     fractional queries and rows, and a position outside the table (NaN)."""
     from pqt_tpu_torch.ops.cuda import gather as ga
@@ -975,29 +1129,50 @@ def check_other_paths(torch):
             raise SmokeFailure(f"block_scan: back-to-back onepass scan {i} "
                                f"{tuple(x.shape)} differs")
     del runs
-    for b, d, parts in ((5, 21, 3), (3, 3, 3), (2, 1000, 1), (7, 48, 3)):
-        x = torch.randint(0, 9, (b, d), generator=gen,
-                          device="cuda").to(torch.float32)
-        if not torch.equal(prim.segmented_reduce(x, parts),
-                           prim.segmented_reduce_plain(x, parts)):
-            raise SmokeFailure(f"segmented_reduce ({b},{d})->{parts} "
-                               "differs")
+    for name, x, parts, square, exact in reduce_hard_cases(torch, gen):
+        b, d = x.shape
+        want = prim.segmented_reduce_plain(x, parts, square)
+        got = prim.segmented_reduce(x, parts, square=square)
+        # fractional sums within 1e-5 of the sum of the terms' magnitudes
+        # (signed terms cancel, so a relative tolerance on the sum alone
+        # says nothing of the order of the additions)
+        tol = 1e-5 * prim.segmented_reduce_plain(x.abs(), parts, square)
+        ok = (torch.equal(got, want) if exact else
+              bool(((got - want).abs() <= tol).all()))
+        if not ok:
+            raise SmokeFailure(f"segmented_reduce {name} ({b},{d})->{parts} "
+                               f"square={square} differs")
     for name, table, idx in lut_hard_cases(torch, gen):
         if not torch.equal(ga.lut_gather(table, idx),
                            ga.lut_gather_plain(table, idx)):
             raise SmokeFailure(f"lut_gather {name} differs")
-    for dtype, w, offset, span in ((torch.uint8, 3, 0, 1),
-                                   (torch.int16, 3, 0, 5),
-                                   (torch.int32, 3, 0, 2),
-                                   (torch.int32, 10, 1, 1)):
-        tab = torch.randint(-99, 99, (500, w), generator=gen,
-                            device="cuda").to(dtype)[offset:]
-        pos = torch.randint(0, tab.shape[0] - span + 1, (4, 9),
-                            generator=gen, device="cuda", dtype=torch.int32)
-        if not torch.equal(ga.gather_rows(tab, pos, span),
-                           ga.gather_rows_plain(tab, pos, span)):
-            raise SmokeFailure(f"gather_rows {dtype} width {w} offset "
-                               f"{offset} span {span} differs")
+    for name, tab, pos, span in gather_hard_cases(torch, gen):
+        want = ga.gather_rows_plain(tab, pos, span)
+        got = {"default": ga.gather_rows(tab, pos, span)}
+        got.update({f"rows {r}": ga._gather_launch(tab, pos, span, r)
+                    for r in ga.GATHER_ROWS_CHOICES})
+        for mode, out in got.items():
+            if not torch.equal(out, want):
+                raise SmokeFailure(f"gather_rows {name} {tuple(tab.shape)} "
+                                   f"{tab.dtype} span {span} ({mode}) "
+                                   "differs")
+    # rows outside the table read nothing and yield zeros: positions before
+    # it, at its last rows (a slab running past the end) and past it
+    tab = torch.randint(1, 99, (50, 18), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for span in (1, 3, 32):
+        pos = torch.tensor([[-40, -1, 0, 48, 49, 50, 10 ** 9]],
+                           dtype=torch.int32, device="cuda")
+        rows = pos[..., None].long() + torch.arange(span, device="cuda")
+        inside = (rows >= 0) & (rows < 50)
+        want = torch.where(inside[..., None], tab[rows.clamp(0, 49)], 0)
+        if span == 1:
+            want = want[..., 0, :]
+        for r in ga.GATHER_ROWS_CHOICES:
+            got = ga._gather_launch(tab, pos, span, r)
+            if not torch.equal(got, want):
+                raise SmokeFailure(f"gather_rows: rows outside the table, "
+                                   f"span {span}, rows {r}, differ")
     for name, tab, pos, q, exact in sqdist_hard_cases(torch, gen):
         got = prim.gather_sqdist(tab, pos, q)
         want = prim.gather_sqdist_plain(tab, pos, q)
@@ -1057,6 +1232,24 @@ def read_launches(label, required, modes=()):
         if launches[name] == 0:
             raise SmokeFailure(f"{name} was never launched by the {label}")
     return launches
+
+
+def differs_from_reference(label, launches, recall=None):
+    """What of a path's launch counts (and recall) differs from the
+    reference run's; prints the verdict."""
+    want = dict(zip(LAUNCH_KEYS, REFERENCE_LAUNCHES[label]))
+    diffs = [f"{label} launches of {k}: {launches.get(k)} (reference {v})"
+             for k, v in want.items() if launches.get(k) != v]
+    if recall is not None:
+        ref = REFERENCE_RECALL[label]
+        diffs += [f"{label} {k}: {recall.get(k)} (reference {v})"
+                  for k, v in ref.items() if recall.get(k) != v]
+        diffs += [f"{label} {k}: not in the reference run" for k in recall
+                  if k not in ref]
+    print(f"{label}: launch counts{' and recall' if recall else ''} "
+          f"{'differ from' if diffs else 'equal'} the reference run's"
+          + (f": {diffs}" if diffs else ""), flush=True)
+    return diffs
 
 
 def query_modes(P, cfg, tree, db, names):
@@ -1228,8 +1421,8 @@ def query_paths(torch, P):
 
     _, gt = brute_force_knn(qd, torch.as_tensor(data, device="cuda"), K)
     gt = gt.cpu().numpy()
-    failed, summary = [], {"train_s": train_s, "build_s": build_s,
-                           "paths": {}}
+    failed, changed = [], []
+    summary = {"train_s": train_s, "build_s": build_s, "paths": {}}
     for label, path in paths.items():
         c = path["cfg"]
         metrics = path_recall(torch, label, path["outputs"], gt)
@@ -1241,6 +1434,7 @@ def query_paths(torch, P):
             thresholds = {"line_top10_intersection": round(ref - 0.01, 4)}
         failed += report(label, metrics, path["serving"], *path["reference"],
                          thresholds)
+        changed += differs_from_reference(label, path["launches"], metrics)
         path["recall"] = metrics
         profiles = {m: profile_batch(
             torch, query_modes(P, c, tree, path["db"], (m,))[m], qd[:BATCH])
@@ -1257,6 +1451,9 @@ def query_paths(torch, P):
             "profiles": profiles}
     if failed:
         raise SmokeFailure(f"recall below threshold: {failed}")
+    if changed:
+        raise SmokeFailure(f"launch counts or recall differ from the "
+                           f"reference run's: {changed}")
     return summary
 
 
@@ -1397,6 +1594,8 @@ def sift1b_phase(torch, P, workdir):
                     {"big_line_R@10": metrics["line_R@10"]},
                     "reference (the pair path's line_R@10 for BIG line)",
                     floors)
+    changed = (differs_from_reference("sift1b_build", build_launches)
+               + differs_from_reference("sift1b", path["launches"], metrics))
     profiles = {m: profile_batch(torch, modes[m], qd[:BATCH_1B])
                 for m in ("exact", "big_line")}
     for m, pr in profiles.items():
@@ -1410,6 +1609,9 @@ def sift1b_phase(torch, P, workdir):
           f"{rss[0]:.2f} GiB (peak {rss[1]:.2f})", flush=True)
     if failed:
         raise SmokeFailure(f"sift1b recall below its floor: {failed}")
+    if changed:
+        raise SmokeFailure(f"sift1b launch counts or recall differ from "
+                           f"the reference run's: {changed}")
     return {"n": N_1B, "cut": "10M of SIFT1B's 10^9 (the smoke's run time)",
             "times": times, "nonempty_bins": nonempty, "largest_bin": largest,
             "peak_device_gib": peak, "loaded_device_gib": loaded_gib,
@@ -1476,9 +1678,9 @@ def main(json_path=None):
 
     check_other_paths(torch)
     print("other kernel paths (hard top-k rows in every mode, multi-row long "
-          "scans, ragged scan widths, short and odd segments, ragged "
-          "lookups, every row-copy unit): equal to their plain versions",
-          flush=True)
+          "scans, ragged scan widths, segments of 1 to 130 in both modes, "
+          "ragged lookups, row gathers in every unit, span and rows): equal "
+          "to their plain versions", flush=True)
 
     summary = query_paths(torch, P)
     peak_before = torch.cuda.max_memory_allocated()

@@ -1,11 +1,19 @@
 #!/usr/bin/env python3
 """Time kernel B (block_scan) in each of its modes along a ladder of row
-lengths, and kernel E (lut_gather), against yardsticks, on one CUDA card:
-the source of the cut between B's modes (SCAN_* in
-pqt_tpu_torch/ops/cuda/primitives.py).
+lengths, kernel E (lut_gather), and kernel H (gather_rows) along a ladder
+of random reads, against yardsticks, on one CUDA card: the source of the
+cut between B's modes (SCAN_* in pqt_tpu_torch/ops/cuda/primitives.py) and
+of H's practical bound.
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
-                                   [--only scan|lut] [--cases NAME,...]
+                                   [--only scan|lut|gather] [--cases NAME,...]
+
+The random-read ladder (`--only gather`) gathers rows of 8, 72 and 128
+bytes (the extent, SIFT1B payload and vector rows) at 2M and 512k uniform
+positions from tables of 32 MiB, 256 MiB, 1 GiB and 4 GiB, with every
+`rows` of H's plan and `tab[pos]` beside it, and reports rows/s and 32-byte
+sector reads/s: the rate the card reaches on random reads at each table
+size, whatever the loads in flight.
 
 Every variant is first held against the plain PyTorch version on the same
 input (equal to the bit, or the run fails), then timed by its device time
@@ -15,9 +23,10 @@ same bytes for B; table[idx], the sectors' bound and, at a 2 GiB table,
 the same lookups in address order for E.  Prints one line per variant and
 writes them all to PATH as JSON, with the card's name and power limit.
 
-Run from the root of an older checkout whose block_scan has no plan (with
-this script and chip_smoke.py copied there), it times the wrappers as
-they are at the same shapes: the baseline of a comparison in one call.
+Run from the root of an older checkout whose block_scan or gather_rows has
+no plan (with this script and chip_smoke.py copied there), it times the
+wrappers as they are at the same shapes: the baseline of a comparison in
+one call.
 """
 
 import argparse
@@ -135,6 +144,70 @@ def sweep_lut(torch, emit, cases=None):
     torch.cuda.empty_cache()
 
 
+# (row bytes, dtype, width), table sizes in bytes, positions per gather
+LADDER_ROWS = ((8, "int32", 2), (72, "int32", 18), (128, "uint8", 128))
+LADDER_TABLES = (32 << 20, 256 << 20, 1 << 30, 4 << 30)
+LADDER_POSITIONS = (2 << 20, 512 << 10)
+
+
+def sweep_gather(torch, emit, cases=None):
+    from pqt_tpu_torch.ops.cuda import gather as ga
+    planned = hasattr(ga, "_gather_plan")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    buf = torch.randint(0, 256, (LADDER_TABLES[-1],), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    for row_bytes, dtype, width in LADDER_ROWS:
+        for size in LADDER_TABLES:
+            n_rows = size // row_bytes
+            tab = buf[:n_rows * row_bytes].view(getattr(torch, dtype)).view(
+                n_rows, width)
+            for n_pos in LADDER_POSITIONS:
+                name = f"{row_bytes} B rows, {size >> 20} MiB, {n_pos}"
+                if cases and name not in cases:
+                    continue
+                pos = torch.randint(0, n_rows, (n_pos,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                start = pos.long() * row_bytes
+                reads = int(((start + row_bytes - 1) // 32 - start // 32
+                             + 1).sum())
+                touched = torch.unique(pos)
+                case = {"kernel": "gather_rows", "case": name,
+                        "row_bytes": row_bytes, "table_bytes": n_rows *
+                        row_bytes, "positions": n_pos, "sector_reads": reads,
+                        "bound_ms": smoke.bound(
+                            n_pos * (4 + row_bytes)
+                            + touched.numel() * row_bytes, 0)[0],
+                        "sector_bound_ms": smoke.bound(
+                            n_pos * (4 + row_bytes) + 32 * smoke.
+                            sectors_touched(torch, pos, row_bytes), 0)[0],
+                        "index_ms": smoke.device_ms(torch, lambda: tab[pos])}
+                want = ga.gather_rows_plain(tab, pos)
+                variants = [("wrapper", None)]
+                if planned:
+                    plan = ga._gather_plan(n_pos, row_bytes, 1,
+                                           tab.data_ptr())
+                    case["plan"] = plan._asdict()
+                    variants += [(f"rows {r}", r)
+                                 for r in ga.GATHER_ROWS_CHOICES
+                                 if r != plan.rows]
+                for label, rows in variants:
+                    def run(rows=rows):
+                        if rows is None:
+                            return ga.gather_rows(tab, pos)
+                        return ga._gather_launch(tab, pos, 1, rows)
+                    if not torch.equal(run(), want):
+                        raise smoke.SmokeFailure(
+                            f"gather_rows {name} {label} differs")
+                    ms = smoke.device_ms(torch, run)
+                    emit(dict(case, variant=label, ms=ms,
+                              rows_per_s=n_pos / ms * 1e3,
+                              sector_reads_per_s=reads / ms * 1e3))
+                del pos, start, touched, want
+            del tab
+    del buf
+    torch.cuda.empty_cache()
+
+
 def main(json_path, only, cases):
     import torch
     if not torch.cuda.is_available():
@@ -155,7 +228,11 @@ def main(json_path, only, cases):
                  if "cumsum_ms" in r
                  else f"table[idx] {r['index_ms']:.4f}  sectors' bound "
                       f"{r['sector_bound_ms']:.4f}")
-        print(f"{r['kernel']:10s} {r['case']:24s} {r['variant']:28s} ms "
+        if "rows_per_s" in r:
+            extra += (f"  {r['rows_per_s'] / 1e9:.2f} G rows/s  "
+                      f"{r['sector_reads_per_s'] / 1e9:.2f} G sector "
+                      "reads/s")
+        print(f"{r['kernel']:10s} {r['case']:32s} {r['variant']:28s} ms "
               f"{r['ms']:.4f}  {extra}  bound {r['bound_ms']:.4f}",
               flush=True)
 
@@ -163,6 +240,8 @@ def main(json_path, only, cases):
         sweep_scan(torch, emit, cases)
     if only in (None, "lut"):
         sweep_lut(torch, emit, cases)
+    if only in (None, "gather"):
+        sweep_gather(torch, emit, cases)
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
@@ -173,7 +252,7 @@ def main(json_path, only, cases):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH")
-    ap.add_argument("--only", choices=("scan", "lut"))
+    ap.add_argument("--only", choices=("scan", "lut", "gather"))
     ap.add_argument("--cases", help="comma-separated case names to run")
     args = ap.parse_args()
     try:

@@ -63,6 +63,12 @@ SCAN_TILE_VECS = 8
 SCAN_TILES_MAX = (1 << 31) - 1
 # Onepass status words carry a 30-bit epoch (csrc/scan.cu).
 SCAN_EPOCH_MAX = (1 << 30) - 1
+# Kernel D's launch shape (csrc/reduce.cu): vec4 mode (16-byte loads) keeps
+# REDUCE_ROWS segments in flight a group of lanes (fixed in csrc/reduce.cu).
+# Segment indices are 32-bit.
+REDUCE_THREADS = 256
+REDUCE_ROWS = 4
+REDUCE_SEGMENTS_MAX = (1 << 31) - 1 - (1 << 20)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -339,15 +345,55 @@ def block_scan(x: torch.Tensor, exclusive: bool = False):
 block_scan.launches = 0
 
 
-def segmented_reduce_plain(x: torch.Tensor, parts: int) -> torch.Tensor:
-    """Per-row sums over `parts` equal contiguous segments."""
+def segmented_reduce_plain(x: torch.Tensor, parts: int,
+                           square: bool = False) -> torch.Tensor:
+    """Per-row sums over `parts` equal contiguous segments (of x * x with
+    `square`)."""
+    if square:
+        return segmented_reduce_plain(x * x, parts)
     B, D = x.shape
     return x.reshape(B, parts, D // parts).sum(-1)
 
 
-def segmented_reduce(x: torch.Tensor, parts: int) -> torch.Tensor:
+class ReducePlan(NamedTuple):
+    """How kernel D runs a sum over n_segments segments of seg elements."""
+    mode: str     # "vec4" (16-byte loads) or "scalar" (4-byte loads)
+    group: int    # lanes that sum one segment
+    rows: int     # segments a group has in flight (1 in scalar mode)
+    blocks: int   # blocks of REDUCE_THREADS threads
+
+
+def _reduce_plan(n_segments: int, seg: int, addr: int) -> ReducePlan:
+    """Kernel D's mode and launch shape; `addr` is the input's address.
+    vec4 mode where seg % 4 == 0 and the input is 16-byte aligned, a group
+    of the smallest power of two >= seg / 4 lanes (at most 32) a segment
+    and REDUCE_ROWS segments in flight a group; scalar mode otherwise, a
+    group of the largest power of two <= min(seg, 32) lanes a segment.
+    Raises ValueError for an empty shape, NotImplementedError beyond
+    REDUCE_SEGMENTS_MAX segments."""
+    if n_segments < 1 or seg < 1:
+        raise ValueError(f"segmented_reduce: empty shape ({n_segments} "
+                         f"segments of {seg})")
+    if n_segments > REDUCE_SEGMENTS_MAX:
+        raise NotImplementedError(
+            f"segmented_reduce: {n_segments} segments, above "
+            f"{REDUCE_SEGMENTS_MAX}")
+    if seg % 4 == 0 and addr % 16 == 0:
+        group = min(32, _pow2_at_least(seg // 4)) if seg > 4 else 1
+        per_block = REDUCE_THREADS // group * REDUCE_ROWS
+        return ReducePlan("vec4", group, REDUCE_ROWS,
+                          -(-n_segments // per_block))
+    group = 1 << (min(seg, 32).bit_length() - 1)
+    return ReducePlan("scalar", group, 1,
+                      -(-n_segments // (REDUCE_THREADS // group)))
+
+
+def segmented_reduce(x: torch.Tensor, parts: int,
+                     square: bool = False) -> torch.Tensor:
     """(B, D) float32 -> (B, parts) float32: the sum of each of the `parts`
-    equal contiguous segments of every row (D % parts == 0, any D)."""
+    equal contiguous segments of every row (D % parts == 0, any D); with
+    `square`, the sums of x * x, x read once.  On the card the kernel runs
+    in the mode `_reduce_plan` picks."""
     B, D = x.shape
     if parts < 1 or D % parts:
         raise ValueError(f"segmented_reduce: D={D} is not a multiple of "
@@ -356,15 +402,18 @@ def segmented_reduce(x: torch.Tensor, parts: int) -> torch.Tensor:
         raise ValueError("segmented_reduce: expected a contiguous float32 "
                          f"tensor, got {x.dtype}")
     if x.device.type == "cpu":
-        return segmented_reduce_plain(x, parts)
+        return segmented_reduce_plain(x, parts, square)
     _check_input(x, torch.float32, "segmented_reduce")
     if B == 0 or D == 0:
         return torch.zeros((B, parts), dtype=torch.float32, device=x.device)
     out = torch.empty((B, parts), dtype=torch.float32, device=x.device)
+    plan = _reduce_plan(B * parts, D // parts, x.data_ptr())
     lib = build.load("reduce")
     with torch.cuda.device(x.device):
         err = lib.pqt_segmented_reduce(_ptr(x), B * parts, D // parts,
-                                       _ptr(out), _stream(x))
+                                       int(square), int(plan.mode == "vec4"),
+                                       plan.group, plan.blocks, _ptr(out),
+                                       _stream(x))
     build.check(err, "segmented_reduce")
     segmented_reduce.launches += 1
     return out

@@ -4,8 +4,9 @@ Port of pqt_tpu/ops/distance.py.  Every table is one matrix product plus
 norms, ||x - c||^2 = ||x||^2 + ||c||^2 - 2 <x, c>, in full float32: the
 identity loses too much in TF32 (k-means splits and ground truth at SIFT
 scale, distances ~1e5), which is why the package turns TF32 off at import.
-The per-part norms of the query side are segment sums (kernel D,
-`segmented_reduce`).
+The per-part norms of the query side are segment sums of squares (kernel D,
+`segmented_reduce` in square mode: x read once, squared on load, as XLA
+fuses `jnp.sum(x ** 2, -1)` in the JAX package).
 """
 
 from __future__ import annotations
@@ -33,11 +34,11 @@ def part_sqdist_tables(x: torch.Tensor,
     p, k, vl = codebook.shape
     if d != p * vl:
         raise ValueError(f"dim {d} != p*vl = {p}*{vl}")
-    x = x.to(torch.float32)
+    x = x.to(torch.float32).contiguous()
     xp = x.reshape(n, p, vl)
     cb = codebook.to(torch.float32)
     dot = torch.einsum("npv,pkv->npk", xp, cb)
-    xn = segmented_reduce(x * x, p)
+    xn = segmented_reduce(x, p, square=True)
     cn = torch.sum(cb * cb, dim=-1)
     return torch.clamp_min(xn[:, :, None] + cn[None, :, :] - 2.0 * dot, 0.0)
 
@@ -49,11 +50,11 @@ def subpart_sqdist_tables(x: torch.Tensor, centroids: torch.Tensor,
     n, d = x.shape
     c1 = centroids.shape[0]
     lvl = d // line_parts
-    x = x.to(torch.float32)
+    x = x.to(torch.float32).contiguous()
     xp = x.reshape(n, line_parts, lvl)
     cp = centroids.to(torch.float32).reshape(c1, line_parts, lvl)
     dot = torch.einsum("nlv,clv->nlc", xp, cp)
-    xn = segmented_reduce(x * x, line_parts)
+    xn = segmented_reduce(x, line_parts, square=True)
     cn = torch.sum(cp * cp, dim=-1)
     return torch.clamp_min(xn[:, :, None] + cn.T[None, :, :] - 2.0 * dot, 0.0)
 

@@ -213,9 +213,9 @@ def test_exact_entry_points_route_through_gather_sqdist(route_db, entry,
         calls.append(tab)
         return gather_sqdist(tab, pos, qq)
 
-    def reduce_recorder(x, n_parts):
+    def reduce_recorder(x, n_parts, square=False):
         parts.append(n_parts)
-        return prim.segmented_reduce(x, n_parts)
+        return prim.segmented_reduce(x, n_parts, square=square)
 
     def gather_recorder(fn):
         def wrapped(tab, *args, **kw):
