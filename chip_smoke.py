@@ -26,8 +26,9 @@ Phases (any failure exits non-zero before the last line is printed):
      printed), the top-k with kernel A's merge mode (32768 and 65536 kept
      of 65536-wide rows, also timed beside torch.sort); top-k and prefix
      sums run in the mode their wrapper picks and in every other mode that
-     takes the shape, row gathers in every `rows` of their plan (all held
-     and timed), the lookups and row gathers with
+     takes the shape (all held and timed), the segment sums of the encode
+     also over a rotating set of inputs larger than L2 (cold, beside the
+     warm repeats), the lookups and row gathers with
      a sectors' bound beside the byte bound, the exact distances
      (`gather_sqdist`, kernels H and D fused) beside the five launches they
      replaced (H's rows, the float copy, the difference, the square and
@@ -85,6 +86,9 @@ import numpy as np
 # operations/s, for each kernel's least possible time.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# bytes a rotating set of inputs spans, five times the H100's 50 MB L2: each
+# call then reads an input that was last read 200 MB of traffic earlier
+COLD_SET_BYTES = 256 << 20
 
 # Round-5 recall of the JAX package on the same fixture and budget
 # (BENCH_r05.json); recall depends on the algorithm, not on the chip.
@@ -265,6 +269,18 @@ def device_ms(torch, fn, reps=20, warmup=3, attempts=4):
     end.synchronize()
     ms = start.elapsed_time(end) / reps
     EVENT_TIMED.append(ms)
+    return ms
+
+
+def cold_ms(torch, fn, x):
+    """device_ms of fn over a rotating set of copies of x that together span
+    COLD_SET_BYTES, so every call reads its input from HBM and not from L2
+    (device_ms alone repeats fn on one input, which stays in L2)."""
+    copies = [x.clone() for _ in range(-(-COLD_SET_BYTES // (
+        x.numel() * x.element_size())))]
+    turn = iter(range(1 << 30))
+    ms = device_ms(torch, lambda: fn(copies[next(turn) % len(copies)]))
+    del copies
     return ms
 
 
@@ -700,7 +716,10 @@ def check_kernels(torch):
         # plain mode on the squares (as the kernel was first timed), then
         # square mode on the values beside the old route (x * x, then plain
         # mode).  Integer terms below 2^16, sums below 2^24: exact in any
-        # order, equal to the bit
+        # order, equal to the bit.  The encode's 32 MB inputs are timed warm
+        # (repeats on one input, which stays in L2) and cold (cold_ms).  The
+        # one library call for square mode, einsum, goes by a batched matmul
+        # (a slow route); plain mode's sum(-1) is the fair yardstick
         sq = (v * v).contiguous()
         for square, x in ((False, sq), (True, v)):
             plan = prim._reduce_plan(b * parts, d // parts, x.data_ptr())
@@ -714,6 +733,19 @@ def check_kernels(torch):
                                    f"max abs error {err}")
             del got, old, want
             xv = x.view(b, parts, d // parts)
+            cold = {}
+            if b * d * 4 > COLD_SET_BYTES // 16:
+                # the library call cold in plain mode; the old route in square
+                cold["cold_ms"] = cold_ms(
+                    torch, lambda t: prim.segmented_reduce(t, parts,
+                                                           square=square), x)
+                if square:
+                    cold["cold_old_route_ms"] = cold_ms(
+                        torch, lambda t: prim.segmented_reduce(t * t, parts),
+                        x)
+                else:
+                    cold["cold_library_ms"] = cold_ms(
+                        torch, lambda t: t.view(b, parts, -1).sum(-1), x)
             b_ms, b_by = bound(b * d * 4 + b * parts * 4,
                                b * d * (2 if square else 1))
             record("segmented_reduce", "pqt_tpu_torch/csrc/reduce.cu",
@@ -727,7 +759,7 @@ def check_kernels(torch):
                    device_ms(torch, (lambda: torch.einsum("bps,bps->bp", xv,
                                                           xv))
                              if square else (lambda: xv.sum(-1))),
-                   b_ms, b_by, err, mode=plan.mode, square=square,
+                   b_ms, b_by, err, mode=plan.mode, square=square, **cold,
                    **({"old_route_ms": device_ms(
                        torch, lambda: prim.segmented_reduce(v * v, parts))}
                       if square else {}))
@@ -758,17 +790,13 @@ def check_kernels(torch):
         torch.cuda.empty_cache()
 
     for case, (tab, pos, span) in gather_cases(torch, gen):
-        # the plan's shape and every other `rows` of it: each held against
-        # the plain version, each timed
         b, k = pos.shape
         row_bytes = tab.shape[1] * tab.element_size()
         plan = ga._gather_plan(pos.numel(), row_bytes, span, tab.data_ptr())
-        others = [r for r in ga.GATHER_ROWS_CHOICES if r != plan.rows]
         want = ga.gather_rows_plain(tab, pos, span)
-        got = [ga.gather_rows(tab, pos, span)] + [
-            ga._gather_launch(tab, pos, span, r) for r in others]
+        got = ga.gather_rows(tab, pos, span)
         torch.cuda.synchronize()
-        if not all(torch.equal(g, want) for g in got):
+        if not torch.equal(got, want):
             raise SmokeFailure(f"gather_rows {case}: differs from the plain "
                                "version")
         del got, want
@@ -791,10 +819,7 @@ def check_kernels(torch):
                mode=plan.mode,
                sector_bound_ms=bound(b * k * 4 + b * k * span * row_bytes
                                      + sectors_touched(torch, full, row_bytes)
-                                     * 32, 0)[0],
-               other_modes={f"rows {r}": device_ms(
-                   torch, lambda: ga._gather_launch(tab, pos, span, r))
-                   for r in others})
+                                     * 32, 0)[0])
         del tab, pos, full
 
     for case, (tab, pos, q) in sqdist_cases(torch, gen):
@@ -1040,12 +1065,14 @@ def reduce_hard_cases(torch, gen):
 
 def gather_hard_cases(torch, gen):
     """Row gathers that are easiest to get wrong: (name, tab, pos, span).
-    72-byte payload rows, 8-byte extent rows, 128-byte vectors, rows of
-    1, 3, 5 and 13 bytes and of 3 int16, in spans of 1, 8 and 32, from
-    tables that start on a 16-byte boundary or 4 or 8 bytes past it, with
+    72-byte payload rows, 40-byte SIFT1M payload rows, 8-byte extent rows,
+    128-byte vectors, rows of 1, 3, 5 and 13 bytes, of 3 int16 and of 3
+    int32, in spans of 1, 2, 5, 8 and 32, from tables that start on a
+    16-byte boundary or 4 or 8 bytes past it, with
     rows 0 and N - span among the positions, and ragged position counts."""
     n = 3000
-    for dtype, width in ((torch.int32, 18), (torch.int32, 2),
+    for dtype, width in ((torch.int32, 18), (torch.int32, 10),
+                         (torch.int32, 2), (torch.int32, 3),
                          (torch.uint8, 128), (torch.uint8, 1),
                          (torch.uint8, 3), (torch.uint8, 5),
                          (torch.uint8, 13), (torch.int16, 3)):
@@ -1058,7 +1085,7 @@ def gather_hard_cases(torch, gen):
                 continue
             tab = flat[off_bytes // es:off_bytes // es + n * width].view(
                 n, width)
-            for span in (1, 8, 32):
+            for span in (1, 2, 5, 8, 32):
                 pos = torch.randint(0, n - span + 1, (3, 77), generator=gen,
                                     device="cuda", dtype=torch.int32)
                 pos[0, :2] = torch.tensor([0, n - span])
@@ -1082,11 +1109,11 @@ def check_other_paths(torch):
     shape, from indices off a 16-byte boundary (4097 of them) and from a
     128 KB table; segment sums of every length from 1 to 130 in both
     modes, aligned (vec4) and 4 bytes off (scalar) (reduce_hard_cases);
-    row gathers in every unit, span and `rows`, from
-    tables off a 16-byte boundary, and rows outside the table (zeros;
-    gather_hard_cases); and the exact distances in every load unit, past the query slice a lane
-    keeps in registers, at the table's last row and its first, with
-    fractional queries and rows, and a position outside the table (NaN)."""
+    row gathers in every unit and span, from tables off a 16-byte boundary,
+    and rows outside the table (zeros; gather_hard_cases); and the exact
+    distances in every load unit, past the query slice a lane keeps in
+    registers, at the table's last row and its first, with fractional
+    queries and rows, and a position outside the table (NaN)."""
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
 
@@ -1147,15 +1174,10 @@ def check_other_paths(torch):
                            ga.lut_gather_plain(table, idx)):
             raise SmokeFailure(f"lut_gather {name} differs")
     for name, tab, pos, span in gather_hard_cases(torch, gen):
-        want = ga.gather_rows_plain(tab, pos, span)
-        got = {"default": ga.gather_rows(tab, pos, span)}
-        got.update({f"rows {r}": ga._gather_launch(tab, pos, span, r)
-                    for r in ga.GATHER_ROWS_CHOICES})
-        for mode, out in got.items():
-            if not torch.equal(out, want):
-                raise SmokeFailure(f"gather_rows {name} {tuple(tab.shape)} "
-                                   f"{tab.dtype} span {span} ({mode}) "
-                                   "differs")
+        if not torch.equal(ga.gather_rows(tab, pos, span),
+                           ga.gather_rows_plain(tab, pos, span)):
+            raise SmokeFailure(f"gather_rows {name} {tuple(tab.shape)} "
+                               f"{tab.dtype} span {span} differs")
     # rows outside the table read nothing and yield zeros: positions before
     # it, at its last rows (a slab running past the end) and past it
     tab = torch.randint(1, 99, (50, 18), generator=gen, device="cuda",
@@ -1168,11 +1190,9 @@ def check_other_paths(torch):
         want = torch.where(inside[..., None], tab[rows.clamp(0, 49)], 0)
         if span == 1:
             want = want[..., 0, :]
-        for r in ga.GATHER_ROWS_CHOICES:
-            got = ga._gather_launch(tab, pos, span, r)
-            if not torch.equal(got, want):
-                raise SmokeFailure(f"gather_rows: rows outside the table, "
-                                   f"span {span}, rows {r}, differ")
+        if not torch.equal(ga.gather_rows(tab, pos, span), want):
+            raise SmokeFailure(f"gather_rows: rows outside the table, "
+                               f"span {span}, differ")
     for name, tab, pos, q, exact in sqdist_hard_cases(torch, gen):
         got = prim.gather_sqdist(tab, pos, q)
         want = prim.gather_sqdist_plain(tab, pos, q)
@@ -1663,6 +1683,9 @@ def main(json_path=None):
                 other += f"  sectors' bound {c['sector_bound_ms']:.4f}"
             if "old_route_ms" in c:
                 other += f"  old route {c['old_route_ms']:.4f}"
+            for key in ("cold_ms", "cold_library_ms", "cold_old_route_ms"):
+                if key in c:
+                    other += f"  {key[:-3].replace('_', ' ')} {c[key]:.4f}"
             if c.get("other_mode"):
                 other += f"  {c['other_mode']} mode {c['other_mode_ms']:.4f}"
             for mode, ms in c.get("other_modes", {}).items():
@@ -1679,7 +1702,7 @@ def main(json_path=None):
     check_other_paths(torch)
     print("other kernel paths (hard top-k rows in every mode, multi-row long "
           "scans, ragged scan widths, segments of 1 to 130 in both modes, "
-          "ragged lookups, row gathers in every unit, span and rows): equal "
+          "ragged lookups, row gathers in every unit and span): equal "
           "to their plain versions", flush=True)
 
     summary = query_paths(torch, P)

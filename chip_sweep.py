@@ -3,17 +3,16 @@
 lengths, kernel E (lut_gather), and kernel H (gather_rows) along a ladder
 of random reads, against yardsticks, on one CUDA card: the source of the
 cut between B's modes (SCAN_* in pqt_tpu_torch/ops/cuda/primitives.py) and
-of H's practical bound.
+of the random-read rate H's rows are held to.
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
                                    [--only scan|lut|gather] [--cases NAME,...]
 
 The random-read ladder (`--only gather`) gathers rows of 8, 72 and 128
 bytes (the extent, SIFT1B payload and vector rows) at 2M and 512k uniform
-positions from tables of 32 MiB, 256 MiB, 1 GiB and 4 GiB, with every
-`rows` of H's plan and `tab[pos]` beside it, and reports rows/s and 32-byte
-sector reads/s: the rate the card reaches on random reads at each table
-size, whatever the loads in flight.
+positions from tables of 32 MiB, 256 MiB, 1 GiB and 4 GiB, with
+`tab[pos]` beside it, and reports rows/s and 32-byte sector reads/s: the
+rate the card reaches on random reads at each table size.
 
 Every variant is first held against the plain PyTorch version on the same
 input (equal to the bit, or the run fails), then timed by its device time
@@ -181,28 +180,17 @@ def sweep_gather(torch, emit, cases=None):
                             n_pos * (4 + row_bytes) + 32 * smoke.
                             sectors_touched(torch, pos, row_bytes), 0)[0],
                         "index_ms": smoke.device_ms(torch, lambda: tab[pos])}
-                want = ga.gather_rows_plain(tab, pos)
-                variants = [("wrapper", None)]
                 if planned:
-                    plan = ga._gather_plan(n_pos, row_bytes, 1,
-                                           tab.data_ptr())
-                    case["plan"] = plan._asdict()
-                    variants += [(f"rows {r}", r)
-                                 for r in ga.GATHER_ROWS_CHOICES
-                                 if r != plan.rows]
-                for label, rows in variants:
-                    def run(rows=rows):
-                        if rows is None:
-                            return ga.gather_rows(tab, pos)
-                        return ga._gather_launch(tab, pos, 1, rows)
-                    if not torch.equal(run(), want):
-                        raise smoke.SmokeFailure(
-                            f"gather_rows {name} {label} differs")
-                    ms = smoke.device_ms(torch, run)
-                    emit(dict(case, variant=label, ms=ms,
-                              rows_per_s=n_pos / ms * 1e3,
-                              sector_reads_per_s=reads / ms * 1e3))
-                del pos, start, touched, want
+                    case["plan"] = ga._gather_plan(n_pos, row_bytes, 1,
+                                                   tab.data_ptr())._asdict()
+                if not torch.equal(ga.gather_rows(tab, pos),
+                                   ga.gather_rows_plain(tab, pos)):
+                    raise smoke.SmokeFailure(f"gather_rows {name} differs")
+                ms = smoke.device_ms(torch, lambda: ga.gather_rows(tab, pos))
+                emit(dict(case, variant="wrapper", ms=ms,
+                          rows_per_s=n_pos / ms * 1e3,
+                          sector_reads_per_s=reads / ms * 1e3))
+                del pos, start, touched
             del tab
     del buf
     torch.cuda.empty_cache()

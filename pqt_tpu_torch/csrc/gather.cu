@@ -26,12 +26,12 @@
 //   * rows mode (an item of at most 32 units): a group of exactly `units`
 //     lanes owns an item, one unit a lane (8-byte extent rows: one lane a
 //     row; 72-byte payload rows: 9 lanes, 3 groups a warp), and each group
-//     has ROWS items in flight.  A lane loads the positions of all its
-//     items first (for each of the ROWS a coalesced load of consecutive
+//     has kRows items in flight.  A lane loads the positions of all its
+//     items first (for each of the kRows a coalesced load of consecutive
 //     positions, one transaction for the lanes of a group), then issues
 //     every row load, then every store;
 //   * long mode (longer items, such as SIFT1M's slabs of 32 x 40 B): a warp
-//     owns an item and copies it in rounds of ROWS units a lane, the next
+//     owns an item and copies it in rounds of kRows units a lane, the next
 //     item's position loaded before the current one is copied;
 //   * stores are coalesced: consecutive lanes write consecutive units of
 //     out, the groups of a warp consecutive items;
@@ -39,7 +39,8 @@
 //     byte offsets (a position times the row's units, an item times its
 //     units) are 64-bit: the extent table is 4 GiB.
 //
-// The launch shape (unit, ROWS, blocks) is chosen by `_gather_plan`
+// kRows is 4: 2, 4 and 8 were within 5% of each other from 256 MiB tables
+// up on the H100.  The launch shape (unit, blocks) is chosen by `_gather_plan`
 // in pqt_tpu_torch/ops/cuda/gather.py and checked here.  A source row
 // outside [0, n_rows) reads nothing and yields zeros; callers pass in-range
 // positions.
@@ -50,6 +51,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;
 
 // Units [lo, hi) of an item starting at row p lie in rows inside the table.
 struct Window {
@@ -65,7 +67,7 @@ __device__ __forceinline__ Window window(long long p, long long n_rows,
   return {(int)lo * upr, (int)hi * upr};
 }
 
-template <typename V, int ROWS>
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const V* __restrict__ tab, long long n_rows, int upr,
                    const int* __restrict__ pos, int n_pos, int span,
@@ -76,29 +78,29 @@ gather_rows_kernel(const V* __restrict__ tab, long long n_rows, int upr,
   if (group >= per_warp) return;           // lanes past the last group
   const int u = lane - group * units;
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int first = warp * per_warp * ROWS + group;
+  const int first = warp * per_warp * kRows + group;
 
-  int p[ROWS];
+  int p[kRows];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const int i = first + r * per_warp;
     p[r] = i < n_pos ? __ldg(pos + i) : 0;
   }
-  V x[ROWS];
+  V x[kRows];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const Window w = window(p[r], n_rows, span, upr);
     const bool ok = first + r * per_warp < n_pos && u >= w.lo && u < w.hi;
     x[r] = ok ? __ldg(tab + (long long)p[r] * upr + u) : V{};
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const int i = first + r * per_warp;
     if (i < n_pos) out[(long long)i * units + u] = x[r];
   }
 }
 
-template <typename V, int ROWS>
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
 gather_long_kernel(const V* __restrict__ tab, long long n_rows, int upr,
                    const int* __restrict__ pos, int n_pos, int span,
@@ -113,15 +115,15 @@ gather_long_kernel(const V* __restrict__ tab, long long n_rows, int upr,
     const Window w = window(p, n_rows, span, upr);
     const V* src = tab + (long long)p * upr;
     V* dst = out + (long long)i * units;
-    for (int u0 = lane; u0 < units; u0 += 32 * ROWS) {
-      V x[ROWS];
+    for (int u0 = lane; u0 < units; u0 += 32 * kRows) {
+      V x[kRows];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
+      for (int r = 0; r < kRows; ++r) {
         const int u = u0 + 32 * r;
         x[r] = u < units && u >= w.lo && u < w.hi ? __ldg(src + u) : V{};
       }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
+      for (int r = 0; r < kRows; ++r) {
         const int u = u0 + 32 * r;
         if (u < units) dst[u] = x[r];
       }
@@ -130,7 +132,7 @@ gather_long_kernel(const V* __restrict__ tab, long long n_rows, int upr,
   }
 }
 
-template <typename V, int ROWS>
+template <typename V>
 int launch(const void* tab, long long n_rows, int row_bytes, const int* pos,
            int n_pos, int span, int blocks, void* out, cudaStream_t stream) {
   const int upr = row_bytes / (int)sizeof(V);
@@ -139,12 +141,12 @@ int launch(const void* tab, long long n_rows, int row_bytes, const int* pos,
   if (units <= 32) {
     // rows mode: one tile of items a block, every item in a tile, no tile
     // past the last item, so every item index fits in 32 bits
-    const long long per_block = (long long)kWarps * (32 / units) * ROWS;
+    const long long per_block = (long long)kWarps * (32 / units) * kRows;
     if ((long long)blocks * per_block < n_pos ||
         (long long)(blocks - 1) * per_block >= n_pos ||
         n_pos > 0x7fffffffLL - per_block)
       return (int)cudaErrorInvalidValue;
-    gather_rows_kernel<V, ROWS><<<blocks, kThreads, 0, stream>>>(
+    gather_rows_kernel<V><<<blocks, kThreads, 0, stream>>>(
         static_cast<const V*>(tab), n_rows, upr, pos, n_pos, span,
         (int)units, static_cast<V*>(out));
   } else {
@@ -152,42 +154,23 @@ int launch(const void* tab, long long n_rows, int row_bytes, const int* pos,
     if (blocks > (1 << 24) ||
         n_pos > 0x7fffffffLL - (long long)blocks * kWarps)
       return (int)cudaErrorInvalidValue;
-    gather_long_kernel<V, ROWS><<<blocks, kThreads, 0, stream>>>(
+    gather_long_kernel<V><<<blocks, kThreads, 0, stream>>>(
         static_cast<const V*>(tab), n_rows, upr, pos, n_pos, span,
         (int)units, static_cast<V*>(out));
   }
   return (int)cudaGetLastError();
 }
 
-template <typename V>
-int by_rows(int rows, const void* tab, long long n_rows, int row_bytes,
-            const int* pos, int n_pos, int span, int blocks, void* out,
-            cudaStream_t s) {
-  switch (rows) {
-    case 2:
-      return launch<V, 2>(tab, n_rows, row_bytes, pos, n_pos, span, blocks,
-                          out, s);
-    case 4:
-      return launch<V, 4>(tab, n_rows, row_bytes, pos, n_pos, span, blocks,
-                          out, s);
-    case 8:
-      return launch<V, 8>(tab, n_rows, row_bytes, pos, n_pos, span, blocks,
-                          out, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // tab: (n_rows, row_bytes) bytes; pos: (n_pos,) int32; out: (n_pos, span,
-// row_bytes) bytes.  unit (bytes a load moves), rows (ROWS: 2, 4 or 8) and
-// blocks come from the plan; unit must divide row_bytes and the addresses
-// of tab and out.  Returns the CUDA error code of the launch (0 = success).
+// row_bytes) bytes.  unit (bytes a load moves) and blocks come from the
+// plan; unit must divide row_bytes and the addresses of tab and out.
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int pqt_gather_rows(const void* tab, long long n_rows,
                                int row_bytes, const int* pos, int n_pos,
-                               int span, int unit, int rows, int blocks,
-                               void* out, void* stream) {
+                               int span, int unit, int blocks, void* out,
+                               void* stream) {
   if (n_pos <= 0 || span <= 0 || row_bytes <= 0 || blocks <= 0 ||
       unit <= 0 || row_bytes % unit || (size_t)tab % unit ||
       (size_t)out % unit)
@@ -195,20 +178,20 @@ extern "C" int pqt_gather_rows(const void* tab, long long n_rows,
   cudaStream_t s = (cudaStream_t)stream;
   switch (unit) {
     case 16:
-      return by_rows<uint4>(rows, tab, n_rows, row_bytes, pos, n_pos, span,
-                            blocks, out, s);
+      return launch<uint4>(tab, n_rows, row_bytes, pos, n_pos, span,
+                           blocks, out, s);
     case 8:
-      return by_rows<uint2>(rows, tab, n_rows, row_bytes, pos, n_pos, span,
-                            blocks, out, s);
+      return launch<uint2>(tab, n_rows, row_bytes, pos, n_pos, span,
+                           blocks, out, s);
     case 4:
-      return by_rows<unsigned int>(rows, tab, n_rows, row_bytes, pos, n_pos,
-                                   span, blocks, out, s);
+      return launch<unsigned int>(tab, n_rows, row_bytes, pos, n_pos, span,
+                                    blocks, out, s);
     case 2:
-      return by_rows<unsigned short>(rows, tab, n_rows, row_bytes, pos, n_pos,
-                                     span, blocks, out, s);
+      return launch<unsigned short>(tab, n_rows, row_bytes, pos, n_pos, span,
+                                    blocks, out, s);
     case 1:
-      return by_rows<unsigned char>(rows, tab, n_rows, row_bytes, pos, n_pos,
-                                    span, blocks, out, s);
+      return launch<unsigned char>(tab, n_rows, row_bytes, pos, n_pos, span,
+                                   blocks, out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

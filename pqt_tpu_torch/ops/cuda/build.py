@@ -52,8 +52,8 @@ _SIGNATURES = {
     "reduce": {"pqt_segmented_reduce": ((_P, _I, _I, _I, _I, _I, _I, _P, _P),
                                         _I)},
     "lut": {"pqt_lut_gather": ((_P, _L, _I, _P, _L, _P, _P), _I)},
-    "gather": {"pqt_gather_rows": ((_P, _L, _I, _P, _I, _I, _I, _I, _I, _P,
-                                    _P), _I)},
+    "gather": {"pqt_gather_rows": ((_P, _L, _I, _P, _I, _I, _I, _I, _P, _P),
+                                   _I)},
     "sqdist": {"pqt_gather_sqdist": ((_P, _L, _I, _I, _P, _I, _I, _P, _P,
                                       _P), _I)},
 }

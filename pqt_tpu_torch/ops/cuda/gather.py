@@ -61,13 +61,11 @@ lut_gather.launches = 0
 # mode: a group of `units` lanes an item, GATHER_ROWS items in flight a
 # group, one tile a block.  Longer items take long mode: a warp an item,
 # GATHER_ROWS units a lane in flight, a grid-stride loop over at most
-# GATHER_LONG_BLOCKS blocks.  `rows` may be any of GATHER_ROWS_CHOICES (the
-# kernel's instantiations; chip_sweep.py sweeps them).
+# GATHER_LONG_BLOCKS blocks.  GATHER_ROWS is fixed in csrc/gather.cu.
 GATHER_THREADS = 256
 GATHER_UNITS = (16, 8, 4, 2, 1)
 GATHER_GROUP_MAX = 32
 GATHER_ROWS = 4
-GATHER_ROWS_CHOICES = (2, 4, 8)
 GATHER_LONG_BLOCKS = 1 << 16
 GATHER_ITEMS_MAX = (1 << 31) - 1 - (1 << 20)
 
@@ -83,20 +81,16 @@ class GatherPlan(NamedTuple):
     blocks: int    # blocks of GATHER_THREADS threads
 
 
-def _gather_plan(n_pos: int, row_bytes: int, span: int, addr: int,
-                 rows: int = GATHER_ROWS) -> GatherPlan:
+def _gather_plan(n_pos: int, row_bytes: int, span: int,
+                 addr: int) -> GatherPlan:
     """Kernel H's mode and launch shape for n_pos >= 1 items of `span` rows
     of row_bytes bytes; `addr` is the table's address OR-ed with the
     output's (only its low bits count: the unit must divide both).  Raises
-    ValueError for an empty shape or a `rows` the kernel has no
-    instantiation for, NotImplementedError beyond GATHER_ITEMS_MAX items or
-    2^31 units an item."""
+    ValueError for an empty shape, NotImplementedError beyond
+    GATHER_ITEMS_MAX items or 2^31 units an item."""
     if n_pos < 1 or row_bytes < 1 or span < 1:
         raise ValueError(f"gather_rows: empty shape ({n_pos} items of "
                          f"{span} x {row_bytes} bytes)")
-    if rows not in GATHER_ROWS_CHOICES:
-        raise ValueError(f"gather_rows: rows={rows} not in "
-                         f"{GATHER_ROWS_CHOICES}")
     unit = next(v for v in GATHER_UNITS if row_bytes % v == 0 and addr % v == 0)
     units = span * row_bytes // unit
     if n_pos > GATHER_ITEMS_MAX or units >= 1 << 31:
@@ -104,9 +98,10 @@ def _gather_plan(n_pos: int, row_bytes: int, span: int, addr: int,
             f"gather_rows: {n_pos} items of {units} units (at most "
             f"{GATHER_ITEMS_MAX} items of fewer than 2^31 units)")
     if units <= GATHER_GROUP_MAX:
-        per_block = GATHER_THREADS // 32 * (32 // units) * rows
-        return GatherPlan("rows", unit, units, rows, -(-n_pos // per_block))
-    return GatherPlan("long", unit, units, rows,
+        per_block = GATHER_THREADS // 32 * (32 // units) * GATHER_ROWS
+        return GatherPlan("rows", unit, units, GATHER_ROWS,
+                          -(-n_pos // per_block))
+    return GatherPlan("long", unit, units, GATHER_ROWS,
                       min(GATHER_LONG_BLOCKS,
                           -(-n_pos // (GATHER_THREADS // 32))))
 
@@ -117,28 +112,6 @@ def gather_rows_plain(tab: torch.Tensor, pos: torch.Tensor,
     if span == 1:
         return tab[p]
     return tab[p[..., None] + torch.arange(span, device=pos.device)]
-
-
-def _gather_launch(tab: torch.Tensor, pos: torch.Tensor, span: int,
-                   rows: int = GATHER_ROWS) -> torch.Tensor:
-    """Launch kernel H on a contiguous CUDA table and int32 positions, the
-    plan's `rows` forced to `rows`."""
-    N, W = tab.shape
-    shape = tuple(pos.shape) + ((span,) if span > 1 else ()) + (W,)
-    out = torch.empty(shape, dtype=tab.dtype, device=tab.device)
-    if out.numel() == 0:
-        return out
-    row_bytes = W * tab.element_size()
-    plan = _gather_plan(pos.numel(), row_bytes, span,
-                        tab.data_ptr() | out.data_ptr(), rows)
-    lib = build.load("gather")
-    with torch.cuda.device(tab.device):
-        err = lib.pqt_gather_rows(_ptr(tab), N, row_bytes, _ptr(pos),
-                                  pos.numel(), span, plan.unit, plan.rows,
-                                  plan.blocks, _ptr(out), _stream(tab))
-    build.check(err, "gather_rows")
-    gather_rows.launches += 1
-    return out
 
 
 def gather_rows(tab: torch.Tensor, pos: torch.Tensor,
@@ -152,7 +125,22 @@ def gather_rows(tab: torch.Tensor, pos: torch.Tensor,
                          f"got {tuple(tab.shape)} and span={span}")
     if _on_cpu(tab, pos, "gather_rows"):
         return gather_rows_plain(tab, pos, span)
-    return _gather_launch(tab, pos, span)
+    N, W = tab.shape
+    shape = tuple(pos.shape) + ((span,) if span > 1 else ()) + (W,)
+    out = torch.empty(shape, dtype=tab.dtype, device=tab.device)
+    if out.numel() == 0:
+        return out
+    row_bytes = W * tab.element_size()
+    plan = _gather_plan(pos.numel(), row_bytes, span,
+                        tab.data_ptr() | out.data_ptr())
+    lib = build.load("gather")
+    with torch.cuda.device(tab.device):
+        err = lib.pqt_gather_rows(_ptr(tab), N, row_bytes, _ptr(pos),
+                                  pos.numel(), span, plan.unit, plan.blocks,
+                                  _ptr(out), _stream(tab))
+    build.check(err, "gather_rows")
+    gather_rows.launches += 1
+    return out
 
 
 gather_rows.launches = 0

@@ -157,10 +157,6 @@ def test_gather_plan_picks_the_shapes_of_the_paths():
     assert plan == ga.GatherPlan("long", 8, 160, 4, 256 * 32 // 8)
     assert ga._gather_plan(10 ** 8, 40, 32, 0).blocks == \
         ga.GATHER_LONG_BLOCKS
-    for rows in ga.GATHER_ROWS_CHOICES:
-        assert ga._gather_plan(1000, 8, 1, 0, rows).rows == rows
-    with pytest.raises(ValueError):
-        ga._gather_plan(1000, 8, 1, 0, 3)
     with pytest.raises(ValueError):
         ga._gather_plan(0, 8, 1, 0)
     with pytest.raises(NotImplementedError):
