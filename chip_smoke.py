@@ -12,8 +12,11 @@ Phases (any failure exits non-zero before the last line is printed):
   3. holds each kernel against its plain PyTorch version on the card, at
      the shapes the query paths give it (top-k, prefix sums, lookups, row
      gathers and the exact re-rank's distances with integer-valued queries
-     exact; line re-rank within rtol 1e-5, atol 1e-4, in the compact and
-     the wide payload layout; segment sums of integer values exact, in
+     exact; the line re-rank by position, `gather_rerank`, ids exact and
+     distances within rtol 1e-5, atol 1e-4, in the compact and the wide
+     payload layout, and equal to the bit to its old route, kernel H's
+     payload rows and then kernel C over them; segment sums of integer
+     values exact, in
      plain mode and in square mode, the latter beside the old route of
      x * x then plain mode),
      and times kernel, plain version and the one PyTorch call computing the
@@ -32,8 +35,10 @@ Phases (any failure exits non-zero before the last line is printed):
      a sectors' bound beside the byte bound, the exact distances
      (`gather_sqdist`, kernels H and D fused) beside the five launches they
      replaced (H's rows, the float copy, the difference, the square and
-     D's row sums); then the kernels are held on inputs that are hard for
-     them (not timed);
+     D's row sums), the line re-rank warm and cold (candidates drawn anew
+     over rows read 256 MiB earlier) beside its old route, warm and cold;
+     then the kernels are held on inputs that are hard for them (not
+     timed);
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -110,11 +115,14 @@ JAX_CPU_SLABS = {"exact_R@1": 0.9893, "candidate_recall": 0.9893,
 JAX_CPU_BIG = {"big_line_R@10": 0.8203, "big_line_top10_intersection": 0.7207,
                "big_perfect_R@1": 0.9902}
 THRESHOLDS.update({key: round(v - 0.03, 4) for key, v in JAX_CPU_BIG.items()})
-# The kernels of each path: a count of 0 on its run fails the smoke.
+# The kernels of each path: a count of 0 on its run fails the smoke.  The
+# BIG paths launch no row gather: their line re-rank reads the payload rows
+# itself, and their bins come from lookups, not extent rows.
 PAIR_KERNELS = ("bitonic_topk", "block_scan", "rerank_fused",
                 "segmented_reduce", "gather_rows")
 PARTS_KERNELS = PAIR_KERNELS + ("lut_gather",)
 ALL_KERNELS = PARTS_KERNELS
+BIG_KERNELS = tuple(k for k in ALL_KERNELS if k != "gather_rows")
 # the exact re-rank's distances, kernels H and D fused: every path that
 # serves exact, refine or BIG perfect must launch it
 EXACT_KERNELS = ("gather_sqdist",)
@@ -125,20 +133,25 @@ SQDIST_ROWS = ("segmented_reduce", "gather_rows")
 # Every path's launch counts and recall on an H100 (NVIDIA H100 80GB HBM3,
 # 700 W) before kernels H and D were redesigned: a kernel redesign changes
 # neither, so a path that differs from them fails the run.  Launches in the
-# order of LAUNCH_KEYS (read_launches' names).
+# order of LAUNCH_KEYS (read_launches' names).  gather_rows' counts are
+# lower by rerank_fused's than that run's: every line re-rank now reads its
+# payload rows itself (`gather_rerank`, kernel C by position) where kernel
+# H gathered them first, so H keeps the extent rows, the exact re-rank's ids
+# and the parts pipeline's candidate ids only (pair 72 -> 36, parts 36 ->
+# 18, slabs 27 -> 18, BIG 9 -> 0, wide 18 -> 9, SIFT1B 330 -> 165).
 LAUNCH_KEYS = ("bitonic_topk", "block_scan", "rerank_fused",
                "segmented_reduce", "lut_gather", "gather_rows",
                "gather_sqdist", "bitonic_topk:sort", "bitonic_topk:select",
                "bitonic_topk:merge", "rerank_fused:wide")
 REFERENCE_LAUNCHES = {
-    "pair": (108, 73, 36, 140, 0, 72, 18, 45, 63, 0, 0),
-    "parts": (108, 108, 18, 90, 108, 36, 18, 81, 27, 0, 0),
-    "parts_slabs": (72, 81, 9, 63, 81, 27, 9, 54, 18, 0, 0),
-    "big_line": (45, 18, 9, 27, 18, 9, 0, 18, 27, 0, 0),
-    "big_perfect": (54, 18, 9, 27, 18, 9, 9, 27, 27, 0, 0),
-    "pair_wide": (27, 18, 9, 27, 0, 18, 0, 9, 18, 0, 9),
+    "pair": (108, 73, 36, 140, 0, 36, 18, 45, 63, 0, 0),
+    "parts": (108, 108, 18, 90, 108, 18, 18, 81, 27, 0, 0),
+    "parts_slabs": (72, 81, 9, 63, 81, 18, 9, 54, 18, 0, 0),
+    "big_line": (45, 18, 9, 27, 18, 0, 0, 18, 27, 0, 0),
+    "big_perfect": (54, 18, 9, 27, 18, 0, 9, 27, 27, 0, 0),
+    "pair_wide": (27, 18, 9, 27, 0, 9, 0, 9, 18, 0, 9),
     "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0),
-    "sift1b": (891, 396, 165, 561, 264, 330, 99, 396, 429, 66, 0),
+    "sift1b": (891, 396, 165, 561, 264, 165, 99, 396, 429, 66, 0),
 }
 _EXACT_1M = {"R@1": 0.9931640625, "R@10": 0.9931640625,
              "top10_intersection": 0.99345703125}
@@ -272,14 +285,19 @@ def device_ms(torch, fn, reps=20, warmup=3, attempts=4):
     return ms
 
 
+def rotating_ms(torch, fn, inputs):
+    """device_ms of fn over the inputs in turn."""
+    turn = iter(range(1 << 30))
+    return device_ms(torch, lambda: fn(inputs[next(turn) % len(inputs)]))
+
+
 def cold_ms(torch, fn, x):
     """device_ms of fn over a rotating set of copies of x that together span
     COLD_SET_BYTES, so every call reads its input from HBM and not from L2
     (device_ms alone repeats fn on one input, which stays in L2)."""
     copies = [x.clone() for _ in range(-(-COLD_SET_BYTES // (
         x.numel() * x.element_size())))]
-    turn = iter(range(1 << 30))
-    ms = device_ms(torch, lambda: fn(copies[next(turn) % len(copies)]))
+    ms = rotating_ms(torch, fn, copies)
     del copies
     return ms
 
@@ -407,42 +425,111 @@ def scan_cases(torch, gen):
         dtype=torch.int32), False), (1, 1 << 29)
 
 
-def rerank_cases(torch, gen):
-    """The line re-rank at batch 256 (1024 candidates, lp 16) in the compact
-    layout, then the wide one (one uint32 a line part) at the same shape
-    and at SIFT1B's batch 64 x 8192 candidates x lp 32, each with c1 = 16
-    and the widest c1 = 256 (a 32 KB table at lp 32).  Lambda lies in
-    [-0.5, 1.5) as the build gives it: a projection inside or near its
-    segment."""
-    for name, b, k, lp, c1, compact in (
-            ("line_rerank", 256, 1024, 16, 16, True),
-            ("wide_line_rerank", 256, 1024, 16, 16, False),
-            ("wide_line_rerank_c1_256", 256, 1024, 16, 256, False),
-            ("sift1b_wide_line_rerank", 64, 8192, 32, 16, False),
-            ("sift1b_wide_line_rerank_c1_256", 64, 8192, 32, 256, False)):
-        a = torch.randint(0, c1, (b, k, lp), generator=gen, device="cuda")
-        bb = torch.randint(0, c1, (b, k, lp), generator=gen, device="cuda")
+def line_payload(torch, gen, n, lp, c1, compact):
+    """n payload rows of random line codes as the build packs them (id =
+    row, t3 ~ N(0, 1), lambda in [-0.5, 1.5): a projection inside or near
+    its segment), made on the card a million rows at a time: (n, W) int32,
+    W = 2 + ceil(lp / 2) compact (A | B << 4 | lambda_u8 << 8, two line
+    parts a word) or 2 + lp wide (A | B << 8 | lambda_u16 << 16)."""
+    w = 2 + ((lp + 1) // 2 if compact else lp)
+    out = torch.empty((n, w), dtype=torch.int32, device="cuda")
+    for s in range(0, n, 1 << 20):
+        m = min(1 << 20, n - s)
+        a, bb = (torch.randint(0, c1, (m, lp), generator=gen, device="cuda")
+                 for _ in range(2))
         if compact:
-            # A | B << 4 | lambda_u8 << 8, two parts to an int32 word
-            # (lambda_u8 = (lambda + 4) * 32)
-            lam = torch.randint(112, 176, (b, k, lp), generator=gen,
+            lam = torch.randint(112, 176, (m, lp), generator=gen,
                                 device="cuda")
-            half = a | (bb << 4) | (lam << 8)
-            words = half[..., 0::2] | (half[..., 1::2] << 16)
+            half = torch.nn.functional.pad(a | (bb << 4) | (lam << 8),
+                                           (0, lp % 2))
+            words = half[:, 0::2] | (half[:, 1::2] << 16)
         else:
-            # A | B << 8 | lambda_u16 << 16 (lambda_u16 = (lambda + 4) *
-            # 8192)
-            lam = torch.randint(28672, 45056, (b, k, lp), generator=gen,
+            lam = torch.randint(28672, 45056, (m, lp), generator=gen,
                                 device="cuda")
             words = a | (bb << 8) | (lam << 16)
-        words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
-        t3 = torch.randn((b, k, 1), generator=gen, device="cuda")
-        ids = torch.arange(k, device="cuda", dtype=torch.int32).expand(b, k)
-        rows = torch.cat([ids[..., None], t3.view(torch.int32),
-                          words.to(torch.int32)], dim=-1).contiguous()
-        q = (torch.rand((b, lp, c1), generator=gen, device="cuda") * 5e3)
-        yield name, (rows, q.contiguous(), compact), (b, k, rows.shape[2],
-                                                      lp, c1)
+        out[s:s + m, 0] = torch.arange(s, s + m, device="cuda")
+        out[s:s + m, 1] = torch.randn(m, generator=gen,
+                                      device="cuda").view(torch.int32)
+        out[s:s + m, 2:] = torch.where(words >= 2 ** 31, words - 2 ** 32,
+                                       words)
+    return out
+
+
+# The line re-rank's shapes: (name, payload rows, queries, candidates, lp,
+# c1, compact, slab): SIFT1M's (batch 256, 1024 candidates, lp 16) in rows
+# and slab mode (32 rows a slab) and over the wide payload, SIFT1B's (batch
+# 64, 8192 candidates, lp 32) compact and wide at c1 16 and 256, then
+# tables past what the kernel took before: 64 KB (lp 64, c1 256), and 240
+# KB (lp 240, c1 256, beyond a block's 227 KB; its 968-byte rows unstaged).
+RERANK_SHAPES = (
+    ("sift1m_line", 1_000_000, 256, 1024, 16, 16, True, 0),
+    ("sift1m_line_slabs", 1_000_000, 256, 1024, 16, 16, True, 32),
+    ("sift1m_wide_line", 1_000_000, 256, 1024, 16, 16, False, 0),
+    ("sift1b_line", N_1B, 64, 8192, 32, 16, True, 0),
+    ("sift1b_wide_line", N_1B, 64, 8192, 32, 16, False, 0),
+    ("sift1b_wide_line_c1_256", N_1B, 64, 8192, 32, 256, False, 0),
+    ("wide_lp64_c1_256", 1_000_000, 64, 8192, 64, 256, False, 0),
+    ("wide_lp240_c1_256", 100_000, 8, 8192, 240, 256, False, 0))
+
+
+def rerank_cases(torch, gen, names=None):
+    """The line re-rank at RERANK_SHAPES (or those in `names`): (name,
+    (payload, draw, valid, q, compact), (b, k, lp, c1, slab)).  draw()
+    makes a new (b, k) set of positions: uniform over the payload with the
+    invalid slots at row 0 (rows mode, as the paths' safe positions), or
+    windows of `slab` consecutive rows from uniform starts; about 10% of the
+    slots are invalid.  Tables are uniform in [0, 5000)."""
+    for name, n, b, k, lp, c1, compact, slab in RERANK_SHAPES:
+        if names and name not in names:
+            continue
+        payload = line_payload(torch, gen, n, lp, c1, compact)
+        valid = torch.rand((b, k), generator=gen, device="cuda") >= 0.1
+
+        def draw(n=n, b=b, k=k, slab=slab, valid=valid):
+            if slab:
+                starts = torch.randint(0, n - slab + 1, (b, k // slab, 1),
+                                       generator=gen, device="cuda")
+                return (starts + torch.arange(slab, device="cuda")).reshape(
+                    b, k).to(torch.int32)
+            pos = torch.randint(0, n, (b, k), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            return torch.where(valid, pos, 0)
+
+        q = torch.rand((b, lp, c1), generator=gen, device="cuda") * 5e3
+        yield name, (payload, draw, valid, q, compact), (b, k, lp, c1, slab)
+        del payload
+        torch.cuda.empty_cache()
+
+
+def old_line_route(ga, rr, payload, pos, valid, q, compact):
+    """The line re-rank by the route `gather_rerank` replaced: kernel H's
+    payload rows, kernel C over them, +inf where invalid."""
+    rows = ga.gather_rows(payload, pos)
+    return rows[..., 0], rr.rerank_fused(rows, q, compact).where(
+        valid, float("inf"))
+
+
+def check_line_rerank(torch, ga, rr, payload, pos, valid, q, compact):
+    """Holds gather_rerank against its plain version (ids equal, distances
+    within rtol 1e-5, atol 1e-4, +inf exactly where invalid or outside
+    the payload) and against kernel C over the same rows gathered first
+    (equal to the bit: one kernel, one per-row arithmetic).  Returns the
+    largest distance error against the plain version."""
+    ids, dists = rr.gather_rerank(payload, pos, valid, q, compact)
+    want_ids, want = rr.gather_rerank_plain(payload, pos, valid, q, compact)
+    n = payload.shape[0]
+    inside = (pos >= 0) & (pos < n)
+    rows = payload[pos.long().clamp(0, n - 1)]
+    old = torch.where(valid & inside, rr.rerank_fused(rows, q, compact),
+                      float("inf"))
+    torch.cuda.synchronize()
+    live = torch.isfinite(want)
+    err = float((dists[live] - want[live]).abs().max()) if live.any() else 0.0
+    ok = (torch.equal(ids, want_ids) and torch.equal(torch.isfinite(dists),
+                                                     live)
+          and torch.allclose(dists[live], want[live], rtol=1e-5, atol=1e-4)
+          and torch.equal(dists, old))
+    return ok, err
 
 
 def reduce_cases(torch, gen):
@@ -694,23 +781,62 @@ def check_kernels(torch):
         del x
         torch.cuda.empty_cache()
 
-    for case, (rows, q, compact), (b, k, w, lp, c1) in rerank_cases(torch,
-                                                                    gen):
-        got = rr.rerank_fused(rows, q, compact)
-        want = rr.rerank_plain(rows, q, compact)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
-            raise SmokeFailure(f"rerank_fused {case}: max abs error {err}")
-        b_ms, b_by = bound(b * k * w * 4 + b * lp * c1 * 4 + b * k * 4,
+    for case, (payload, draw, valid, q, compact), (b, k, lp, c1, slab) in \
+            rerank_cases(torch, gen):
+        n, w = payload.shape
+        row_bytes = 4 * w
+        layout = "compact" if compact else "wide"
+        pos = draw()
+        ok, err = check_line_rerank(torch, ga, rr, payload, pos, valid, q,
+                                    compact)
+        if not ok:
+            raise SmokeFailure(f"gather_rerank {case}: differs from its plain "
+                               f"version or its old route (max abs error "
+                               f"{err})")
+        rows = ga.gather_rows(payload, pos)
+        rows_err = float((rr.rerank_fused(rows, q, compact) - rr.rerank_plain(
+            rows, q, compact)).abs().max())
+        plan = rr._rerank_plan(b, k, w, lp, c1, payload.data_ptr(),
+                               rr._sm_count(torch.cuda.current_device()))
+        # cold: position sets drawn anew, whose rows together span
+        # COLD_SET_BYTES, so each call's rows were last read that far back
+        sets = [draw() for _ in range(
+            -(-COLD_SET_BYTES // (b * k * row_bytes)))]
+        touched = int(torch.unique(pos).numel())
+        # in: each distinct row, the positions, the validity, the tables;
+        # out: ids and distances.  About 4 flops a line part
+        b_ms, b_by = bound(touched * row_bytes + b * k * (4 + 1 + 4 + 4)
+                           + b * lp * c1 * 4, 4 * b * k * lp)
+        record("gather_rerank", "pqt_tpu_torch/csrc/rerank.cu",
+               "pqt_tpu/ops/pallas/rerank.py:84 + "
+               "benchmarks/micro_gather2.py:165",
+               f"{case} ({n},{w}) at ({b},{k}) c1 {c1} {layout}"
+               f"{f' slabs of {slab}' if slab else ''}: "
+               f"{f'staged {plan.unit} B' if plan.staged else 'unstaged'}, "
+               f"table {'shared' if plan.table_smem else 'global'}, "
+               f"{plan.chunks} x {plan.per_chunk} tiles",
+               device_ms(torch, lambda: rr.gather_rerank(payload, pos, valid,
+                                                         q, compact)),
+               device_ms(torch, lambda: rr.gather_rerank_plain(
+                   payload, pos, valid, q, compact)),
+               None, b_ms, b_by, err, plan=plan._asdict(),
+               cold_ms=rotating_ms(torch, lambda p: rr.gather_rerank(
+                   payload, p, valid, q, compact), sets),
+               old_route_ms=device_ms(torch, lambda: old_line_route(
+                   ga, rr, payload, pos, valid, q, compact)),
+               cold_old_route_ms=rotating_ms(torch, lambda p: old_line_route(
+                   ga, rr, payload, p, valid, q, compact), sets))
+        # the same kernel over the rows gathered first (the Pallas kernel's
+        # contract), and its old route's second launch
+        b_ms, b_by = bound(b * k * row_bytes + b * lp * c1 * 4 + b * k * 4,
                            4 * b * k * lp)
         record("rerank_fused", "pqt_tpu_torch/csrc/rerank.cu",
                "pqt_tpu/ops/pallas/rerank.py:84",
-               f"{case} ({b},{k},{w}) c1 {c1} "
-               f"{'compact' if compact else 'wide'}",
+               f"{case} ({b},{k},{w}) c1 {c1} {layout} over gathered rows",
                device_ms(torch, lambda: rr.rerank_fused(rows, q, compact)),
                device_ms(torch, lambda: rr.rerank_plain(rows, q, compact)),
-               None, b_ms, b_by, err, mode="compact" if compact else "wide")
+               None, b_ms, b_by, rows_err, mode=layout)
+        del pos, rows, sets
 
     for case, (v, parts), (b, d, _) in reduce_cases(torch, gen):
         # plain mode on the squares (as the kernel was first timed), then
@@ -1099,6 +1225,69 @@ def gather_hard_cases(torch, gen):
             0, n, (k,), generator=gen, device="cuda", dtype=torch.int32), 1
 
 
+def rerank_hard_cases(torch, gen):
+    """Line re-ranks that are easiest to get wrong: (name, payload,
+    positions, valid, q, compact).  Ragged K (1, 255, 256, 257, 1000), one
+    query, rows 0 and N - 1 only, every slot invalid, positions outside the
+    payload, payloads 4 and 8 bytes off a 16-byte boundary (4- and 8-byte
+    copies), 16-byte rows (16-byte copies), odd word counts (3 and 5 words,
+    one word a load), more queries than the card holds blocks (several
+    tiles a block) and than a grid's 65535 rows, and every kernel mode:
+    tables of 64 KB in shared memory, of 100 KB from global memory beside
+    staged rows, of 240 KB with 968-byte rows unstaged, and unstaged
+    488-byte compact rows with their table in shared memory."""
+    n = 3000
+
+    def pos(b, k, rows=n):
+        return torch.randint(0, rows, (b, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def ok(b, k):
+        return torch.rand((b, k), generator=gen, device="cuda") < 0.8
+
+    def tables(b, lp, c1=16):
+        return torch.rand((b, lp, c1), generator=gen, device="cuda") * 5e3
+
+    base = line_payload(torch, gen, n, 16, 16, True)            # 40-byte rows
+    for k in (1, 255, 256, 257, 1000):
+        yield f"ragged K = {k}", base, pos(3, k), ok(3, k), tables(3, 16), \
+            True
+    yield "B = 1", base, pos(1, 777), ok(1, 777), tables(1, 16), True
+    ends = pos(2, 600)
+    ends[:, 0::2], ends[:, 1::2] = 0, n - 1
+    yield "rows 0 and N - 1 only", base, ends, ok(2, 600), tables(2, 16), True
+    yield "every slot invalid", base, pos(2, 600), torch.zeros(
+        (2, 600), dtype=torch.bool, device="cuda"), tables(2, 16), True
+    out = pos(2, 600)
+    out[0, :4] = torch.tensor([-1, n, 10 ** 9, -10 ** 9], device="cuda")
+    yield "positions outside the payload", base, out, ok(2, 600), \
+        tables(2, 16), True
+    flat = torch.empty(n * 10 + 4, dtype=torch.int32, device="cuda")
+    off4 = flat[1:1 + n * 10].view(n, 10)
+    off4.copy_(base)
+    yield "payload 4 bytes off a 16-byte boundary", off4, pos(3, 1000), \
+        ok(3, 1000), tables(3, 16), True
+    w4 = line_payload(torch, gen, n, 2, 16, False)              # 16-byte rows
+    yield "16-byte rows", w4, pos(3, 1000), ok(3, 1000), tables(3, 2), False
+    flat = torch.empty(n * 4 + 2, dtype=torch.int32, device="cuda")
+    off8 = flat[2:2 + n * 4].view(n, 4)
+    off8.copy_(w4)
+    yield "16-byte rows 8 bytes off a 16-byte boundary", off8, pos(3, 1000), \
+        ok(3, 1000), tables(3, 2), False
+    for lp in (2, 5):                                           # 3, 5 words
+        yield f"compact lp {lp}", line_payload(torch, gen, n, lp, 16, True), \
+            pos(3, 1000), ok(3, 1000), tables(3, lp), True
+    yield "2000 queries of 2000", base, pos(2000, 2000), ok(2000, 2000), \
+        tables(2000, 16), True
+    yield "70000 queries of 8", base, pos(70000, 8), ok(70000, 8), \
+        tables(70000, 16), True
+    for lp, c1, compact in ((64, 256, False), (100, 256, False),
+                            (240, 256, False), (240, 16, True)):
+        yield f"lp {lp} c1 {c1} {'compact' if compact else 'wide'}", \
+            line_payload(torch, gen, 20000, lp, c1, compact), \
+            pos(4, 1500, 20000), ok(4, 1500), tables(4, lp, c1), compact
+
+
 def check_other_paths(torch):
     """Kernel paths beyond the query paths' shapes, for correctness only
     (not timed), each in the mode the wrapper picks and in every mode that
@@ -1110,12 +1299,15 @@ def check_other_paths(torch):
     128 KB table; segment sums of every length from 1 to 130 in both
     modes, aligned (vec4) and 4 bytes off (scalar) (reduce_hard_cases);
     row gathers in every unit and span, from tables off a 16-byte boundary,
-    and rows outside the table (zeros; gather_hard_cases); and the exact
+    and rows outside the table (zeros; gather_hard_cases); the line
+    re-rank by position in every kernel mode and copy unit, at ragged
+    shapes and positions outside the payload (rerank_hard_cases); and the exact
     distances in every load unit, past the query slice a lane keeps in
     registers, at the table's last row and its first, with fractional
     queries and rows, and a position outside the table (NaN)."""
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import primitives as prim
+    from pqt_tpu_torch.ops.cuda import rerank as rr
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     for name, x, k in topk_hard_rows(torch, gen):
@@ -1202,6 +1394,14 @@ def check_other_paths(torch):
             raise SmokeFailure(f"gather_sqdist {name} {tuple(tab.shape)} at "
                                f"{tuple(pos.shape)} differs (max abs error "
                                f"{float((got - want).abs().max())})")
+    for name, payload, pos, valid, q, compact in rerank_hard_cases(torch,
+                                                                   gen):
+        ok, err = check_line_rerank(torch, ga, rr, payload, pos, valid, q,
+                                    compact)
+        if not ok:
+            raise SmokeFailure(f"gather_rerank {name} {tuple(payload.shape)} "
+                               f"at {tuple(pos.shape)} differs (max abs "
+                               f"error {err})")
     # a position outside the table reads nothing and yields NaN
     tab, q = torch.zeros((10, 128), dtype=torch.uint8, device="cuda"), \
         torch.ones((1, 128), device="cuda")
@@ -1430,7 +1630,7 @@ def query_paths(torch, P):
         paths[name] = serve_path(
             torch, f"BIG path ({name[4:]})",
             query_modes(P, cfg, tree, db, (name,)), qd,
-            ALL_KERNELS + (EXACT_KERNELS if name == "big_perfect" else ()),
+            BIG_KERNELS + (EXACT_KERNELS if name == "big_perfect" else ()),
             cfg=cfg, db=db, reference=(JAX_CPU_BIG, "JAX on the CPU"))
     wide_db = P.build_database(wide_cfg, tree, data, device="cuda")
     paths["pair_wide"] = serve_path(
@@ -1702,8 +1902,9 @@ def main(json_path=None):
     check_other_paths(torch)
     print("other kernel paths (hard top-k rows in every mode, multi-row long "
           "scans, ragged scan widths, segments of 1 to 130 in both modes, "
-          "ragged lookups, row gathers in every unit and span): equal "
-          "to their plain versions", flush=True)
+          "ragged lookups, row gathers in every unit and span, line "
+          "re-ranks in every mode and copy unit): equal to their plain "
+          "versions", flush=True)
 
     summary = query_paths(torch, P)
     peak_before = torch.cuda.max_memory_allocated()
@@ -1716,10 +1917,15 @@ def main(json_path=None):
     rows = []
     sqdist = dict(kernels.pop("gather_sqdist"),
                   launches=launches["gather_sqdist"])
+    # every launch of kernel C on the paths is gather_rerank's
+    fused = dict(kernels.pop("gather_rerank"),
+                 launches=launches["rerank_fused"])
     for r in kernels.values():
         r["launches"] = launches[r["name"]]
         if r["name"] in SQDIST_ROWS:
             r["modes"] = {"gather_sqdist": sqdist}
+        if r["name"] == "rerank_fused":
+            r["modes"] = {"gather_rerank": fused}
         if r["name"] != "lut_gather":
             rows.append(r)
             continue

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time kernel B (block_scan) in each of its modes along a ladder of row
-lengths, kernel E (lut_gather), and kernel H (gather_rows) along a ladder
-of random reads, against yardsticks, on one CUDA card: the source of the
-cut between B's modes (SCAN_* in pqt_tpu_torch/ops/cuda/primitives.py) and
-of the random-read rate H's rows are held to.
+lengths, kernel E (lut_gather), kernel H (gather_rows) along a ladder of
+random reads, and the line re-rank (kernel C) at its path shapes, against
+yardsticks, on one CUDA card: the source of the cut between B's modes
+(SCAN_* in pqt_tpu_torch/ops/cuda/primitives.py), of the random-read rate
+H's rows are held to, and of the comparison of C with an older tree's.
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
-                                   [--only scan|lut|gather] [--cases NAME,...]
+                                   [--only scan|lut|gather|rerank]
+                                   [--cases NAME,...]
 
 The random-read ladder (`--only gather`) gathers rows of 8, 72 and 128
 bytes (the extent, SIFT1B payload and vector rows) at 2M and 512k uniform
@@ -22,13 +24,22 @@ same bytes for B; table[idx], the sectors' bound and, at a 2 GiB table,
 the same lookups in address order for E.  Prints one line per variant and
 writes them all to PATH as JSON, with the card's name and power limit.
 
+The line re-rank (`--only rerank`) runs chip_smoke.py's RERANK_SHAPES on
+the same seeded inputs: the old route (kernel H's payload rows, then kernel
+C over them, +inf where invalid), kernel C alone over those rows, and
+`gather_rerank` where the tree has it, each warm and cold (candidates
+drawn anew over rows read 256 MiB earlier), with a SHA-1 of the distances
+so that two trees' results can be compared to the bit; a shape a tree's
+kernel refuses is reported as refused.
+
 Run from the root of an older checkout whose block_scan or gather_rows has
-no plan (with this script and chip_smoke.py copied there), it times the
-wrappers as they are at the same shapes: the baseline of a comparison in
-one call.
+no plan, or that has no gather_rerank (with this script and chip_smoke.py
+copied there), it times the wrappers as they are at the same shapes: the
+baseline of a comparison in one call.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -196,6 +207,51 @@ def sweep_gather(torch, emit, cases=None):
     torch.cuda.empty_cache()
 
 
+def sweep_rerank(torch, emit, cases=None):
+    from pqt_tpu_torch.ops.cuda import gather as ga
+    from pqt_tpu_torch.ops.cuda import rerank as rr
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, (payload, draw, valid, q, compact), (b, k, lp, c1, _) in \
+            smoke.rerank_cases(torch, gen, cases):
+        n, w = payload.shape
+        pos = draw()
+        sets = [draw() for _ in range(
+            -(-smoke.COLD_SET_BYTES // (b * k * 4 * w)))]
+        touched = int(torch.unique(pos).numel())
+        case = {"kernel": "rerank", "case": name, "payload": [n, w],
+                "shape": [b, k], "lp": lp, "c1": c1, "compact": compact,
+                "bound_ms": smoke.bound(touched * 4 * w + b * k * 13
+                                        + b * lp * c1 * 4, 4 * b * k * lp)[0]}
+        rows = ga.gather_rows(payload, pos)
+        variants = [
+            ("old route", lambda p: smoke.old_line_route(
+                ga, rr, payload, p, valid, q, compact)),
+            ("C over gathered rows", None)]
+        if hasattr(rr, "gather_rerank"):
+            variants.append(("gather_rerank", lambda p: rr.gather_rerank(
+                payload, p, valid, q, compact)))
+        for label, fn in variants:
+            try:
+                if fn is None:
+                    d = rr.rerank_fused(rows, q, compact)
+                else:
+                    d = fn(pos)[1]
+            except NotImplementedError as e:
+                emit(dict(case, variant=label, refused=str(e)))
+                continue
+            r = dict(case, variant=label, dists_sha1=hashlib.sha1(
+                d.cpu().numpy().tobytes()).hexdigest())
+            if fn is None:
+                r["ms"] = smoke.device_ms(
+                    torch, lambda: rr.rerank_fused(rows, q, compact))
+            else:
+                r["ms"] = smoke.device_ms(torch, lambda: fn(pos))
+                r["cold_ms"] = smoke.rotating_ms(torch, fn, sets)
+            emit(r)
+        del payload, pos, sets, rows
+        torch.cuda.empty_cache()
+
+
 def main(json_path, only, cases):
     import torch
     if not torch.cuda.is_available():
@@ -212,10 +268,18 @@ def main(json_path, only, cases):
 
     def emit(r):
         rows.append(r)
-        extra = (f"cumsum {r['cumsum_ms']:.4f}  copy {r['copy_ms']:.4f}"
-                 if "cumsum_ms" in r
-                 else f"table[idx] {r['index_ms']:.4f}  sectors' bound "
-                      f"{r['sector_bound_ms']:.4f}")
+        if "refused" in r:
+            print(f"{r['kernel']:10s} {r['case']:32s} {r['variant']:28s} "
+                  f"refused: {r['refused']}", flush=True)
+            return
+        if "cumsum_ms" in r:
+            extra = f"cumsum {r['cumsum_ms']:.4f}  copy {r['copy_ms']:.4f}"
+        elif "index_ms" in r:
+            extra = (f"table[idx] {r['index_ms']:.4f}  sectors' bound "
+                     f"{r['sector_bound_ms']:.4f}")
+        else:
+            extra = (f"cold {r['cold_ms']:.4f}" if "cold_ms" in r else "") + \
+                f"  dists sha1 {r['dists_sha1'][:16]}"
         if "rows_per_s" in r:
             extra += (f"  {r['rows_per_s'] / 1e9:.2f} G rows/s  "
                       f"{r['sector_reads_per_s'] / 1e9:.2f} G sector "
@@ -230,6 +294,8 @@ def main(json_path, only, cases):
         sweep_lut(torch, emit, cases)
     if only in (None, "gather"):
         sweep_gather(torch, emit, cases)
+    if only in (None, "rerank"):
+        sweep_rerank(torch, emit, cases)
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
@@ -240,7 +306,7 @@ def main(json_path, only, cases):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH")
-    ap.add_argument("--only", choices=("scan", "lut", "gather"))
+    ap.add_argument("--only", choices=("scan", "lut", "gather", "rerank"))
     ap.add_argument("--cases", help="comma-separated case names to run")
     args = ap.parse_args()
     try:

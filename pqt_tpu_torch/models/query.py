@@ -15,10 +15,11 @@ Port of pqt_tpu/models/query.py.  Per batch of queries:
        a p-dimensional traversal over their ranks to bin ids, optionally
        pruned by the pair-occupancy table, then the occupancy lookup and
        compaction (`_enumerate_bins`), and the CSR starts of the kept bins;
-  3. candidate payload rows, as capped per-row positions or as slab windows
-     (`_collect_rows`);
-  4. line re-rank from the payload rows (kernel C), and top-k (kernel A);
-     or the exact re-rank from the raw vectors: by id, or, for an
+  3. candidate CSR positions, capped per row or as slab windows
+     (`_candidate_positions`);
+  4. line re-rank (kernel C: each candidate's payload row read once
+     through its position, its id and line distance written), and top-k
+     (kernel A); or the exact re-rank from the raw vectors: by id, or, for an
      out-of-core database, from `vectors_csr` by CSR position
      (`query_core_exact`, and the refine's second stage), each candidate's
      row read once through its position and its squared distance written
@@ -30,10 +31,11 @@ one hash-range shard's, starting at that global slot.
 With duplicate masking off (`dedup_candidates=False`, the main path),
 every top-k and sort of a query is kernel A (ops/cuda/primitives.py, ties
 lowest index first, like `lax.top_k` and a stable sort), every prefix sum
-kernel B, every table lookup kernel E (`lut_gather`) and every gather of
-extent and payload rows kernel H (`gather_rows`), so bin ids, extents and
-candidate ids equal the JAX package's bit for bit given the same distance
-tables.  Duplicate
+kernel B, every table lookup kernel E (`lut_gather`), every gather of
+extent rows, and of the payload rows whose ids the exact re-rank reads,
+kernel H (`gather_rows`), and every line re-rank kernel C
+(`gather_rerank`), so bin ids, extents and candidate ids equal the JAX
+package's bit for bit given the same distance tables.  Duplicate
 masking sorts the candidate ids with `torch.sort` (ROADMAP.md queue 2).
 Queries run on the device of the tree and database tensors.  Bin-hash terms
 are uint32 values held in int64.
@@ -54,7 +56,7 @@ from pqt_tpu_torch.ops import binning, distseq
 from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
 from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk, block_scan,
                                                gather_sqdist)
-from pqt_tpu_torch.ops.cuda.rerank import rerank_fused
+from pqt_tpu_torch.ops.cuda.rerank import gather_rerank
 
 _INF = float("inf")
 
@@ -314,33 +316,46 @@ def _probe_parts(cfg: PQTConfig, tree: PQTree, counts, queries,
                            bin_offset=bin_offset, pair_occ=pair_occ)
 
 
-def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
-    """Candidate payload rows from the probed bins' extents.
+def _slabs(cfg: PQTConfig, start, cnt):
+    """(slab_starts, slab_valid) (B, T) of the slab windows over the probed
+    bins' extents, T = ceil(max_candidates / slab_size)."""
+    S = cfg.slab_size
+    return binning.gather_slabs(start, cnt, -(-cfg.max_candidates // S), S,
+                                cfg.max_vec_per_bin)
 
-    "rows" mode: capped per-row positions, one payload-row gather (kernel
-    H).  "slabs" mode: windows of slab_size consecutive rows per bin, one
-    gather of slab_size rows per window (H with a span).  Returns (rows
-    (B, K, W), valid (B, K), positions (B, K) int32 CSR row of each
-    candidate), K = max_candidates (rows mode, positions 0 where invalid)
-    or its slab-rounded size (slabs mode: an invalid slot's position may
-    lie past the payload's end when the payload is shorter than a slab).
+
+def _candidate_positions(cfg: PQTConfig, n_rows: int, start, cnt):
+    """The candidates' CSR positions from the probed bins' extents, in a
+    payload of n_rows rows: (positions (B, K) int32, valid (B, K)).
+
+    "rows" mode: capped per-row positions, 0 where invalid, K =
+    max_candidates.  "slabs" mode: every row of windows of slab_size
+    consecutive rows per bin (`binning.slab_positions`), K the
+    slab-rounded size; an invalid slot's position lies past the payload's
+    end only when the payload is shorter than a slab.
     """
     if cfg.gather_mode == "slabs":
-        S = cfg.slab_size
-        T = -(-cfg.max_candidates // S)
-        slab_starts, slab_valid = binning.gather_slabs(
-            start, cnt, T, S, cfg.max_vec_per_bin)
-        rows, valid = binning.fetch_slab_rows(payload, slab_starts,
-                                              slab_valid, S)
-        # row i of slab t sits at CSR position min(start, N - S) + i
-        eff = torch.clamp_max(slab_starts, max(payload.shape[0] - S, 0))
-        positions = (eff[..., None] + torch.arange(
-            S, dtype=torch.int32, device=eff.device)).reshape(rows.shape[:2])
-        return rows, valid, positions
+        return binning.slab_positions(n_rows, *_slabs(cfg, start, cnt),
+                                      cfg.slab_size)
     positions, valid = binning.gather_candidates(
         start, cnt, cfg.max_candidates, cfg.max_vec_per_bin)
-    safe_pos = torch.where(valid, positions, 0)
-    return gather_rows(payload, safe_pos), valid, safe_pos
+    return torch.where(valid, positions, 0), valid
+
+
+def _collect_rows(cfg: PQTConfig, payload: torch.Tensor, start, cnt):
+    """The candidates' payload rows, for the exact re-rank's ids: one
+    payload-row gather (kernel H) at the capped per-row positions, or of
+    slab_size rows per slab window (H with a span).  Returns (rows (B, K,
+    W), valid (B, K), positions (B, K) int32), as `_candidate_positions`."""
+    if cfg.gather_mode == "slabs":
+        slabs = _slabs(cfg, start, cnt)
+        rows, valid = binning.fetch_slab_rows(payload, *slabs,
+                                              cfg.slab_size)
+        positions, _ = binning.slab_positions(payload.shape[0], *slabs,
+                                              cfg.slab_size)
+        return rows, valid, positions
+    positions, valid = _candidate_positions(cfg, payload.shape[0], start, cnt)
+    return gather_rows(payload, positions), valid, positions
 
 
 def _top_ids(dists: torch.Tensor, cand_ids: torch.Tensor, k: int):
@@ -352,26 +367,30 @@ def _top_ids(dists: torch.Tensor, cand_ids: torch.Tensor, k: int):
     return torch.where(torch.isfinite(top_d), ids, -1), top_d
 
 
+def _line_candidates(cfg: PQTConfig, tree: PQTree, payload, queries,
+                     positions: torch.Tensor, valid: torch.Tensor):
+    """Kernel C over the candidates at `positions` (B, K) int32: each
+    payload row read once, (cand_ids (B, K) the rows' ids, line distances
+    (B, K), +inf where invalid)."""
+    q_line = line_tables(cfg, tree, queries).contiguous()   # (B, lp, c1)
+    return gather_rerank(payload, positions.contiguous(), valid.contiguous(),
+                         q_line, cfg.payload_is_compact)
+
+
 def _line_rerank(cfg: PQTConfig, tree: PQTree, payload, queries, start, cnt,
                  k: int, want_candidates: bool):
-    """Candidate rows, line distances (kernel C) and top-k (kernel A): the
-    shared tail of both pipelines' cores."""
-    rows, valid, positions = _collect_rows(cfg, payload, start, cnt)
-    cand_ids = rows[..., 0]
-    dists = torch.where(valid, _line_dists(cfg, tree, queries, rows), _INF)
+    """Candidate positions, ids and line distances (kernel C) and top-k
+    (kernel A): the shared tail of both pipelines' cores."""
+    positions, valid = _candidate_positions(cfg, payload.shape[0], start,
+                                            cnt)
+    cand_ids, dists = _line_candidates(cfg, tree, payload, queries,
+                                       positions, valid)
     if cfg.dedup_candidates:
         dists = _mask_duplicate_candidates(cand_ids, valid, dists)
     n_cand = torch.sum(valid, dim=-1)
     if want_candidates:
         return cand_ids, dists, n_cand, positions
     return _top_ids(dists, cand_ids, k) + (n_cand,)
-
-
-def _line_dists(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
-                rows: torch.Tensor) -> torch.Tensor:
-    """Line distances (kernel C) of payload rows (B, K, W): (B, K)."""
-    q_line = line_tables(cfg, tree, queries).contiguous()   # (B, lp, c1)
-    return rerank_fused(rows, q_line, cfg.payload_is_compact)
 
 
 def query_core_pair(cfg: PQTConfig, tree: PQTree, prefix2, payload,

@@ -13,10 +13,11 @@ and compacted to max_bins non-empty bins.
 On the card: every top-k is kernel A (stage 2 at SIFT1B_CONFIG's widths
 keeps 32768 of each 65536-wide row, kernel A's merge mode), the counts and
 CSR starts of the enumerated bins are kernel E, the compaction and the
-candidate positions kernel B, the payload rows kernel H and the line
-re-rank kernel C; the perfect variant reads the survivors' raw vectors and
-sums their squared distances in one kernel (`gather_sqdist`).  As in the
-JAX package, the BIG path uses no pair_occ.
+candidate positions kernel B, and the line re-rank kernel C, which reads
+each candidate's payload row once through its position; the perfect
+variant reads the survivors' raw vectors and sums their squared distances
+in one kernel (`gather_sqdist`).  As in the JAX package, the BIG path
+uses no pair_occ.
 Stage 2 needs p = 4 (two part-pairs); an odd p, or the perfect variant
 without db.vectors, raises ValueError.
 """
@@ -27,14 +28,14 @@ import torch
 
 from pqt_tpu_torch.config import PQTConfig
 from pqt_tpu_torch.models.db import PQTDatabase
-from pqt_tpu_torch.models.query import (QueryResult, _INF, _line_dists,
+from pqt_tpu_torch.models.query import (QueryResult, _INF, _line_candidates,
                                         _local_bins,
                                         _mask_duplicate_candidates, _pad_k,
                                         _row_sqdist, _sorted_part_lists,
                                         _top_ids, _topk)
 from pqt_tpu_torch.models.tree import PQTree
 from pqt_tpu_torch.ops import binning
-from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
+from pqt_tpu_torch.ops.cuda.gather import lut_gather
 
 
 def _pair_merge(cfg: PQTConfig, sorted_d2: torch.Tensor,
@@ -101,9 +102,9 @@ def query_big_core(cfg: PQTConfig, tree: PQTree, prefix, counts, payload,
     positions, valid = binning.gather_candidates(
         lut_gather(prefix, bins.contiguous()), bin_counts,
         cfg.max_candidates, cfg.max_vec_per_bin)
-    rows = gather_rows(payload, torch.where(valid, positions, 0))
-    cand_ids = rows[..., 0]
-    dists = torch.where(valid, _line_dists(cfg, tree, queries, rows), _INF)
+    cand_ids, dists = _line_candidates(cfg, tree, payload, queries,
+                                       torch.where(valid, positions, 0),
+                                       valid)
     if cfg.dedup_candidates:
         dists = _mask_duplicate_candidates(cand_ids, valid, dists)
     return _top_ids(dists, cand_ids, min(k, cfg.max_candidates)) + (

@@ -12,8 +12,9 @@ Port of pqt_tpu/ops/binning.py (the parts this slice runs).
     placed by an exclusive prefix sum (kernel B) instead of the TPU's sort.
   * candidate positions: a searchsorted over the inclusive prefix (kernel B)
     of the capped per-bin counts, instead of the TPU's sort-merge; slab
-    windows the same way at slab granularity, and the slab rows by the row
-    gather (kernel H) with a span.
+    windows the same way at slab granularity, their rows' positions
+    (`slab_positions`, which the line re-rank reads by), and the slab rows
+    by the row gather (kernel H) with a span.
 """
 
 from __future__ import annotations
@@ -154,24 +155,40 @@ def gather_slabs(prefix_of_bins: torch.Tensor, counts_of_bins: torch.Tensor,
             torch.where(in_budget, valid, 0))
 
 
+def slab_positions(n_rows: int, slab_starts: torch.Tensor,
+                   slab_valid: torch.Tensor, slab_size: int):
+    """Every row of every slab window, as `fetch_slab_rows` places them:
+    (positions (B, T*S) int32 CSR rows, valid (B, T*S) bool).
+
+    A window that would run past the payload's end (n_rows rows) is shifted
+    left to end there, and its validity window shifts with it, so the valid
+    rows are the same rows.  With a payload shorter than a slab, the rows
+    past its end lie outside it and are invalid.
+    """
+    B, T = slab_starts.shape
+    S = slab_size
+    eff = torch.clamp_max(slab_starts, max(n_rows - S, 0))
+    shift = slab_starts - eff                                # >= 0
+    i = torch.arange(S, dtype=torch.int32, device=slab_starts.device)
+    valid = (i >= shift[..., None]) & (i < (shift + slab_valid)[..., None])
+    return (eff[..., None] + i).reshape(B, T * S), valid.reshape(B, T * S)
+
+
 def fetch_slab_rows(payload: torch.Tensor, slab_starts: torch.Tensor,
                     slab_valid: torch.Tensor, slab_size: int):
     """The (S, W) payload window of every slab, as rows + validity.
 
     payload (N, W); slab_starts, slab_valid (B, T).  Returns (rows (B, T*S,
-    W), valid (B, T*S) bool).  A window that would run past the payload's
-    end is shifted left to end there, and its validity window shifts with
-    it, so the valid rows are the same rows.
+    W), valid (B, T*S) bool), windows placed as `slab_positions` places
+    them; a payload shorter than a slab is padded with zero rows.
     """
     B, T = slab_starts.shape
     N, W = payload.shape
     S = slab_size
     eff = torch.clamp_max(slab_starts, max(N - S, 0))
-    shift = slab_starts - eff                                # >= 0
     rows = gather_rows(payload, eff.contiguous(), span=min(S, N)).reshape(
         B, T, min(S, N), W)
     if S > N:                               # a payload shorter than a slab
         rows = torch.nn.functional.pad(rows, (0, 0, 0, S - N))
-    i = torch.arange(S, dtype=torch.int32, device=slab_starts.device)
-    valid = (i >= shift[..., None]) & (i < (shift + slab_valid)[..., None])
-    return rows.reshape(B, T * S, W), valid.reshape(B, T * S)
+    _, valid = slab_positions(N, slab_starts, slab_valid, S)
+    return rows.reshape(B, T * S, W), valid

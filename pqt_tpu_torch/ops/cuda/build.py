@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels of `pqt_tpu_torch/csrc`.
 
 The sources: `topk.cu` (kernel A, row top-k), `scan.cu` (B, row prefix
-sums), `rerank.cu` (C, line re-rank), `reduce.cu` (D, segment sums),
-`lut.cu` (E/F/G, table lookup), `gather.cu` (H, row gather) and
+sums), `rerank.cu` (C, line re-rank by position), `reduce.cu` (D, segment
+sums), `lut.cu` (E/F/G, table lookup), `gather.cu` (H, row gather) and
 `sqdist.cu` (H and D fused for the exact re-rank).  Each `.cu` source has a
 plain C interface and is compiled by `nvcc` into its
 own shared library for Hopper (`sm_90a`), then loaded with ctypes.  No
@@ -47,8 +47,9 @@ _SIGNATURES = {
                                      _I),
              "pqt_block_scan_onepass": ((_P, _I, _L, _I, _I, _P,
                                          ctypes.c_uint, _P, _P), _I)},
-    "rerank": {"pqt_rerank_fused": ((_P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                     _P), _I)},
+    "rerank": {"pqt_gather_rerank": ((_P, _I, _I, _P, _P, _I, _I, _P, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                      _P, _P), _I)},
     "reduce": {"pqt_segmented_reduce": ((_P, _I, _I, _I, _I, _I, _I, _P, _P),
                                         _I)},
     "lut": {"pqt_lut_gather": ((_P, _L, _I, _P, _L, _P, _P), _I)},

@@ -93,7 +93,7 @@ def unpack_payload_rows(rows: torch.Tensor, line_parts: int, compact: bool):
         a, b, lam = unpack_codes(words)
         return ids, a, b, lam, t3
     part16 = torch.stack([words & 0xFFFF, words >> 16], dim=-1).reshape(
-        rows.shape[:-1] + (-1,))[..., :line_parts]
+        rows.shape[:-1] + (2 * words.shape[-1],))[..., :line_parts]
     a = (part16 & 0xF).to(torch.int32)
     b = ((part16 >> 4) & 0xF).to(torch.int32)
     lam = triangle.u8_to_lambda((part16 >> 8) & 0xFF)
