@@ -51,7 +51,22 @@ Phases (any failure exits non-zero before the last line is printed):
      256) and perfect (refine_factor 8), each a path of its own; then the
      pair path's line mode over a rebuild with the wide payload, which
      must launch kernel C's wide mode;
-  7. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
+  7. on the same fixture: the split tree (trained on the 200k rows with
+     percent 0.3, all 1M routed by mark_dense_vectors_for, both members
+     built with raw vectors; line, exact and refine query_knn_split; the
+     artifacts saved and loaded, with results equal to those before; the
+     dense share and both members' occupancy printed), the multi-database
+     engine over the pair path's tree (group_parts 2, raw vectors, the
+     pair filter on; occurrence and distance line and exact
+     query_multi_knn; `_duplicate_stats` timed on one batch), its rebuild
+     with the payloads spilled to disk and placed on the card once (the
+     bytes uploaded equal the payloads', serving copies none, the results
+     equal the in-memory build's to the bit), and the command lines: the
+     fixture written as .bvecs and an .ivecs exact top-100, `convert` to
+     .umem, `create_db --mode full` at SIFT1M widths (hash 2^20) in chunks
+     of 250k with raw vectors, and `query --exact-rerank --groundtruth`,
+     its printed recall parsed;
+  8. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
      forced by the run time; the fixture scales its clusters with n as
      benchmarks/rehearsal_50m.py does): train on 200k, encode 2M-vector
      chunk files, merge them on the host into a spilled CSR database,
@@ -61,19 +76,22 @@ Phases (any failure exits non-zero before the last line is printed):
      perfect (vectors by id attached on the card); kernel A's merge mode
      must launch; encode, merge, save and load seconds, bin occupancy,
      peak device memory and host RSS are printed;
-  8. one JSON line of per-kernel results, the card line, and last
+  9. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
 
 Every kernel launch count is reset just before each path (4, 5, the slab
-variant of 5, each of 6, and 7's serving) and read just after it; a kernel
+variant of 5, each of 6, each serving of 7 and the command-line query, and
+8's serving) and read just after it; a kernel
 of that path with no launch fails the run (`gather_sqdist` on every path
 that serves exact, refine or BIG perfect), and so do launch counts or a
 recall that differ from the reference run's (REFERENCE_LAUNCHES,
 REFERENCE_RECALL).  Recall of every path is checked against an exact
 float64 brute force on the card: the SIFT1M paths against their
-thresholds (the BIG paths 0.03 below the JAX package's recall on the CPU,
-the wide payload's line top-10 at most 0.01 below the compact one's), the
-SIFT1B phase against its floors.
+thresholds (the BIG, split, multi-DB and command-line paths 0.03 below
+the JAX package's recall on the CPU, the split and the command line never
+below the pair path's thresholds, the wide payload's line top-10 at most
+0.01 below the compact one's), the SIFT1B phase against its floors.  Each
+path of 7 is profiled for one batch (device busy ms, idle share).
 
 Timings are the card's, with its name and power limit printed beside them.
 """
@@ -115,6 +133,32 @@ JAX_CPU_SLABS = {"exact_R@1": 0.9893, "candidate_recall": 0.9893,
 JAX_CPU_BIG = {"big_line_R@10": 0.8203, "big_line_top10_intersection": 0.7207,
                "big_perfect_R@1": 0.9902}
 THRESHOLDS.update({key: round(v - 0.03, 4) for key, v in JAX_CPU_BIG.items()})
+
+
+def _modes(**by_mode):
+    return {f"{mode}_{key}": v for mode, metrics in by_mode.items()
+            for key, v in metrics.items()}
+
+
+# The JAX package's recall on the CPU for the same fixture and budget
+# (jax_cpu_reference.py) on the split tree (query_knn_split line, exact and
+# refine), the multi-database engine over its pair-path tree (group_parts
+# 2, the pair filter on: occurrence and distance line, exact), and the
+# create_db/query command lines' flow (exact).  Each path is held 0.03
+# below it; the split and the command lines also never below the pair
+# path's threshold of a metric.  The multi-DB exact re-rank reaches less
+# than the pair path's (the JAX package's own 0.76 at this budget: two-part
+# groups' coarse bins, 512 candidates a group), so it keeps the JAX floor.
+JAX_CPU_SPLIT = _modes(
+    line={"R@1": 0.1318, "R@10": 0.8164, "top10_intersection": 0.7246},
+    exact={"R@1": 0.9863, "R@10": 0.9863, "top10_intersection": 0.9874},
+    refine={"R@1": 0.9854, "R@10": 0.9863, "top10_intersection": 0.9874})
+JAX_CPU_MULTIDB = _modes(
+    occurrence={"R@1": 0.1152, "R@10": 0.5049, "top10_intersection": 0.4886},
+    distance={"R@1": 0.1172, "R@10": 0.6846, "top10_intersection": 0.6322},
+    exact={"R@1": 0.7637, "R@10": 0.7637, "top10_intersection": 0.7617})
+JAX_CPU_CLI = _modes(exact={"R@1": 0.9893, "R@10": 0.9893,
+                            "top10_intersection": 0.9901})
 # The kernels of each path: a count of 0 on its run fails the smoke.  The
 # BIG paths launch no row gather: their line re-rank reads the payload rows
 # itself, and their bins come from lookups, not extent rows.
@@ -126,6 +170,12 @@ BIG_KERNELS = tuple(k for k in ALL_KERNELS if k != "gather_rows")
 # the exact re-rank's distances, kernels H and D fused: every path that
 # serves exact, refine or BIG perfect must launch it
 EXACT_KERNELS = ("gather_sqdist",)
+# the split path maps its members' ids through lookups (kernel E); the
+# multi-DB path reads its bins' starts by lookup, so it gathers no row;
+# the command-line query serves the pair path's exact mode
+SPLIT_KERNELS = ALL_KERNELS + EXACT_KERNELS
+MULTIDB_KERNELS = BIG_KERNELS + EXACT_KERNELS
+CLI_KERNELS = PAIR_KERNELS + EXACT_KERNELS
 # where the fused kernel appears in the per-kernel line: a mode of the rows
 # of the two TPU kernels it replaces on the exact re-rank
 SQDIST_ROWS = ("segmented_reduce", "gather_rows")
@@ -152,16 +202,18 @@ REFERENCE_LAUNCHES = {
     "pair_wide": (27, 18, 9, 27, 0, 9, 0, 9, 18, 0, 9),
     "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0),
     "sift1b": (891, 396, 165, 561, 264, 165, 99, 396, 429, 66, 0),
+    # phase 7's paths, from their first passing run on an H100 (NVIDIA
+    # H100 80GB HBM3, 700 W): split serving, multi-DB serving in memory
+    # and spilled, and the command-line query (its warm-up batch and four)
+    "split": (207, 108, 54, 162, 54, 54, 36, 99, 108, 0, 0),
+    "multidb": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0),
+    "multidb_spill": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0),
+    "cli": (20, 10, 5, 15, 5, 5, 5, 10, 10, 0, 0),
 }
 _EXACT_1M = {"R@1": 0.9931640625, "R@10": 0.9931640625,
              "top10_intersection": 0.99345703125}
 _REFINE_1M = dict(_EXACT_1M, top10_intersection=0.993359375)
 _LINE_1M = {"R@1": 0.1591796875, "R@10": 0.8115234375}
-
-
-def _modes(**by_mode):
-    return {f"{mode}_{key}": v for mode, metrics in by_mode.items()
-            for key, v in metrics.items()}
 
 
 REFERENCE_RECALL = {
@@ -190,6 +242,23 @@ REFERENCE_RECALL = {
 for _label in ("pair", "parts", "parts_slabs"):
     REFERENCE_RECALL[_label]["candidate_recall"] = 0.9931640625
 REFERENCE_RECALL["sift1b"]["candidate_recall"] = 1.0
+_SPLIT_EXACT = {"R@1": 0.9912109375, "R@10": 0.9912109375,
+                "top10_intersection": 0.99306640625}
+REFERENCE_RECALL["split"] = _modes(
+    line={"R@1": 0.12890625, "R@10": 0.8212890625,
+          "top10_intersection": 0.72041015625},
+    exact=_SPLIT_EXACT, refine=_SPLIT_EXACT)
+REFERENCE_RECALL["multidb"] = REFERENCE_RECALL["multidb_spill"] = _modes(
+    occurrence={"R@1": 0.1376953125, "R@10": 0.529296875,
+                "top10_intersection": 0.49267578125},
+    distance={"R@1": 0.150390625, "R@10": 0.693359375,
+              "top10_intersection": 0.62880859375},
+    exact={"R@1": 0.7666015625, "R@10": 0.7666015625,
+           "top10_intersection": 0.748046875})
+REFERENCE_RECALL["cli"] = _modes(exact={
+    "R@1": 0.986328125, "R@10": 0.986328125, "R@100": 0.986328125,
+    "top10_intersection": 0.9880859375,
+    "top100_intersection": 0.980751953125})
 
 N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
 # The SIFT1B phase: 10M vectors (a cut of SIFT1B's 10^9 forced by the
@@ -1457,6 +1526,12 @@ def read_launches(label, required, modes=()):
 def differs_from_reference(label, launches, recall=None):
     """What of a path's launch counts (and recall) differs from the
     reference run's; prints the verdict."""
+    if label not in REFERENCE_LAUNCHES or (
+            recall is not None and label not in REFERENCE_RECALL):
+        print(f"{label}: no reference run recorded; launches "
+              f"{[launches.get(k) for k in LAUNCH_KEYS]}, recall "
+              f"{json.dumps(recall)}", flush=True)
+        return [f"{label}: no reference run recorded"]
     want = dict(zip(LAUNCH_KEYS, REFERENCE_LAUNCHES[label]))
     diffs = [f"{label} launches of {k}: {launches.get(k)} (reference {v})"
              for k, v in want.items() if launches.get(k) != v]
@@ -1674,7 +1749,8 @@ def query_paths(torch, P):
     if changed:
         raise SmokeFailure(f"launch counts or recall differ from the "
                            f"reference run's: {changed}")
-    return summary
+    return summary, dict(cfg=cfg, tree=tree, data=data, queries=queries,
+                         qd=qd, gt=gt)
 
 
 def host_rss_gib():
@@ -1841,6 +1917,288 @@ def sift1b_phase(torch, P, workdir):
             "recall": metrics, "floors": floors, "profiles": profiles}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the split tree, the multi-database engine and the command lines,
+# on the SIFT1M fixture
+# ---------------------------------------------------------------------------
+
+def phase_checks(label, metrics, serving, jax_cpu, launches, base=None):
+    """A path's recall against its floors (0.03 below the JAX package's on
+    the CPU, and at least `base`'s threshold of a metric where given) and
+    its launch counts and recall against the reference run's: (below
+    floor, differing)."""
+    floors = {key: round(max(v - 0.03, (base or {}).get(key, 0.0)), 4)
+              for key, v in jax_cpu.items()}
+    failed = report(label, metrics, serving, jax_cpu, "JAX on the CPU",
+                    floors)
+    return failed, differs_from_reference(label, launches, metrics)
+
+
+def same_results(torch, a, b):
+    """Whether two runs' outputs (lists of QueryResult by mode) are equal to
+    the bit."""
+    return all(torch.equal(x.indices, y.indices) and
+               torch.equal(x.dists, y.dists)
+               for mode in a for x, y in zip(a[mode], b[mode]))
+
+
+def split_phase(torch, P, fx, workdir):
+    """The split tree: trained on the 200k training rows (percent 0.3),
+    every one of the 1M routed through mark_dense_vectors_for, both
+    members built with raw vectors on the card; line, exact and refine at
+    batch 256; then a save and a load whose results equal those before."""
+    from pqt_tpu_torch.models import split as S
+    from pqt_tpu_torch.utils.metrics import occupancy_histogram
+    cfg, data, qd = fx["cfg"], fx["data"], fx["qd"]
+    t0 = time.perf_counter()
+    sdb = S.build_split_database(cfg, data, 0.3, keep_vectors=True,
+                                 train_data=data[:N_TRAIN], device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    share = sdb.dense_ids.shape[0] / N_DB
+    occupancy = {m: occupancy_histogram(getattr(sdb, m + "_db").counts
+                                        .cpu().numpy())
+                 for m in ("dense", "sparse")}
+    print(f"split: train and build {build_s:.2f} s, dense share "
+          f"{share:.4f} ({sdb.dense_ids.shape[0]} of {N_DB}); occupancy "
+          f"{json.dumps(occupancy)}", flush=True)
+
+    def modes(s):
+        return {"line": lambda x: S.query_knn_split(cfg, s, x, K),
+                "exact": lambda x: S.query_knn_split(cfg, s, x, K, True),
+                "refine": lambda x: S.query_knn_split(cfg, s, x, K, False,
+                                                      True)}
+
+    path = serve_path(torch, "split path", modes(sdb), qd, SPLIT_KERNELS)
+    t_save = time.perf_counter()
+    base = os.path.join(workdir, "split")
+    S.save_split_database(base, cfg, sdb)
+    loaded = S.load_split_database(base, cfg, device="cuda")
+    again = {m: [fn(qd[s:s + BATCH]) for s in range(0, N_QUERIES, BATCH)]
+             for m, fn in modes(loaded).items()}
+    reload_equal = same_results(torch, path["outputs"], again)
+    save_load_s = time.perf_counter() - t_save
+    print(f"split: save and load {save_load_s:.2f} s; the "
+          f"loaded split's results "
+          f"{'equal' if reload_equal else 'DIFFER from'} those before",
+          flush=True)
+    metrics = path_recall(torch, "split", path["outputs"], fx["gt"])
+    print("split floors (the pair path's thresholds, or 0.03 below JAX on "
+          "the CPU where that is higher): " + json.dumps({
+              key: round(max(JAX_CPU_SPLIT[key] - 0.03, THRESHOLDS[key]), 4)
+              for key in ("exact_R@1", "line_top10_intersection",
+                          "refine_R@1")}), flush=True)
+    failed, changed = phase_checks("split", metrics, path["serving"],
+                                   JAX_CPU_SPLIT, path["launches"],
+                                   THRESHOLDS)
+    if not reload_equal:
+        failed.append("split: the loaded split's results differ")
+    profiles = {m: profile_batch(torch, fn, qd[:BATCH])
+                for m, fn in modes(sdb).items()}
+    for m, pr in profiles.items():
+        print(f"profile split {m}: " + json.dumps(pr), flush=True)
+    return dict(build_s=build_s, dense_share=share, occupancy=occupancy,
+                save_load_s=save_load_s, reload_equal=reload_equal,
+                launches=path["launches"], serving=path["serving"],
+                recall=metrics, profiles=profiles), failed, changed
+
+
+def multidb_modes(M, cfg, tree, mdb):
+    return {"occurrence": lambda x: M.query_multi_knn(cfg, tree, mdb, x, K),
+            "distance": lambda x: M.query_multi_knn(
+                cfg.replace(multidb_rank="distance"), tree, mdb, x, K),
+            "exact": lambda x: M.query_multi_knn(cfg, tree, mdb, x, K,
+                                                 True)}
+
+
+def multidb_phase(torch, P, fx, workdir):
+    """The multi-database engine over the pair path's tree: group_parts 2,
+    raw vectors, the pair filter on; occurrence and distance line and exact
+    at batch 256; `_duplicate_stats` timed on one batch's candidates; then
+    a rebuild whose payloads spill to disk, placed on the card once, whose
+    results equal the in-memory build's to the bit, and whose serving
+    copies no host bytes."""
+    from pqt_tpu_torch.models import db as D
+    from pqt_tpu_torch.models import multidb as M
+    from pqt_tpu_torch.utils.metrics import occupancy_histogram
+    cfg, tree, data, qd = (fx["cfg"].replace(pair_filter=True), fx["tree"],
+                           fx["data"], fx["qd"])
+    t0 = time.perf_counter()
+    mdb = M.build_multi_database(cfg, tree, data, 2, keep_vectors=True,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    occupancy = [occupancy_histogram(d.counts.cpu().numpy())
+                 for d in mdb.databases]
+    print(f"multidb: build {build_s:.2f} s, {mdb.n_groups} groups, "
+          f"occupancy {json.dumps(occupancy)}", flush=True)
+    path = serve_path(torch, "multi-DB path",
+                      multidb_modes(M, cfg, tree, mdb), qd, MULTIDB_KERNELS)
+    metrics = path_recall(torch, "multidb", path["outputs"], fx["gt"])
+    failed, changed = phase_checks("multidb", metrics, path["serving"],
+                                   JAX_CPU_MULTIDB, path["launches"])
+    profiles = {m: profile_batch(torch, fn, qd[:BATCH])
+                for m, fn in multidb_modes(M, cfg, tree, mdb).items()
+                if m in ("occurrence", "exact")}
+    for m, pr in profiles.items():
+        print(f"profile multidb {m}: " + json.dumps(pr), flush=True)
+    # the dedup's share of a batch: its inputs caught on one query
+    caught = {}
+    dup_stats = M._duplicate_stats
+    M._duplicate_stats = lambda c, v: caught.update(c=c, v=v) or \
+        dup_stats(c, v)
+    try:
+        M.query_multi_knn(cfg, tree, mdb, qd[:BATCH], K)
+    finally:
+        M._duplicate_stats = dup_stats
+    dup_ms = device_ms(torch, lambda: dup_stats(caught["c"], caught["v"]))
+    busy = profiles["occurrence"].get("device_busy_ms")
+    print(f"multidb: _duplicate_stats on a batch's {tuple(caught['c'].shape)}"
+          f" candidates {dup_ms:.4f} ms of the occurrence batch's "
+          f"{busy if busy is None else f'{busy:.4f}'} ms device busy",
+          flush=True)
+
+    t0 = time.perf_counter()
+    host = M.build_multi_database(cfg, tree, data, 2, keep_vectors=True,
+                                  spill_path=os.path.join(workdir, "mdb"),
+                                  device="cuda")
+    spill_s = time.perf_counter() - t0
+    if not all(isinstance(d.payload, np.memmap) for d in host.databases):
+        failed.append("multidb_spill: the payloads are not on disk")
+    payload_bytes = sum(d.payload.nbytes for d in host.databases)
+    before = D.to_device.bytes_copied
+    placed = M.place_multi_database(host, "cuda")
+    torch.cuda.synchronize()
+    uploaded = D.to_device.bytes_copied - before
+    before = D.to_device.bytes_copied
+    spilled = serve_path(torch, "spilled multi-DB path",
+                         multidb_modes(M, cfg, tree, placed), qd,
+                         MULTIDB_KERNELS)
+    copied = D.to_device.bytes_copied - before
+    equal = same_results(torch, path["outputs"], spilled["outputs"])
+    print(f"multidb_spill: build {spill_s:.2f} s, {payload_bytes} payload "
+          f"bytes on disk, {uploaded} bytes uploaded once, {copied} bytes "
+          f"copied while serving; results "
+          f"{'equal' if equal else 'DIFFER from'} the in-memory build's",
+          flush=True)
+    if uploaded != payload_bytes or copied != 0:
+        failed.append("multidb_spill: the payload was not uploaded exactly "
+                      "once")
+    if not equal:
+        failed.append("multidb_spill: results differ from the in-memory "
+                      "build's")
+    changed += differs_from_reference("multidb_spill", spilled["launches"],
+                                      path_recall(torch, "multidb_spill",
+                                                  spilled["outputs"],
+                                                  fx["gt"]))
+    return (dict(build_s=build_s, occupancy=occupancy,
+                 launches=path["launches"], serving=path["serving"],
+                 recall=metrics, profiles=profiles,
+                 duplicate_stats_ms=dup_ms),
+            dict(build_s=spill_s, payload_bytes=payload_bytes,
+                 uploaded_bytes=uploaded, serving_copied_bytes=copied,
+                 launches=spilled["launches"], serving=spilled["serving"]),
+            failed, changed)
+
+
+def run_main(main_fn, argv):
+    """A command line's main in this process, its printed lines echoed."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"  | {line}", flush=True)
+    return text
+
+
+def cli_phase(torch, P, fx, workdir):
+    """The command lines on the fixture: .bvecs base and queries and an
+    .ivecs exact top-100 written, `convert` to .umem, `create_db --mode
+    full` at SIFT1M widths (hash 2^20) in chunks of 250k with raw vectors,
+    and `query --exact-rerank --groundtruth` at 512 bins, 1024 candidates,
+    batch 256, all in this process; its printed recall is parsed."""
+    import ast
+    import re
+    from pqt_tpu_torch.io import texmex
+    from pqt_tpu_torch.tools import convert, create_db, query
+    d = os.path.join(workdir, "cli")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    texmex.write_xvecs(f"{d}/base.bvecs", fx["data"])
+    texmex.write_xvecs(f"{d}/query.bvecs", fx["queries"].astype(np.uint8))
+    texmex.write_xvecs(f"{d}/gt.ivecs", fx["gt"].astype(np.int32))
+    times = {"write_s": time.perf_counter() - t0}
+    widths = ["--p", "4", "--c1", "16", "--c2", "16", "--lineparts", "16",
+              "--hashsize", str(1 << 20)]
+    t0 = time.perf_counter()
+    run_main(convert.main, ["--src", f"{d}/base.bvecs", "--dst",
+                            f"{d}/base.umem"])
+    times["convert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_main(create_db.main, [
+        "--dataset", f"{d}/base.umem", "--basename", f"{d}/sift",
+        "--chunksize", "250000", "--train-size", str(N_TRAIN),
+        "--kmeans-iters", "8", "--keep-vectors", "--device", "cuda"]
+        + widths)
+    times["create_db_s"] = time.perf_counter() - t0
+    reset_launches(torch)
+    t0 = time.perf_counter()
+    out = run_main(query.main, [
+        "--basename", f"{d}/sift", "--queries", f"{d}/query.bvecs",
+        "--groundtruth", f"{d}/gt.ivecs", "--dim", "128", "--k", str(K),
+        "--k1", "8", "--maxbins", "512", "--candidates", "1024", "--batch",
+        str(BATCH), "--exact-rerank", "--device", "cuda"] + widths)
+    times["query_s"] = time.perf_counter() - t0
+    launches = read_launches("command-line query", CLI_KERNELS)
+    printed = ast.literal_eval(re.search(r"recall: (\{.*\})", out).group(1))
+    metrics = {f"exact_{k}": v for k, v in printed.items()}
+    qps = float(re.search(r"-> (\d+) QPS", out).group(1))
+    print(f"cli: write {times['write_s']:.1f} s, convert "
+          f"{times['convert_s']:.1f} s, create_db {times['create_db_s']:.1f}"
+          f" s, query {times['query_s']:.1f} s ({qps:.0f} QPS printed)",
+          flush=True)
+    failed, changed = phase_checks("cli", metrics, {}, JAX_CPU_CLI,
+                                   launches, THRESHOLDS)
+    qcfg = P.PQTConfig(dim=128, p=4, c1=16, c2=16, line_parts=16,
+                       hash_size=1 << 20, k1_build=16, k1_query=8,
+                       max_bins=512, max_candidates=1024)
+    tree = P.load_tree(f"{d}/sift_128_4_16_16.tree.npz", qcfg,
+                       device="cuda")
+    db = P.load_database(f"{d}/sift_128_4_16_16.db.npz", qcfg,
+                         device="cuda")
+    profile = profile_batch(
+        torch, lambda x: P.query_knn(qcfg, tree, db, x, K, True),
+        fx["qd"][:BATCH])
+    print("profile cli exact: " + json.dumps(profile), flush=True)
+    return (dict(times=times, qps=qps, launches=launches, recall=metrics,
+                 profiles={"exact": profile}), failed, changed)
+
+
+def phase7_paths(torch, P, fx):
+    """Phase 7: split, multi-DB (in memory, then spilled) and the command
+    lines, each with the launch counts reset just before it; one failure
+    message for all of them at the end."""
+    out, failed, changed = {}, [], []
+    with tempfile.TemporaryDirectory(prefix="pqt_smoke_") as workdir:
+        out["split"], f, c = split_phase(torch, P, fx, workdir)
+        failed, changed = failed + f, changed + c
+        out["multidb"], out["multidb_spill"], f, c = multidb_phase(
+            torch, P, fx, workdir)
+        failed, changed = failed + f, changed + c
+        out["cli"], f, c = cli_phase(torch, P, fx, workdir)
+        failed, changed = failed + f, changed + c
+    if failed:
+        raise SmokeFailure(f"split, multi-DB or command-line path failed: "
+                           f"{failed}")
+    if changed:
+        raise SmokeFailure(f"launch counts or recall differ from the "
+                           f"reference run's: {changed}")
+    return out
+
+
 # kernel E/F/G rows: one CUDA kernel stands for the three TPU lookups
 LUT_ROWS = (("lut_gather", "benchmarks/micro_gather.py:32"),
             ("lut_gather:lut_2d", "benchmarks/micro_gather2.py:39"),
@@ -1906,11 +2264,15 @@ def main(json_path=None):
           "re-ranks in every mode and copy unit): equal to their plain "
           "versions", flush=True)
 
-    summary = query_paths(torch, P)
+    summary, fixture = query_paths(torch, P)
+    summary.update(phase7_paths(torch, P, fixture))
+    del fixture
     peak_before = torch.cuda.max_memory_allocated()
     with tempfile.TemporaryDirectory(prefix="pqt_sift1b_") as workdir:
         summary["sift1b"] = sift1b_phase(torch, P, workdir)
     runs = [p["launches"] for p in summary["paths"].values()] + [
+        summary[label]["launches"]
+        for label in ("split", "multidb", "multidb_spill", "cli")] + [
         summary["sift1b"]["build_launches"], summary["sift1b"]["launches"]]
     launches = {c.__name__: sum(r[c.__name__] for r in runs)
                 for c in counters()}

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Recall of the JAX package (pqt_tpu) on the CPU, on chip_smoke.py's SIFT1M
-fixture and budget: the reference the port's BIG path is held to there.
+fixture and budget: the references the port's BIG, parts, split, multi-DB
+and command-line paths are held to there.
 
 Run from the repository root (needs JAX; takes some minutes and a few GiB
 of host RAM):
@@ -16,8 +17,18 @@ table, and serves the queries in batches of 256, k = 100, through
 `query_big_knn` (n_intermediate 256) and `query_big_knn_perfect`
 (refine_factor 8), and through the parts pipeline with the pair filter
 (exact and line `query_knn`, `query_candidates`), in rows and in slab
-mode (32 rows a slab).  It prints R@1, R@10 and the top-10 intersection of
-each, and the candidate recall, against an exact float64 brute force.
+mode (32 rows a slab).  It also runs the split tree (trained on the first
+200k with percent 0.3, every vector routed by `mark_dense_vectors_for`,
+both members with raw vectors; `query_knn_split` line, exact and refine),
+the multi-database engine over the pair path's tree (group_parts 2, raw
+vectors, the pair filter on; `query_multi_knn` occurrence and distance
+line and exact), and the create_db/query command lines' flow (SIFT1M
+widths with hash 2^20, a tree trained on 200k rows read as create_db reads
+them, 64 blocks spread over the file, the query tool's config with 512
+bins, 1024 candidates and k1 8; exact re-rank).  It prints R@1, R@10 and
+the top-10 intersection of each, and the candidate recall, against an
+exact float64 brute force.  `--paths` runs a subset (pair, split,
+multidb, cli; all by default).
 The JAX package trains with its own random draws, so its tree is not the
 port's; the numbers are the level the port should reach, not its bits.
 """
@@ -50,13 +61,23 @@ def exact_knn(queries: np.ndarray, data: np.ndarray, k: int) -> np.ndarray:
     return best_i
 
 
-def main(json_path=None):
+def cli_train_rows(n, n_train, n_blocks=64):
+    """The rows create_db's read_train_sample reads from an n-row file."""
+    n_blocks = min(n_blocks, max(1, n_train // 1024))
+    per, stride = n_train // n_blocks, n // n_blocks
+    return np.concatenate([np.arange(i * stride, i * stride + per)
+                           for i in range(n_blocks)])
+
+
+def main(json_path=None, paths=("pair", "split", "multidb", "cli")):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import pqt_tpu as P
     from pqt_tpu.models.query import query_candidates
+    from pqt_tpu.models.multidb import build_multi_database, query_multi_knn
     from pqt_tpu.models.query_big import query_big_knn, query_big_knn_perfect
+    from pqt_tpu.models.split import build_split_database, query_knn_split
     from pqt_tpu.utils.metrics import (candidate_recall, intersection_at,
                                        recall_at)
 
@@ -69,23 +90,62 @@ def main(json_path=None):
     queries = make_queries(N_QUERIES, subcenters, rng)
     t0 = time.perf_counter()
     tree = P.train_tree(cfg, data[:N_TRAIN])
-    db = P.build_database(cfg.replace(pair_filter=True), tree, data,
-                          keep_vectors=True, encode_chunk=16384)
-    print(f"train + build {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"train {time.perf_counter() - t0:.1f} s", flush=True)
     gt = exact_knn(queries, data, K)
-    parts = cfg.replace(pipeline="parts", pair_filter=True)
-    slabs = parts.replace(gather_mode="slabs", slab_size=32)
-    modes = {
-        "big_line": lambda x: query_big_knn(cfg, tree, db, x, K, 256),
-        "big_perfect": lambda x: query_big_knn_perfect(cfg, tree, db, x, K,
-                                                       8, 256),
-    }
-    for name, c in (("parts", parts), ("parts_slabs", slabs)):
-        modes[f"{name}_exact"] = (
-            lambda x, c=c: P.query_knn(c, tree, db, x, K, True))
-        modes[f"{name}_line"] = lambda x, c=c: P.query_knn(c, tree, db, x, K)
-        modes[f"{name}_candidates"] = (
-            lambda x, c=c: query_candidates(c, tree, db, x))
+    modes = {}
+    if "pair" in paths:
+        db = P.build_database(cfg.replace(pair_filter=True), tree, data,
+                              keep_vectors=True, encode_chunk=16384)
+        parts = cfg.replace(pipeline="parts", pair_filter=True)
+        slabs = parts.replace(gather_mode="slabs", slab_size=32)
+        modes["big_line"] = lambda x: query_big_knn(cfg, tree, db, x, K, 256)
+        modes["big_perfect"] = lambda x: query_big_knn_perfect(
+            cfg, tree, db, x, K, 8, 256)
+        for name, c in (("parts", parts), ("parts_slabs", slabs)):
+            modes[f"{name}_exact"] = (
+                lambda x, c=c: P.query_knn(c, tree, db, x, K, True))
+            modes[f"{name}_line"] = (
+                lambda x, c=c: P.query_knn(c, tree, db, x, K))
+            modes[f"{name}_candidates"] = (
+                lambda x, c=c: query_candidates(c, tree, db, x))
+    if "split" in paths:
+        t0 = time.perf_counter()
+        sdb = build_split_database(cfg, data, 0.3, keep_vectors=True,
+                                   encode_chunk=16384,
+                                   train_data=data[:N_TRAIN])
+        print(f"split build {time.perf_counter() - t0:.1f} s, dense share "
+              f"{sdb.dense_ids.shape[0] / N_DB:.4f}", flush=True)
+        modes["split_line"] = lambda x: query_knn_split(cfg, sdb, x, K)
+        modes["split_exact"] = lambda x: query_knn_split(cfg, sdb, x, K,
+                                                         True)
+        modes["split_refine"] = lambda x: query_knn_split(cfg, sdb, x, K,
+                                                          False, True)
+    if "multidb" in paths:
+        t0 = time.perf_counter()
+        mdb = build_multi_database(cfg, tree, data, 2, encode_chunk=16384,
+                                   keep_vectors=True)
+        print(f"multidb build {time.perf_counter() - t0:.1f} s", flush=True)
+        mcfg = cfg.replace(pair_filter=True)
+        modes["multidb_occurrence"] = lambda x: query_multi_knn(
+            mcfg, tree, mdb, x, K)
+        modes["multidb_distance"] = lambda x: query_multi_knn(
+            mcfg.replace(multidb_rank="distance"), tree, mdb, x, K)
+        modes["multidb_exact"] = lambda x: query_multi_knn(mcfg, tree, mdb,
+                                                           x, K, True)
+    if "cli" in paths:
+        # create_db's and query's configs for the smoke's flags
+        ccfg = P.PQTConfig(dim=128, p=4, c1=16, c2=16, line_parts=16,
+                           hash_size=1 << 20, kmeans_iters=8, k1_build=16,
+                           k1_query=8)
+        t0 = time.perf_counter()
+        ctree = P.train_tree(ccfg, data[cli_train_rows(N_DB, N_TRAIN)])
+        cdb = P.build_database(ccfg, ctree, data, keep_vectors=True,
+                               encode_chunk=16384)
+        print(f"cli train + build {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        qcfg = ccfg.replace(max_bins=512, max_candidates=1024)
+        modes["cli_exact"] = lambda x: P.query_knn(qcfg, ctree, cdb, x, K,
+                                                   True)
     out = {}
     for name, fn in modes.items():
         res = [fn(jnp.asarray(queries[s:s + BATCH]))
@@ -107,4 +167,8 @@ def main(json_path=None):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH")
-    main(ap.parse_args().json)
+    ap.add_argument("--paths", nargs="+",
+                    default=["pair", "split", "multidb", "cli"],
+                    choices=["pair", "split", "multidb", "cli"])
+    args = ap.parse_args()
+    main(args.json, tuple(args.paths))

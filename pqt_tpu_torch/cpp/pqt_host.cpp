@@ -1,14 +1,17 @@
 // Native host runtime of pqt_tpu_torch: the CSR assembly of the out-of-core
-// database build, in one stable counting sort, and the row moves around it.
+// database build, in one stable counting sort, the row moves around it, and
+// the TexMex readers' header strip and uint8 widening.
 //
 // The port's own copy of the JAX package's host runtime (the entry points
-// the out-of-core build needs: build_csr, gather_rows, place_positions,
-// scatter_rows), so that the port depends on nothing of that package.
+// the out-of-core build and the dataset readers need: build_csr,
+// gather_rows, place_positions, scatter_rows, strip_xvecs, u8_to_f32), so
+// that the port depends on nothing of that package.
 // NumPy's argsort is O(n log n) on one core and its fancy indexing is
 // single-threaded; at 1e8+ rows both dominate the merge, so these run
 // natively, the row moves with OpenMP.  io/native.py builds this file with
 // g++ at first use and keeps a NumPy plain version of every entry point.
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 
@@ -70,6 +73,33 @@ void pqt_scatter_rows(const uint8_t* src, const int64_t* pos, int64_t n,
 #pragma omp parallel for schedule(static)
   for (int64_t i = 0; i < n; ++i)
     std::memcpy(dst + pos[i] * row_bytes, src + i * row_bytes, row_bytes);
+}
+
+// Strip the TexMex per-row headers: n rows of an .fvecs/.bvecs/.ivecs file,
+// each an int32 dim followed by dim elements of elem_bytes, into a dense
+// (n, dim) array.  Returns 0, or -1 when a row's dim is not `dim`.
+int pqt_strip_xvecs(const uint8_t* src, int64_t n, int64_t dim,
+                    int64_t elem_bytes, uint8_t* out) {
+  const int64_t row_in = 4 + dim * elem_bytes;
+  const int64_t row_out = dim * elem_bytes;
+  std::atomic<int> bad{0};
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t d;
+    std::memcpy(&d, src + i * row_in, 4);
+    if (d != dim) {
+      bad.store(1);
+      continue;
+    }
+    std::memcpy(out + i * row_out, src + i * row_in + 4, row_out);
+  }
+  return bad.load() ? -1 : 0;
+}
+
+// uint8 -> float32 widening of n values.
+void pqt_u8_to_f32(const uint8_t* src, int64_t n, float* out) {
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) out[i] = (float)src[i];
 }
 
 int pqt_num_threads() {

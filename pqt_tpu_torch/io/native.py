@@ -4,6 +4,9 @@ The out-of-core build assembles the CSR database on the host: a stable
 counting sort by bin id (`build_csr`), the payload rows moved into CSR order
 (`gather_rows`), and, for chunked merges, per-chunk placement against running
 per-bin cursors (`place_positions`) and the row scatter (`scatter_rows`).
+The TexMex readers strip the per-row headers of xvecs files
+(`strip_xvecs`, which refuses a row whose header is not the file's dim) and
+widen uint8 vectors to float32 (`u8_to_f32`).
 These are host code, not device kernels: each entry point runs the native
 library when it loaded and its NumPy plain version (`*_plain`) otherwise,
 with the same results.  The library is built with g++ at first use into
@@ -34,6 +37,8 @@ _SIGNATURES = {
     "pqt_gather_rows": ((_P, _P, _I64, _I64, _P), None),
     "pqt_place_positions": ((_P, _I64, _P, _P), None),
     "pqt_scatter_rows": ((_P, _P, _I64, _I64, _P), None),
+    "pqt_strip_xvecs": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
+    "pqt_u8_to_f32": ((_P, _I64, _P), None),
     "pqt_num_threads": ((), ctypes.c_int),
 }
 
@@ -199,3 +204,51 @@ def scatter_rows(src: np.ndarray, pos: np.ndarray, dst: np.ndarray) -> None:
     _check_index(pos, dst.shape[0], "scatter_rows: row")
     lib.pqt_scatter_rows(_ptr(src), _ptr(pos), src.shape[0], _row_bytes(src),
                          _ptr(dst))
+
+
+def _xvecs_rows(raw: np.ndarray, n: int, dim: int, dtype) -> np.ndarray:
+    elem = np.dtype(dtype).itemsize
+    raw = np.ascontiguousarray(raw).view(np.uint8).reshape(-1)
+    if raw.shape[0] != n * (4 + dim * elem):
+        raise ValueError(f"strip_xvecs: {raw.shape[0]} bytes are not {n} "
+                         f"rows of dim {dim}")
+    return raw
+
+
+def strip_xvecs_plain(raw: np.ndarray, n: int, dim: int,
+                      dtype) -> np.ndarray:
+    elem = np.dtype(dtype).itemsize
+    rows = _xvecs_rows(raw, n, dim, dtype).reshape(n, 4 + dim * elem)
+    if (np.ascontiguousarray(rows[:, :4]).view(np.int32)[:, 0] != dim).any():
+        raise ValueError("strip_xvecs: a row's header is not the file's dim")
+    return np.ascontiguousarray(rows[:, 4:]).view(dtype).reshape(n, dim)
+
+
+def strip_xvecs(raw: np.ndarray, n: int, dim: int, dtype) -> np.ndarray:
+    """(n, dim) array of `dtype` from the raw bytes of n xvecs rows (an
+    int32 dim, then dim elements each); raises on a row whose header is
+    not `dim`."""
+    raw = _xvecs_rows(raw, n, dim, dtype)
+    lib = get_lib()
+    if lib is None:
+        return strip_xvecs_plain(raw, n, dim, dtype)
+    out = np.empty((n, dim), dtype)
+    if lib.pqt_strip_xvecs(_ptr(raw), n, dim, np.dtype(dtype).itemsize,
+                           _ptr(out)) != 0:
+        raise ValueError("strip_xvecs: a row's header is not the file's dim")
+    return out
+
+
+def u8_to_f32_plain(src: np.ndarray) -> np.ndarray:
+    return np.asarray(src, np.uint8).astype(np.float32)
+
+
+def u8_to_f32(src: np.ndarray) -> np.ndarray:
+    """uint8 array -> float32 array of the same shape and values."""
+    src = np.ascontiguousarray(src, np.uint8)
+    lib = get_lib()
+    if lib is None:
+        return u8_to_f32_plain(src)
+    out = np.empty(src.shape, np.float32)
+    lib.pqt_u8_to_f32(_ptr(src), src.size, _ptr(out))
+    return out

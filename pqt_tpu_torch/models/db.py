@@ -55,8 +55,10 @@ _UPLOAD_BYTES = 1 << 28
 def to_device(a, dev: torch.device) -> torch.Tensor:
     """A numpy array (or memmap) as a tensor on `dev`.  On the CPU the
     tensor owns a copy; to a card the rows go in blocks of about 256 MB, so
-    a memmap's file is never copied into host RAM whole."""
+    a memmap's file is never copied into host RAM whole.  Every byte copied
+    is counted in `to_device.bytes_copied`."""
     a = np.asarray(a)
+    to_device.bytes_copied += a.nbytes
     if dev.type == "cpu":
         return torch.from_numpy(np.array(a))
     out = torch.empty(a.shape, device=dev,
@@ -70,6 +72,9 @@ def to_device(a, dev: torch.device) -> torch.Tensor:
             out[s:s + step].copy_(
                 torch.from_numpy(np.ascontiguousarray(a[s:s + step])))
     return out
+
+
+to_device.bytes_copied = 0
 
 
 class PQTDatabase(NamedTuple):

@@ -7,10 +7,15 @@ Port of pqt_tpu/models/tree.py.
     cell's sub-vectors, cb2 (p, c1, c2, vl) -- all p*c1 problems as one
     batched masked k-means;
   * derived: the "virtual" full-dimension L1 centroids (c1, dim) and the
-    per-line-part centroid-pair distance table (line_parts, c1, c1).
+    per-line-part centroid-pair distance table (line_parts, c1, c1);
+  * the sparse/dense split: one shared L1 and two sets of refinement
+    codebooks, for the densest L1 bins' population and for the rest
+    (`train_tree_split`, `mark_dense_vectors`, `mark_dense_vectors_for`).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -73,12 +78,16 @@ def _train_level1(cfg: PQTConfig, data: torch.Tensor, gen: torch.Generator):
 
 
 def _train_level2(cfg: PQTConfig, data: torch.Tensor, assign1: torch.Tensor,
-                  gen: torch.Generator) -> torch.Tensor:
-    """Refinement codebooks (p, c1, c2, vl) of every (part, l1 cell)."""
+                  gen: torch.Generator,
+                  population: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Refinement codebooks (p, c1, c2, vl) of every (part, l1 cell),
+    fitted on the vectors of `population` ((n,) bool) only when given."""
     n = data.shape[0]
     parts = data.reshape(n, cfg.p, cfg.vl).permute(1, 0, 2).contiguous()
     cells = torch.arange(cfg.c1, device=data.device)
     masks = assign1.T[:, None, :] == cells[None, :, None]     # (p, c1, n)
+    if population is not None:
+        masks = masks & population[None, None, :]
     cb2, _ = kmeans_batched(parts, masks, cfg.c2, generator=gen,
                             **_kmeans_kw(cfg))
     return cb2
@@ -100,6 +109,71 @@ def train_tree(cfg: PQTConfig, train_data, device="cuda") -> PQTree:
     cb1, assign1 = _train_level1(cfg, data, generator)
     cb2 = _train_level2(cfg, data, assign1, generator)
     return PQTree.from_codebooks(cfg, cb1, cb2)
+
+
+def mark_dense_vectors(cfg: PQTConfig, assign1: torch.Tensor,
+                       percent: float = 0.3) -> torch.Tensor:
+    """(n,) bool: True for vectors in the densest full-vector L1 bins that
+    together hold `percent` of the population, the crossing bin included.
+
+    A vector's bin is its (n, p) L1 assignment read as a mixed-radix number
+    (part 0 most significant).  Bins rank by count, ties by bin id, as the
+    JAX package's stable argsort over all c1**p bins ranks them; only the
+    occupied bins are counted here (lexicographic rows order as the bin ids
+    do), so no table of c1**p slots is made and no bin id can overflow.
+    """
+    del cfg
+    n = assign1.shape[0]
+    _, inverse, hist = torch.unique(assign1.to(torch.int64), dim=0,
+                                    return_inverse=True, return_counts=True)
+    order = torch.sort(-hist, stable=True).indices          # densest first
+    cum = torch.cumsum(hist[order], dim=0)
+    n_dense = int(torch.sum(cum < percent * n)) + 1
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
+    return (rank < n_dense)[inverse]
+
+
+def mark_dense_vectors_for(cfg: PQTConfig, tree: "PQTree", data,
+                           percent: float = 0.3,
+                           chunk: int = 1 << 17) -> torch.Tensor:
+    """The dense-population mask (n,) bool of any `data` (array-like or a
+    tensor, n rows) under a trained L1: each part assigned to its nearest
+    tree.cb1 centroid (first on ties), chunk by chunk on the tree's device,
+    then the ranking of `mark_dense_vectors`.  Routes a full dataset into
+    the dense and sparse members when the split tree was trained on a
+    subsample."""
+    dev = tree.cb1.device
+    if not isinstance(data, torch.Tensor):
+        data = torch.as_tensor(np.asarray(data))
+    assign = [torch.argmin(level1_tables(
+        cfg, tree, data[s:s + chunk].to(dev, torch.float32)), dim=-1)
+        for s in range(0, data.shape[0], chunk)]
+    return mark_dense_vectors(cfg, torch.cat(assign), percent)
+
+
+def train_tree_split(cfg: PQTConfig, train_data, percent: float = 0.3,
+                     device="cuda"):
+    """Sparse/dense split training: ONE shared L1, then two sets of
+    refinement codebooks, one fitted on the dense population (the vectors
+    of the busiest L1 bins holding `percent` of the samples) and one on the
+    sparse rest.  Three generators on `device`, seeded cfg.seed (L1),
+    cfg.seed + 1 (dense) and cfg.seed + 2 (sparse).
+
+    Returns (dense_tree, sparse_tree, dense_mask (n,) bool over the
+    training rows)."""
+    dev = resolve_device(device)
+    gens = [torch.Generator(device=dev).manual_seed(cfg.seed + i)
+            for i in range(3)]
+    if not isinstance(train_data, torch.Tensor):
+        train_data = torch.as_tensor(np.asarray(train_data))
+    data = train_data.to(dev, torch.float32)
+    cb1, assign1 = _train_level1(cfg, data, gens[0])
+    dense = mark_dense_vectors(cfg, assign1, percent)
+    cb2_dense = _train_level2(cfg, data, assign1, gens[1], dense)
+    cb2_sparse = _train_level2(cfg, data, assign1, gens[2], ~dense)
+    return (PQTree.from_codebooks(cfg, cb1, cb2_dense),
+            PQTree.from_codebooks(cfg, cb1, cb2_sparse), dense)
 
 
 def level1_tables(cfg: PQTConfig, tree: PQTree,

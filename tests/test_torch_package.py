@@ -28,7 +28,10 @@ PORT = REPO / "pqt_tpu_torch"
 
 def test_import_loads_neither_jax_nor_pqt_tpu():
     code = ("import sys, pqt_tpu_torch, pqt_tpu_torch.io.artifacts, "
-            "pqt_tpu_torch.utils.metrics\n"
+            "pqt_tpu_torch.utils.metrics, pqt_tpu_torch.models.split, "
+            "pqt_tpu_torch.models.multidb, pqt_tpu_torch.io.texmex, "
+            "pqt_tpu_torch.tools.convert, pqt_tpu_torch.tools.create_db, "
+            "pqt_tpu_torch.tools.query, pqt_tpu_torch.utils.diagnostics\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pqt_tpu' or "
             "m.startswith('pqt_tpu.')]\n"
