@@ -258,3 +258,15 @@ def test_multi_exact_recall_and_guards(jax_built, clustered_data):
     with pytest.raises(ValueError, match="divide"):
         TM.build_multi_database(tcfg, ttree, np.zeros((8, 32), np.float32),
                                 3, device="cpu")
+
+
+def test_multidb_entry_points_refuse_missing_card(monkeypatch, jax_built,
+                                                  clustered_data):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db_vecs, _ = clustered_data
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.build_multi_database(_tcfg(CFG), jax_built["ttree"], db_vecs, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.place_multi_database(jax_built["tmdb"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.MultiDatabase.from_numpy([], pair_occ=np.zeros((2, 4), np.uint8))
