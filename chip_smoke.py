@@ -58,7 +58,9 @@ Phases (any failure exits non-zero before the last line is printed):
      dense share and both members' occupancy printed), the multi-database
      engine over the pair path's tree (group_parts 2, raw vectors, the
      pair filter on; occurrence and distance line and exact
-     query_multi_knn; `_duplicate_stats` timed on one batch), its rebuild
+     query_multi_knn; `_duplicate_stats` timed on one batch, and that
+     batch's occurrence ranking equal to its plain route, stable
+     torch.sort passes, to the bit), its rebuild
      with the payloads spilled to disk and placed on the card once (the
      bytes uploaded equal the payloads', serving copies none, the results
      equal the in-memory build's to the bit), and the command lines: the
@@ -143,8 +145,9 @@ def _modes(**by_mode):
 # The JAX package's recall on the CPU for the same fixture and budget
 # (jax_cpu_reference.py) on the split tree (query_knn_split line, exact and
 # refine), the multi-database engine over its pair-path tree (group_parts
-# 2, the pair filter on: occurrence and distance line, exact), and the
-# create_db/query command lines' flow (exact).  Each path is held 0.03
+# 2, the pair filter on: occurrence and distance line, exact), and the JAX
+# package's own convert, create_db and query mains with `cli_args` (exact;
+# what its query printed).  Each path is held 0.03
 # below it; the split and the command lines also never below the pair
 # path's threshold of a metric.  The multi-DB exact re-rank reaches less
 # than the pair path's (the JAX package's own 0.76 at this budget: two-part
@@ -157,8 +160,9 @@ JAX_CPU_MULTIDB = _modes(
     occurrence={"R@1": 0.1152, "R@10": 0.5049, "top10_intersection": 0.4886},
     distance={"R@1": 0.1172, "R@10": 0.6846, "top10_intersection": 0.6322},
     exact={"R@1": 0.7637, "R@10": 0.7637, "top10_intersection": 0.7617})
-JAX_CPU_CLI = _modes(exact={"R@1": 0.9893, "R@10": 0.9893,
-                            "top10_intersection": 0.9901})
+JAX_CPU_CLI = _modes(exact={"R@1": 0.9893, "R@10": 0.9893, "R@100": 0.9893,
+                            "top10_intersection": 0.9901,
+                            "top100_intersection": 0.9825})
 # The kernels of each path: a count of 0 on its run fails the smoke.  The
 # BIG paths launch no row gather: their line re-rank reads the payload rows
 # itself, and their bins come from lookups, not extent rows.
@@ -384,16 +388,23 @@ def bound(bytes_moved, ops):
 
 def topk_cases(torch, gen):
     """The query paths' top-k shapes at batch 256 (p=4, c1=16, W=8, L=128,
-    pair_top_m=128, K=1024, k=100, refine k*8=800), then SIFT1B_CONFIG's
-    widths (k1_query 16 x c2 16: a 65536-wide pair grid, pair_top_m 256,
-    8192 final candidates).  Values are rounded to few levels in half the
-    rows, and some slots are +inf, so ties occur."""
+    pair_top_m=128, K=1024, k=100, refine k*8=800), phase 7's (the split's
+    union of two k-lists, the multi-DB occurrence ranking's full sort of
+    the 2 x 512 candidates and its pass over the integer key), then
+    SIFT1B_CONFIG's widths (k1_query 16 x c2 16: a 65536-wide pair grid,
+    pair_top_m 256, 8192 final candidates).  Values are rounded to few
+    levels in half the rows, and some slots are +inf, so ties occur.  The
+    occurrence key is what the ranking sorts: -occurrences (1 or 2 over
+    two groups), or 1 where the distance is +inf; nearly every slot ties."""
     shapes = [("l1_select", 256 * 4, 16, 8),
               ("pair_select", 256 * 2, 128 * 128, 128),
               ("part_sort", 256 * 4, 128, 128),
               ("final_topk", 256, 1024, 100),
               ("refine_line_topk", 256, 1024, 800),
               ("refine_exact_topk", 256, 800, 100),
+              ("split_union_merge", 256, 2 * 100, 100),
+              ("multidb_occurrence_sort", 256, 1024, 1024),
+              ("multidb_occurrence_key", 256, 1024, 100),
               ("sift1b_pair_select", 256 * 2, 256 * 256, 256),
               ("sift1b_final_topk", 256, 8192, 100),
               ("sift1b_refine_line_topk", 256, 8192, 800),
@@ -403,10 +414,14 @@ def topk_cases(torch, gen):
               ("sift1b_big_final_bins_all", 64, 256 * 256, 256 * 256),
               ("sift1b_big_final_bins_b256", 256, 256 * 256, 32768)]
     for name, b, n, k in shapes:
-        x = torch.rand((b, n), generator=gen, device="cuda") * 1e4
-        x[: b // 2] = torch.round(x[: b // 2] / 1e3)
-        x[torch.rand((b, n), generator=gen, device="cuda") < 0.05] = \
-            float("inf")
+        x = torch.rand((b, n), generator=gen, device="cuda")
+        if name == "multidb_occurrence_key":
+            x = torch.where(x < 0.3, 1.0, torch.where(x < 0.5, -2.0, -1.0))
+        else:
+            x *= 1e4
+            x[: b // 2] = torch.round(x[: b // 2] / 1e3)
+            x[torch.rand((b, n), generator=gen, device="cuda") < 0.05] = \
+                float("inf")
         yield name, (x.contiguous(), k), (b, n, k)
 
 
@@ -466,8 +481,9 @@ def radix_passes(torch, x, k, digit_bits):
 
 def scan_cases(torch, gen):
     """The prefix sums of the paths at batch 256 (512 probed bins, 2048
-    enumerated and 768 surviving slots, the 2^20-slot CSR prefix), then
-    SIFT1B_CONFIG's (8192 probed bins, 32768 enumerated slots, 2^29 slots).
+    enumerated and 768 surviving slots, the 2^20-slot CSR prefix, the
+    multi-DB engine's per-group and dedup scans), then SIFT1B_CONFIG's
+    (8192 probed bins, 32768 enumerated slots, 2^29 slots).
     Tensors are made in the yield, so none outlives its case here."""
     b = 256
 
@@ -483,6 +499,11 @@ def scan_cases(torch, gen):
     yield "probe_compaction", (flags(512), True), (b, 512)
     yield "filter_compaction", (flags(2048), True), (b, 2048)
     yield "survivor_compaction", (flags(768), True), (b, 768)
+    # a multi-DB group's 256 enumerated bins (512 / 2 groups), and the run
+    # starts of the 1024 candidates' sorted ids (_duplicate_stats)
+    yield "multidb_group_candidate_prefix", (capped(256), False), (b, 256)
+    yield "multidb_group_compaction", (flags(256), True), (b, 256)
+    yield "multidb_duplicate_runs", (flags(1024), False), (b, 1024)
     yield "csr_prefix", (torch.poisson(
         torch.ones(1 << 20, device="cuda"), generator=gen).to(
             torch.int32)[None, :].contiguous(), False), (1, 1 << 20)
@@ -530,9 +551,13 @@ def line_payload(torch, gen, n, lp, c1, compact):
 # 64, 8192 candidates, lp 32) compact and wide at c1 16 and 256, then
 # tables past what the kernel took before: 64 KB (lp 64, c1 256), and 240
 # KB (lp 240, c1 256, beyond a block's 227 KB; its 968-byte rows unstaged).
+# A multi-DB group's re-rank takes 512 of the 1024 candidates (phase 7);
+# the split members' take sift1m_line's shape over their dense and sparse
+# rows (the plan does not depend on the payload's row count).
 RERANK_SHAPES = (
     ("sift1m_line", 1_000_000, 256, 1024, 16, 16, True, 0),
     ("sift1m_line_slabs", 1_000_000, 256, 1024, 16, 16, True, 32),
+    ("multidb_group_line", 1_000_000, 256, 512, 16, 16, True, 0),
     ("sift1m_wide_line", 1_000_000, 256, 1024, 16, 16, False, 0),
     ("sift1b_line", N_1B, 64, 8192, 32, 16, True, 0),
     ("sift1b_wide_line", N_1B, 64, 8192, 32, 16, False, 0),
@@ -623,23 +648,32 @@ def lut_cases(torch, gen):
     enumerated bins, 768 filter survivors, 512 probed bins): the uint8 pair
     table, first one pair's 65536 cells at (256, 256) as earlier runs timed
     it, then as the pair filter calls it, both pairs' 128 KB at (256, 2 x
-    256); the 2^20-slot occupancy counts and CSR starts; then
-    SIFT1B_CONFIG's 2^29-slot (2 GiB) counts at 32768 enumerated bins and
-    CSR starts at 8192 probed bins."""
+    256); the 2^20-slot occupancy counts and CSR starts; phase 7's: a
+    multi-DB group's counts and CSR starts at its 256 enumerated bins (its
+    pair_occ lookups are `pair_occ`'s shape), and the split's
+    local-to-global id maps (0.3M and 0.7M ids, the dense share of percent
+    0.3) at the k = 100 results; then SIFT1B_CONFIG's 2^29-slot (2 GiB)
+    counts at 32768 enumerated bins and CSR starts at 8192 probed bins."""
     pair_occ = (torch.rand(2 << 16, generator=gen, device="cuda") < 0.3
                 ).to(torch.uint8)
     counts = torch.poisson(torch.ones(1 << 20, device="cuda"),
                            generator=gen).to(torch.int32)
     prefix = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+    ids = torch.randperm(1_000_000, generator=gen, device="cuda").to(
+        torch.int32)
     for name, table, e in (("pair_occ", pair_occ[:1 << 16], 256),
                            ("pair_occ_both_pairs", pair_occ, 2 * 256),
                            ("counts_unfiltered", counts, 2048),
                            ("counts_filtered", counts, 768),
-                           ("prefix", prefix, 512)):
+                           ("prefix", prefix, 512),
+                           ("multidb_group_counts", counts, 256),
+                           ("multidb_group_prefix", prefix, 256),
+                           ("split_dense_ids", ids[:300_000], 100),
+                           ("split_sparse_ids", ids[300_000:], 100)):
         idx = torch.randint(0, table.shape[0], (256, e), generator=gen,
                             device="cuda", dtype=torch.int32)
         yield name, (table.contiguous(), idx), (256, e)
-    del pair_occ, counts, prefix
+    del pair_occ, counts, prefix, ids
     big = torch.randint(0, 3, (1 << 29,), generator=gen, device="cuda",
                         dtype=torch.int32)
     for name, e in (("sift1b_counts", 32768), ("sift1b_prefix", 8192)):
@@ -2011,10 +2045,26 @@ def multidb_modes(M, cfg, tree, mdb):
                                                  True)}
 
 
+def occurrence_top_plain(torch, dists, occ, cand_ids, k):
+    """The occurrence ranking as the JAX package sorts it (finite first,
+    occurrences descending, line distance ascending, ties by slot): stable
+    torch.sort passes, the least significant key first.  (ids, -1 where
+    the distance is +inf; dists) (B, k)."""
+    finite = torch.isfinite(dists)
+    order = torch.sort(dists, dim=1, stable=True)[1]
+    for key in (torch.where(finite, -occ, 0), (~finite).to(torch.int32)):
+        order = torch.gather(order, 1, torch.sort(
+            torch.gather(key, 1, order), dim=1, stable=True)[1])
+    d = torch.gather(dists, 1, order[:, :k])
+    ids = torch.gather(cand_ids, 1, order[:, :k])
+    return torch.where(torch.isfinite(d), ids, -1), d
+
+
 def multidb_phase(torch, P, fx, workdir):
     """The multi-database engine over the pair path's tree: group_parts 2,
     raw vectors, the pair filter on; occurrence and distance line and exact
-    at batch 256; `_duplicate_stats` timed on one batch's candidates; then
+    at batch 256; `_duplicate_stats` timed on one batch's candidates, whose
+    occurrence ranking must equal `occurrence_top_plain`'s to the bit; then
     a rebuild whose payloads spill to disk, placed on the card once, whose
     results equal the in-memory build's to the bit, and whose serving
     copies no host bytes."""
@@ -2042,21 +2092,36 @@ def multidb_phase(torch, P, fx, workdir):
                 if m in ("occurrence", "exact")}
     for m, pr in profiles.items():
         print(f"profile multidb {m}: " + json.dumps(pr), flush=True)
-    # the dedup's share of a batch: its inputs caught on one query
+    # the dedup's and the occurrence ranking's inputs, caught on one batch:
+    # the dedup's share of the batch, and the ranking (kernel A twice)
+    # against the JAX package's lexicographic sort by torch.sort
     caught = {}
-    dup_stats = M._duplicate_stats
+    dup_stats, occ_top = M._duplicate_stats, M._occurrence_top
     M._duplicate_stats = lambda c, v: caught.update(c=c, v=v) or \
         dup_stats(c, v)
+    M._occurrence_top = lambda *a: caught.update(occ=a) or occ_top(*a)
     try:
         M.query_multi_knn(cfg, tree, mdb, qd[:BATCH], K)
     finally:
-        M._duplicate_stats = dup_stats
+        M._duplicate_stats, M._occurrence_top = dup_stats, occ_top
     dup_ms = device_ms(torch, lambda: dup_stats(caught["c"], caught["v"]))
     busy = profiles["occurrence"].get("device_busy_ms")
     print(f"multidb: _duplicate_stats on a batch's {tuple(caught['c'].shape)}"
           f" candidates {dup_ms:.4f} ms of the occurrence batch's "
           f"{busy if busy is None else f'{busy:.4f}'} ms device busy",
           flush=True)
+    got, want = occ_top(*caught["occ"]), occurrence_top_plain(
+        torch, *caught["occ"])
+    occ_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    sd = torch.sort(caught["occ"][0], dim=1)[0]
+    ties = int(((sd[:, 1:] == sd[:, :-1]) & torch.isfinite(sd[:, 1:])).sum())
+    print(f"multidb: the occurrence ranking of one batch "
+          f"{'equals' if occ_equal else 'DIFFERS from'} its plain route "
+          f"(stable torch.sort passes) to the bit; {ties} finite distances "
+          "tie with the one before", flush=True)
+    if not occ_equal:
+        failed.append("multidb: the occurrence ranking differs from its "
+                      "plain route")
 
     t0 = time.perf_counter()
     host = M.build_multi_database(cfg, tree, data, 2, keep_vectors=True,
@@ -2114,65 +2179,79 @@ def run_main(main_fn, argv):
     return text
 
 
-def cli_phase(torch, P, fx, workdir):
-    """The command lines on the fixture: .bvecs base and queries and an
-    .ivecs exact top-100 written, `convert` to .umem, `create_db --mode
-    full` at SIFT1M widths (hash 2^20) in chunks of 250k with raw vectors,
-    and `query --exact-rerank --groundtruth` at 512 bins, 1024 candidates,
-    batch 256, all in this process; its printed recall is parsed."""
+def write_cli_files(texmex, d, data, queries, gt):
+    """The command lines' inputs in d: base and queries as .bvecs, the
+    exact top-100 as .ivecs, written by either package's `texmex`."""
+    texmex.write_xvecs(f"{d}/base.bvecs", data)
+    texmex.write_xvecs(f"{d}/query.bvecs", queries.astype(np.uint8))
+    texmex.write_xvecs(f"{d}/gt.ivecs", gt.astype(np.int32))
+
+
+def cli_args(d):
+    """The arguments of `convert`, `create_db` and `query` over the files
+    in d: SIFT1M widths with hash 2^20, chunks of 250k, raw vectors, 8
+    k-means iterations on N_TRAIN rows; the query at 512 bins, 1024
+    candidates, k1 8, exact re-rank, batch BATCH.  Both packages' tools
+    take them (the port's also `--device`)."""
+    widths = ["--p", "4", "--c1", "16", "--c2", "16", "--lineparts", "16",
+              "--hashsize", str(1 << 20)]
+    return (["--src", f"{d}/base.bvecs", "--dst", f"{d}/base.umem"],
+            ["--dataset", f"{d}/base.umem", "--basename", f"{d}/sift",
+             "--chunksize", "250000", "--train-size", str(N_TRAIN),
+             "--kmeans-iters", "8", "--keep-vectors"] + widths,
+            ["--basename", f"{d}/sift", "--queries", f"{d}/query.bvecs",
+             "--groundtruth", f"{d}/gt.ivecs", "--dim", "128", "--k", str(K),
+             "--k1", "8", "--maxbins", "512", "--candidates", "1024",
+             "--batch", str(BATCH), "--exact-rerank"] + widths)
+
+
+def cli_recall(text):
+    """The recall `query --groundtruth` printed, as exact_* metrics, and
+    its printed QPS."""
     import ast
     import re
+    printed = ast.literal_eval(re.search(r"recall: (\{.*\})", text).group(1))
+    return ({f"exact_{k}": v for k, v in printed.items()},
+            float(re.search(r"-> (\d+) QPS", text).group(1)))
+
+
+def cli_phase(torch, P, fx, workdir):
+    """The command lines on the fixture (`cli_args`): `convert` to .umem,
+    `create_db --mode full`, and `query --exact-rerank --groundtruth`, all
+    in this process; its printed recall is parsed.  One batch is profiled
+    through the query tool's own batch function."""
     from pqt_tpu_torch.io import texmex
     from pqt_tpu_torch.tools import convert, create_db, query
     d = os.path.join(workdir, "cli")
     os.makedirs(d)
     t0 = time.perf_counter()
-    texmex.write_xvecs(f"{d}/base.bvecs", fx["data"])
-    texmex.write_xvecs(f"{d}/query.bvecs", fx["queries"].astype(np.uint8))
-    texmex.write_xvecs(f"{d}/gt.ivecs", fx["gt"].astype(np.int32))
+    write_cli_files(texmex, d, fx["data"], fx["queries"], fx["gt"])
     times = {"write_s": time.perf_counter() - t0}
-    widths = ["--p", "4", "--c1", "16", "--c2", "16", "--lineparts", "16",
-              "--hashsize", str(1 << 20)]
+    conv, create, serve_args = cli_args(d)
+    on_card = ["--device", "cuda"]
     t0 = time.perf_counter()
-    run_main(convert.main, ["--src", f"{d}/base.bvecs", "--dst",
-                            f"{d}/base.umem"])
+    run_main(convert.main, conv)
     times["convert_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_main(create_db.main, [
-        "--dataset", f"{d}/base.umem", "--basename", f"{d}/sift",
-        "--chunksize", "250000", "--train-size", str(N_TRAIN),
-        "--kmeans-iters", "8", "--keep-vectors", "--device", "cuda"]
-        + widths)
+    run_main(create_db.main, create + on_card)
     times["create_db_s"] = time.perf_counter() - t0
     reset_launches(torch)
     t0 = time.perf_counter()
-    out = run_main(query.main, [
-        "--basename", f"{d}/sift", "--queries", f"{d}/query.bvecs",
-        "--groundtruth", f"{d}/gt.ivecs", "--dim", "128", "--k", str(K),
-        "--k1", "8", "--maxbins", "512", "--candidates", "1024", "--batch",
-        str(BATCH), "--exact-rerank", "--device", "cuda"] + widths)
+    out = run_main(query.main, serve_args + on_card)
     times["query_s"] = time.perf_counter() - t0
     launches = read_launches("command-line query", CLI_KERNELS)
-    printed = ast.literal_eval(re.search(r"recall: (\{.*\})", out).group(1))
-    metrics = {f"exact_{k}": v for k, v in printed.items()}
-    qps = float(re.search(r"-> (\d+) QPS", out).group(1))
+    metrics, qps = cli_recall(out)
     print(f"cli: write {times['write_s']:.1f} s, convert "
           f"{times['convert_s']:.1f} s, create_db {times['create_db_s']:.1f}"
           f" s, query {times['query_s']:.1f} s ({qps:.0f} QPS printed)",
           flush=True)
     failed, changed = phase_checks("cli", metrics, {}, JAX_CPU_CLI,
                                    launches, THRESHOLDS)
-    qcfg = P.PQTConfig(dim=128, p=4, c1=16, c2=16, line_parts=16,
-                       hash_size=1 << 20, k1_build=16, k1_query=8,
-                       max_bins=512, max_candidates=1024)
-    tree = P.load_tree(f"{d}/sift_128_4_16_16.tree.npz", qcfg,
-                       device="cuda")
-    db = P.load_database(f"{d}/sift_128_4_16_16.db.npz", qcfg,
-                         device="cuda")
-    profile = profile_batch(
-        torch, lambda x: P.query_knn(qcfg, tree, db, x, K, True),
-        fx["qd"][:BATCH])
-    print("profile cli exact: " + json.dumps(profile), flush=True)
+    _, run = query.load_runner(query.parse_args(serve_args + on_card),
+                               torch.device("cuda"))
+    profile = profile_batch(torch, run, fx["qd"][:BATCH])
+    print("profile cli exact (the query tool's batch function): "
+          + json.dumps(profile), flush=True)
     return (dict(times=times, qps=qps, launches=launches, recall=metrics,
                  profiles={"exact": profile}), failed, changed)
 

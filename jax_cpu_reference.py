@@ -22,25 +22,25 @@ mode (32 rows a slab).  It also runs the split tree (trained on the first
 both members with raw vectors; `query_knn_split` line, exact and refine),
 the multi-database engine over the pair path's tree (group_parts 2, raw
 vectors, the pair filter on; `query_multi_knn` occurrence and distance
-line and exact), and the create_db/query command lines' flow (SIFT1M
-widths with hash 2^20, a tree trained on 200k rows read as create_db reads
-them, 64 blocks spread over the file, the query tool's config with 512
-bins, 1024 candidates and k1 8; exact re-rank).  It prints R@1, R@10 and
-the top-10 intersection of each, and the candidate recall, against an
-exact float64 brute force.  `--paths` runs a subset (pair, split,
-multidb, cli; all by default).
+line and exact), and the JAX package's own command lines with
+chip_smoke.py's arguments (`cli_args`: convert, create_db --mode full,
+query --exact-rerank --groundtruth) in a temporary directory.  It prints
+R@1, R@10 and the top-10 intersection of each (the query tool: what it
+printed), and the candidate recall, against an exact float64 brute force.
 The JAX package trains with its own random draws, so its tree is not the
 port's; the numbers are the level the port should reach, not its bits.
 """
 
 import argparse
 import json
+import tempfile
 import time
 
 import numpy as np
 
-from chip_smoke import (BATCH, K, N_DB, N_QUERIES, N_TRAIN, make_queries,
-                        make_sift_like)
+from chip_smoke import (BATCH, K, N_DB, N_QUERIES, N_TRAIN, cli_args,
+                        cli_recall, make_queries, make_sift_like, run_main,
+                        write_cli_files)
 
 
 def exact_knn(queries: np.ndarray, data: np.ndarray, k: int) -> np.ndarray:
@@ -61,15 +61,24 @@ def exact_knn(queries: np.ndarray, data: np.ndarray, k: int) -> np.ndarray:
     return best_i
 
 
-def cli_train_rows(n, n_train, n_blocks=64):
-    """The rows create_db's read_train_sample reads from an n-row file."""
-    n_blocks = min(n_blocks, max(1, n_train // 1024))
-    per, stride = n_train // n_blocks, n // n_blocks
-    return np.concatenate([np.arange(i * stride, i * stride + per)
-                           for i in range(n_blocks)])
+def cli_exact(data, queries, gt):
+    """The JAX package's convert, create_db and query mains over the
+    fixture with chip_smoke.py's arguments: the recall query printed."""
+    from pqt_tpu.io import texmex
+    from pqt_tpu.tools import convert, create_db, query
+    with tempfile.TemporaryDirectory(prefix="pqt_jax_cli_") as d:
+        write_cli_files(texmex, d, data, queries, gt)
+        conv, create, serve_args = cli_args(d)
+        t0 = time.perf_counter()
+        run_main(convert.main, conv)
+        run_main(create_db.main, create)
+        print(f"cli convert + create_db {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        metrics, _ = cli_recall(run_main(query.main, serve_args))
+    return {key[len("exact_"):]: v for key, v in metrics.items()}
 
 
-def main(json_path=None, paths=("pair", "split", "multidb", "cli")):
+def main(json_path=None):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -92,60 +101,40 @@ def main(json_path=None, paths=("pair", "split", "multidb", "cli")):
     tree = P.train_tree(cfg, data[:N_TRAIN])
     print(f"train {time.perf_counter() - t0:.1f} s", flush=True)
     gt = exact_knn(queries, data, K)
-    modes = {}
-    if "pair" in paths:
-        db = P.build_database(cfg.replace(pair_filter=True), tree, data,
-                              keep_vectors=True, encode_chunk=16384)
-        parts = cfg.replace(pipeline="parts", pair_filter=True)
-        slabs = parts.replace(gather_mode="slabs", slab_size=32)
-        modes["big_line"] = lambda x: query_big_knn(cfg, tree, db, x, K, 256)
-        modes["big_perfect"] = lambda x: query_big_knn_perfect(
-            cfg, tree, db, x, K, 8, 256)
-        for name, c in (("parts", parts), ("parts_slabs", slabs)):
-            modes[f"{name}_exact"] = (
-                lambda x, c=c: P.query_knn(c, tree, db, x, K, True))
-            modes[f"{name}_line"] = (
-                lambda x, c=c: P.query_knn(c, tree, db, x, K))
-            modes[f"{name}_candidates"] = (
-                lambda x, c=c: query_candidates(c, tree, db, x))
-    if "split" in paths:
-        t0 = time.perf_counter()
-        sdb = build_split_database(cfg, data, 0.3, keep_vectors=True,
-                                   encode_chunk=16384,
-                                   train_data=data[:N_TRAIN])
-        print(f"split build {time.perf_counter() - t0:.1f} s, dense share "
-              f"{sdb.dense_ids.shape[0] / N_DB:.4f}", flush=True)
-        modes["split_line"] = lambda x: query_knn_split(cfg, sdb, x, K)
-        modes["split_exact"] = lambda x: query_knn_split(cfg, sdb, x, K,
-                                                         True)
-        modes["split_refine"] = lambda x: query_knn_split(cfg, sdb, x, K,
-                                                          False, True)
-    if "multidb" in paths:
-        t0 = time.perf_counter()
-        mdb = build_multi_database(cfg, tree, data, 2, encode_chunk=16384,
-                                   keep_vectors=True)
-        print(f"multidb build {time.perf_counter() - t0:.1f} s", flush=True)
-        mcfg = cfg.replace(pair_filter=True)
-        modes["multidb_occurrence"] = lambda x: query_multi_knn(
-            mcfg, tree, mdb, x, K)
-        modes["multidb_distance"] = lambda x: query_multi_knn(
-            mcfg.replace(multidb_rank="distance"), tree, mdb, x, K)
-        modes["multidb_exact"] = lambda x: query_multi_knn(mcfg, tree, mdb,
-                                                           x, K, True)
-    if "cli" in paths:
-        # create_db's and query's configs for the smoke's flags
-        ccfg = P.PQTConfig(dim=128, p=4, c1=16, c2=16, line_parts=16,
-                           hash_size=1 << 20, kmeans_iters=8, k1_build=16,
-                           k1_query=8)
-        t0 = time.perf_counter()
-        ctree = P.train_tree(ccfg, data[cli_train_rows(N_DB, N_TRAIN)])
-        cdb = P.build_database(ccfg, ctree, data, keep_vectors=True,
-                               encode_chunk=16384)
-        print(f"cli train + build {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        qcfg = ccfg.replace(max_bins=512, max_candidates=1024)
-        modes["cli_exact"] = lambda x: P.query_knn(qcfg, ctree, cdb, x, K,
-                                                   True)
+    db = P.build_database(cfg.replace(pair_filter=True), tree, data,
+                          keep_vectors=True, encode_chunk=16384)
+    parts = cfg.replace(pipeline="parts", pair_filter=True)
+    slabs = parts.replace(gather_mode="slabs", slab_size=32)
+    modes = {"big_line": lambda x: query_big_knn(cfg, tree, db, x, K, 256),
+             "big_perfect": lambda x: query_big_knn_perfect(
+                 cfg, tree, db, x, K, 8, 256)}
+    for name, c in (("parts", parts), ("parts_slabs", slabs)):
+        modes[f"{name}_exact"] = (
+            lambda x, c=c: P.query_knn(c, tree, db, x, K, True))
+        modes[f"{name}_line"] = (
+            lambda x, c=c: P.query_knn(c, tree, db, x, K))
+        modes[f"{name}_candidates"] = (
+            lambda x, c=c: query_candidates(c, tree, db, x))
+    t0 = time.perf_counter()
+    sdb = build_split_database(cfg, data, 0.3, keep_vectors=True,
+                               encode_chunk=16384, train_data=data[:N_TRAIN])
+    print(f"split build {time.perf_counter() - t0:.1f} s, dense share "
+          f"{sdb.dense_ids.shape[0] / N_DB:.4f}", flush=True)
+    modes["split_line"] = lambda x: query_knn_split(cfg, sdb, x, K)
+    modes["split_exact"] = lambda x: query_knn_split(cfg, sdb, x, K, True)
+    modes["split_refine"] = lambda x: query_knn_split(cfg, sdb, x, K,
+                                                      False, True)
+    t0 = time.perf_counter()
+    mdb = build_multi_database(cfg, tree, data, 2, encode_chunk=16384,
+                               keep_vectors=True)
+    print(f"multidb build {time.perf_counter() - t0:.1f} s", flush=True)
+    mcfg = cfg.replace(pair_filter=True)
+    modes["multidb_occurrence"] = lambda x: query_multi_knn(
+        mcfg, tree, mdb, x, K)
+    modes["multidb_distance"] = lambda x: query_multi_knn(
+        mcfg.replace(multidb_rank="distance"), tree, mdb, x, K)
+    modes["multidb_exact"] = lambda x: query_multi_knn(mcfg, tree, mdb, x,
+                                                       K, True)
     out = {}
     for name, fn in modes.items():
         res = [fn(jnp.asarray(queries[s:s + BATCH]))
@@ -159,6 +148,8 @@ def main(json_path=None, paths=("pair", "split", "multidb", "cli")):
             out[name] = {**recall_at(ids, gt, (1, 10)),
                          **intersection_at(ids, gt, (10,))}
         print(name, json.dumps(out[name]), flush=True)
+    out["cli_exact"] = cli_exact(data, queries, gt)
+    print("cli_exact", json.dumps(out["cli_exact"]), flush=True)
     if json_path:
         with open(json_path, "w") as f:
             json.dump(out, f, indent=1)
@@ -167,8 +158,4 @@ def main(json_path=None, paths=("pair", "split", "multidb", "cli")):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH")
-    ap.add_argument("--paths", nargs="+",
-                    default=["pair", "split", "multidb", "cli"],
-                    choices=["pair", "split", "multidb", "cli"])
-    args = ap.parse_args()
-    main(args.json, tuple(args.paths))
+    main(ap.parse_args().json)

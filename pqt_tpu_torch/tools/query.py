@@ -28,7 +28,7 @@ def _as_float32(x: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(x, np.float32)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--basename", required=True)
     ap.add_argument("--queries", required=True)
@@ -52,19 +52,17 @@ def main(argv=None):
                          "spilled databases)")
     ap.add_argument("--device", default="cuda",
                     help="device the database is loaded on and served from")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    import torch
 
+def load_runner(args: argparse.Namespace, dev):
+    """The database loaded on `dev` for `args`, and the function that
+    serves one batch of queries with it (float32 (B, dim) -> ids (B, k))."""
     from pqt_tpu_torch.config import PQTConfig
     from pqt_tpu_torch.io import artifacts
-    from pqt_tpu_torch.io.texmex import read_dataset
     from pqt_tpu_torch.models.query import query_knn, query_knn_refine
     from pqt_tpu_torch.tools.create_db import artifact_paths
-    from pqt_tpu_torch.utils.device import resolve_device
-    from pqt_tpu_torch.utils.metrics import intersection_at, recall_at
 
-    dev = resolve_device(args.device)
     cfg = PQTConfig(dim=args.dim, p=args.p, c1=args.c1, c2=args.c2,
                     line_parts=args.lineparts, hash_size=args.hashsize,
                     k1_query=min(args.k1, args.c1),
@@ -73,8 +71,6 @@ def main(argv=None):
     paths = artifact_paths(args.basename, cfg)
     tree = artifacts.load_tree(paths["tree"], cfg, dev)
     db = artifacts.load_database(paths["db"], cfg, dev)
-    print(f"database: {db.n_vectors} vectors")
-
     if args.refine:
         def run(q):
             return query_knn_refine(cfg, tree, db, q, args.k).indices
@@ -82,6 +78,21 @@ def main(argv=None):
         def run(q):
             return query_knn(cfg, tree, db, q, args.k,
                              args.exact_rerank).indices
+    return db, run
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+
+    from pqt_tpu_torch.io.texmex import read_dataset
+    from pqt_tpu_torch.utils.device import resolve_device
+    from pqt_tpu_torch.utils.metrics import intersection_at, recall_at
+
+    dev = resolve_device(args.device)
+    db, run = load_runner(args, dev)
+    print(f"database: {db.n_vectors} vectors")
 
     def sync():
         if dev.type == "cuda":

@@ -26,6 +26,7 @@ import pqt_tpu as P
 from pqt_tpu.io import artifacts as JA
 from pqt_tpu.io import native as JN
 from pqt_tpu.io import texmex as JX
+from pqt_tpu.models import tree as JT
 from pqt_tpu.ops.distance import brute_force_knn
 from pqt_tpu.tools import create_db as j_create_db
 from pqt_tpu.tools import query as j_query
@@ -277,8 +278,14 @@ DIAG_CFG = P.PQTConfig(
 
 @pytest.fixture(scope="module")
 def diag(clustered_data):
+    """One tree in both packages (trained by the port: the JAX package's
+    training would add its compile to tests of no training) and the
+    queries' exact nearest vectors."""
     db_vecs, queries = clustered_data
-    tree = P.train_tree(DIAG_CFG, db_vecs)
+    ttree = T.train_tree(T.PQTConfig.from_json(DIAG_CFG.to_json()), db_vecs,
+                         device="cpu")
+    tree = JT.PQTree.from_codebooks(DIAG_CFG, jnp.asarray(ttree.cb1.numpy()),
+                                    jnp.asarray(ttree.cb2.numpy()))
     _, gt = brute_force_knn(jnp.asarray(queries), jnp.asarray(db_vecs), 1)
     return tree, db_vecs[np.asarray(gt)[:, 0]]
 

@@ -1,10 +1,10 @@
 """The port's multi-database engine against the JAX package's, on the CPU.
 
-tests/test_multidb.py's CFG on `clustered_data`, over the JAX package's
-tree.  Given the same encoded vectors, the groups' inverted files (prefix,
-counts, payload), pair_occ and the spill files' bytes are equal to the bit.
-The port's own build over that tree differs only in t3's last bits (a float
-sum over line parts).  Queries over the JAX package's groups, in the three
+tests/test_multidb.py's CFG on `clustered_data`, over one tree that both
+packages hold (trained by the port).  Given the same encoded vectors, the
+groups' inverted files (prefix, counts, payload), pair_occ and the spill
+files' bytes are equal to the bit.  The port's own build over that tree
+differs only in t3's last bits (a float sum over line parts).  Queries over the JAX package's groups, in the three
 rankings with the pair filter on and off: ids equal up to ties in distance,
 distances within rtol 1e-5, atol 1e-4, candidate counts equal; the
 occurrence ranking's ids equal to the bit, ties included.
@@ -19,6 +19,7 @@ import torch
 import pqt_tpu as P
 from pqt_tpu.models import db as JDB
 from pqt_tpu.models import multidb as JM
+from pqt_tpu.models import tree as JT
 from pqt_tpu.ops.distance import brute_force_knn
 from pqt_tpu.utils import metrics
 import pqt_tpu_torch as T
@@ -37,18 +38,20 @@ def _tcfg(cfg):
 
 @pytest.fixture(scope="module")
 def jax_built(clustered_data, tmp_path_factory):
-    """The JAX package's tree and multi-database (kept vectors, pair_occ,
-    and a spilled twin), with the port's tree and a port MultiDatabase
-    made from the JAX groups."""
+    """One tree in both packages (trained by the port: the JAX package's
+    training would add its ten-second compile to a module that tests no
+    training), the JAX package's multi-database over it (kept vectors,
+    pair_occ, and a spilled twin), and a port MultiDatabase made from the
+    JAX groups."""
     db_vecs, queries = clustered_data
-    tree = P.train_tree(CFG, db_vecs)
+    ttree = T.train_tree(_tcfg(CFG), db_vecs, device="cpu")
+    tree = JT.PQTree.from_codebooks(CFG, jnp.asarray(ttree.cb1.numpy()),
+                                    jnp.asarray(ttree.cb2.numpy()))
     mdb = JM.build_multi_database(CFG, tree, db_vecs, group_parts=2,
                                   encode_chunk=2048, keep_vectors=True)
     spill = str(tmp_path_factory.mktemp("mspill") / "jax")
     JM.build_multi_database(CFG, tree, db_vecs, group_parts=2,
                             encode_chunk=2048, spill_path=spill)
-    ttree = T.PQTree.from_numpy(_tcfg(CFG), np.asarray(tree.cb1),
-                                np.asarray(tree.cb2), device="cpu")
     tmdb = TM.MultiDatabase.from_numpy(
         [(np.asarray(d.prefix), np.asarray(d.counts), np.asarray(d.payload))
          for d in mdb.databases],
@@ -109,8 +112,9 @@ def test_groups_from_jax_encodings_are_bit_equal(jax_built, clustered_data,
 
 
 def test_build_over_jax_tree_matches(jax_built, clustered_data):
-    """The port's whole build over the JAX tree: layout, ids, codes and
-    pair_occ to the bit, t3 to its float rounding; vectors kept raw."""
+    """The port's whole build over the tree the JAX package built with:
+    layout, ids, codes and pair_occ to the bit, t3 to its float rounding;
+    vectors kept raw."""
     db_vecs, _ = clustered_data
     got = TM.build_multi_database(_tcfg(CFG), jax_built["ttree"], db_vecs, 2,
                                   encode_chunk=1500, keep_vectors=True,
