@@ -67,8 +67,21 @@ Phases (any failure exits non-zero before the last line is printed):
      fixture written as .bvecs and an .ivecs exact top-100, `convert` to
      .umem, `create_db --mode full` at SIFT1M widths (hash 2^20) in chunks
      of 250k with raw vectors, and `query --exact-rerank --groundtruth`,
-     its printed recall parsed;
-  8. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
+     its printed recall parsed, then `query --sharded 1`, whose printed
+     recall must equal it to the last digit;
+  8. the sharded layer on the same fixture (parallel/): the pair path's
+     database in 4 hash-range shards on the one card, line, exact and big
+     at batch 256, each held 0.002 below the same mode on one device and
+     0.03 below the JAX package's 4-shard CPU run; exact again with the
+     batch in 2 slices over a (4, 2) grid of the card, equal to the bit;
+     the data-parallel encode of the 1M vectors over 4 entries of the
+     card, equal to the build's payload and counts to the bit; one
+     data-parallel k-means step, within 1e-4 of the one-device step; and
+     the multi-process chain in a world of one NCCL rank (4 chunk files,
+     merge_chunk_files_range, build_local_shards, place_host_sharded_db,
+     peer_barrier, the exact query through the group), equal to the
+     in-process result to the bit;
+  9. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
      forced by the run time; the fixture scales its clusters with n as
      benchmarks/rehearsal_50m.py does): train on 200k, encode 2M-vector
      chunk files, merge them on the host into a spilled CSR database,
@@ -77,13 +90,18 @@ Phases (any failure exits non-zero before the last line is printed):
      refine over vectors_csr, line, query_candidates, BIG line and BIG
      perfect (vectors by id attached on the card); kernel A's merge mode
      must launch; encode, merge, save and load seconds, bin occupancy,
-     peak device memory and host RSS are printed;
-  9. one JSON line of per-kernel results, the card line, and last
+     peak device memory and host RSS are printed; then, the single-device
+     database freed, phase 8's chain over the same chunk files: 4 shards
+     of 2^27 slots in a world of one NCCL rank, exact and line at batch
+     64, held to the floors above and 0.002 below the single-device
+     recall, with the range merge's seconds and the host peak RSS;
+ 10. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
 
 Every kernel launch count is reset just before each path (4, 5, the slab
-variant of 5, each of 6, each serving of 7 and the command-line query, and
-8's serving) and read just after it; a kernel
+variant of 5, each of 6, each serving of 7 and the command-line queries,
+each sharded serving and the data-parallel encode of 8, and 9's serving
+and its sharded serving) and read just after it; a kernel
 of that path with no launch fails the run (`gather_sqdist` on every path
 that serves exact, refine or BIG perfect), and so do launch counts or a
 recall that differ from the reference run's (REFERENCE_LAUNCHES,
@@ -93,7 +111,7 @@ thresholds (the BIG, split, multi-DB and command-line paths 0.03 below
 the JAX package's recall on the CPU, the split and the command line never
 below the pair path's thresholds, the wide payload's line top-10 at most
 0.01 below the compact one's), the SIFT1B phase against its floors.  Each
-path of 7 is profiled for one batch (device busy ms, idle share).
+path of 7 and 8 is profiled for one batch (device busy ms, idle share).
 
 Timings are the card's, with its name and power limit printed beside them.
 """
@@ -163,6 +181,19 @@ JAX_CPU_MULTIDB = _modes(
 JAX_CPU_CLI = _modes(exact={"R@1": 0.9893, "R@10": 0.9893, "R@100": 0.9893,
                             "top10_intersection": 0.9901,
                             "top100_intersection": 0.9825})
+# The JAX package's recall on the CPU for the same fixture and budget with
+# the database in 4 hash-range shards on 4 virtual devices
+# (jax_cpu_reference.py: make_sharded_query_fn line, exact and big with
+# n_intermediate 256).  Phase 8 holds each sharded mode 0.03 below it, and
+# SHARDED_SLACK below the same mode's single-device recall on the same
+# database and budget (a shard probes the whole budget in its own range, so
+# the merged candidates only grow; the JAX tests require >= on their
+# fixture, tests/test_parallel.py:70-72).
+JAX_CPU_SHARDED = _modes(
+    line={"R@1": 0.1309, "R@10": 0.8203, "top10_intersection": 0.7207},
+    exact={"R@1": 0.9902, "R@10": 0.9902, "top10_intersection": 0.9911},
+    big={"R@1": 0.1309, "R@10": 0.8203, "top10_intersection": 0.7205})
+N_SHARDS, SHARDED_SLACK = 4, 0.002
 # The kernels of each path: a count of 0 on its run fails the smoke.  The
 # BIG paths launch no row gather: their line re-rank reads the payload rows
 # itself, and their bins come from lookups, not extent rows.
@@ -178,6 +209,10 @@ EXACT_KERNELS = ("gather_sqdist",)
 # multi-DB path reads its bins' starts by lookup, so it gathers no row;
 # the command-line query serves the pair path's exact mode
 SPLIT_KERNELS = ALL_KERNELS + EXACT_KERNELS
+# a shard's exact core reads no line codes (kernel C): extent and payload
+# rows by H, distances by the fused kernel
+SHARDED_EXACT_KERNELS = ("bitonic_topk", "block_scan", "segmented_reduce",
+                         "gather_rows") + EXACT_KERNELS
 MULTIDB_KERNELS = BIG_KERNELS + EXACT_KERNELS
 CLI_KERNELS = PAIR_KERNELS + EXACT_KERNELS
 # where the fused kernel appears in the per-kernel line: a mode of the rows
@@ -213,6 +248,16 @@ REFERENCE_LAUNCHES = {
     "multidb": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0),
     "multidb_spill": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0),
     "cli": (20, 10, 5, 15, 5, 5, 5, 10, 10, 0, 0),
+    # phase 8's paths, from their first passing run on an H100 (NVIDIA
+    # H100 80GB HBM3, 700 W)
+    "cli_sharded": (25, 10, 0, 10, 5, 10, 5, 15, 10, 0, 0),
+    "sharded_line": (117, 72, 36, 108, 0, 36, 0, 45, 72, 0, 0),
+    "sharded_exact": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0),
+    "sharded_big": (189, 72, 36, 108, 72, 0, 0, 81, 108, 0, 0),
+    "sharded_exact_split": (234, 144, 0, 144, 0, 144, 72, 90, 144, 0, 0),
+    "sharded_nccl": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0),
+    "dp_encode": (0, 0, 0, 32, 0, 0, 0, 0, 0, 0, 0),
+    "sift1b_sharded": (1122, 528, 132, 660, 264, 396, 132, 594, 528, 0, 0),
 }
 _EXACT_1M = {"R@1": 0.9931640625, "R@10": 0.9931640625,
              "top10_intersection": 0.99345703125}
@@ -263,6 +308,20 @@ REFERENCE_RECALL["cli"] = _modes(exact={
     "R@1": 0.986328125, "R@10": 0.986328125, "R@100": 0.986328125,
     "top10_intersection": 0.9880859375,
     "top100_intersection": 0.980751953125})
+# one shard serves what the unsharded query does: the same recall; at
+# SIFT1M the 4 shards' recall equals the one device's in every mode but
+# big's top-10 intersection
+REFERENCE_RECALL["cli_sharded"] = REFERENCE_RECALL["cli"]
+REFERENCE_RECALL["sharded_line"] = _modes(line=dict(
+    _LINE_1M, top10_intersection=0.726953125))
+REFERENCE_RECALL["sharded_big"] = _modes(big=dict(
+    _LINE_1M, top10_intersection=0.7267578125))
+for _label in ("sharded_exact", "sharded_exact_split", "sharded_nccl"):
+    REFERENCE_RECALL[_label] = _modes(exact=_EXACT_1M)
+REFERENCE_RECALL["sift1b_sharded"] = _modes(
+    exact={"R@1": 0.9990234375, "R@10": 1.0, "top10_intersection": 1.0},
+    line={"R@1": 0.16015625, "R@10": 0.7724609375,
+          "top10_intersection": 0.6328125})
 
 N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
 # The SIFT1B phase: 10M vectors (a cut of SIFT1B's 10^9 forced by the
@@ -392,7 +451,8 @@ def topk_cases(torch, gen):
     union of two k-lists, the multi-DB occurrence ranking's full sort of
     the 2 x 512 candidates and its pass over the integer key), then
     SIFT1B_CONFIG's widths (k1_query 16 x c2 16: a 65536-wide pair grid,
-    pair_top_m 256, 8192 final candidates).  Values are rounded to few
+    pair_top_m 256, 8192 final candidates), and phase 8's merges of the
+    shards' top-100 lists.  Values are rounded to few
     levels in half the rows, and some slots are +inf, so ties occur.  The
     occurrence key is what the ranking sorts: -occurrences (1 or 2 over
     two groups), or 1 where the distance is +inf; nearly every slot ties."""
@@ -412,7 +472,14 @@ def topk_cases(torch, gen):
               # 256), and the whole 65536-wide row: merge mode
               ("sift1b_big_final_bins", 64, 256 * 256, 32768),
               ("sift1b_big_final_bins_all", 64, 256 * 256, 256 * 256),
-              ("sift1b_big_final_bins_b256", 256, 256 * 256, 32768)]
+              ("sift1b_big_final_bins_b256", 256, 256 * 256, 32768),
+              # phase 8's merges of the per-shard top-100 lists: 4 shards at
+              # batch 256, a slice of the (4, 2) grid's batch, SIFT1B's 4
+              # shards at batch 64, and one shard of the sharded CLI
+              ("sharded_merge", 256, 4 * 100, 100),
+              ("sharded_split_merge", 128, 4 * 100, 100),
+              ("sift1b_sharded_merge", 64, 4 * 100, 100),
+              ("cli_sharded_merge", 256, 100, 100)]
     for name, b, n, k in shapes:
         x = torch.rand((b, n), generator=gen, device="cuda")
         if name == "multidb_occurrence_key":
@@ -1784,7 +1851,7 @@ def query_paths(torch, P):
         raise SmokeFailure(f"launch counts or recall differ from the "
                            f"reference run's: {changed}")
     return summary, dict(cfg=cfg, tree=tree, data=data, queries=queries,
-                         qd=qd, gt=gt)
+                         qd=qd, gt=gt, db=db)
 
 
 def host_rss_gib():
@@ -1875,8 +1942,6 @@ def sift1b_phase(torch, P, workdir):
                                   spill_path=os.path.join(workdir, "spill"),
                                   to_device=False)
     times["merge_s"] = time.perf_counter() - t0
-    for path in paths:
-        os.remove(path)
     nonempty = int(np.count_nonzero(host_db.counts))
     largest = int(host_db.counts.max())
     t0 = time.perf_counter()
@@ -1932,13 +1997,23 @@ def sift1b_phase(torch, P, workdir):
         print(f"profile sift1b {m}: " + json.dumps(pr), flush=True)
     peak = max(load_peak, serve_peak,
                torch.cuda.max_memory_allocated() / 2 ** 30)
+    # phase 8 at SIFT1B width: the single-device database freed, the same
+    # chunk files served over N_SHARDS shards
+    del db, by_id, modes, data
+    torch.cuda.empty_cache()
+    sharded, f, c = sift1b_sharded(torch, cfg, tree, paths, qd,
+                                   gt.cpu().numpy(), metrics)
+    failed, changed = failed + f, changed + c
+    for chunk in paths:
+        os.remove(chunk)
+    peak = max(peak, sharded["peak_device_gib"])
     rss = host_rss_gib()
     times["phase_s"] = time.perf_counter() - t_phase
     print(f"sift1b: {times['phase_s']:.1f} s in all, peak device memory "
           f"{peak:.2f} GiB (with the float64 oracle), host RSS "
           f"{rss[0]:.2f} GiB (peak {rss[1]:.2f})", flush=True)
     if failed:
-        raise SmokeFailure(f"sift1b recall below its floor: {failed}")
+        raise SmokeFailure(f"sift1b recall or check failed: {failed}")
     if changed:
         raise SmokeFailure(f"sift1b launch counts or recall differ from "
                            f"the reference run's: {changed}")
@@ -1948,7 +2023,8 @@ def sift1b_phase(torch, P, workdir):
             "serving_peak_device_gib": serve_peak, "host_rss_gib": rss[0],
             "host_peak_rss_gib": rss[1], "build_launches": build_launches,
             "launches": path["launches"], "serving": path["serving"],
-            "recall": metrics, "floors": floors, "profiles": profiles}
+            "recall": metrics, "floors": floors, "profiles": profiles,
+            "sharded": sharded}
 
 
 # ---------------------------------------------------------------------------
@@ -2252,8 +2328,36 @@ def cli_phase(torch, P, fx, workdir):
     profile = profile_batch(torch, run, fx["qd"][:BATCH])
     print("profile cli exact (the query tool's batch function): "
           + json.dumps(profile), flush=True)
+    # phase 8's command line: the same query over one hash-range shard,
+    # loaded on the host and placed on the card; the same recall printed
+    sharded = serve_args + ["--sharded", "1"] + on_card
+    reset_launches(torch)
+    t0 = time.perf_counter()
+    out = run_main(query.main, sharded)
+    times["query_sharded_s"] = time.perf_counter() - t0
+    sh_launches = read_launches("command-line query with --sharded 1",
+                                SHARDED_EXACT_KERNELS)
+    sh_metrics, sh_qps = cli_recall(out)
+    same = sh_metrics == metrics
+    print(f"cli: query --sharded 1 {times['query_sharded_s']:.1f} s "
+          f"({sh_qps:.0f} QPS printed); its recall "
+          f"{'equals' if same else 'DIFFERS from'} the unsharded query's to "
+          "the last digit", flush=True)
+    if not same:
+        failed.append("cli_sharded: recall differs from the unsharded "
+                      "query's")
+    changed += differs_from_reference("cli_sharded", sh_launches, sh_metrics)
+    _, run = query.load_runner(query.parse_args(sharded),
+                               torch.device("cuda"))
+    sh_profile = profile_batch(torch, run, fx["qd"][:BATCH])
+    print("profile cli_sharded exact (the query tool's batch function): "
+          + json.dumps(sh_profile), flush=True)
     return (dict(times=times, qps=qps, launches=launches, recall=metrics,
-                 profiles={"exact": profile}), failed, changed)
+                 profiles={"exact": profile},
+                 sharded={"qps": sh_qps, "launches": sh_launches,
+                          "recall": sh_metrics,
+                          "profiles": {"exact": sh_profile}}),
+            failed, changed)
 
 
 def phase7_paths(torch, P, fx):
@@ -2276,6 +2380,286 @@ def phase7_paths(torch, P, fx):
         raise SmokeFailure(f"launch counts or recall differ from the "
                            f"reference run's: {changed}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sharded serving layer, on the one card
+# ---------------------------------------------------------------------------
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_modes(S, cfg, tree, sdb, devices, modes, batch_split=1,
+                  group=None):
+    """The sharded query of each mode in `modes` over `sdb` on `devices`,
+    as one-argument functions of a batch."""
+    fns = {m: S.make_sharded_query_fn(cfg, devices, K, mode=m,
+                                      n_intermediate=256,
+                                      batch_split=batch_split, group=group)
+           for m in modes}
+    return {m: (lambda x, fn=fn: fn(tree, sdb, x)) for m, fn in fns.items()}
+
+
+def world_of_one(D):
+    """This process alone in an NCCL process group (the card's collectives
+    run, with no peer): its device."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    return D.initialize(f"localhost:{free_port()}", 1, 0, 300,
+                        device="cuda")
+
+
+def aligned_bounds(n, parts, step=65536):
+    """Row bounds of `parts` chunk files at multiples of `step` (the build's
+    encode chunk), so each file's encode steps are the build's own and the
+    merged database equals the build's to the bit."""
+    per = -(-n // (parts * step)) * step
+    return list(range(0, n, per)) + [n]
+
+
+def sharded_phase(torch, P, fx, single, workdir):
+    """Phase 8 on the SIFT1M fixture: the pair path's database in N_SHARDS
+    hash-range shards on the card (shard_database over its leaves brought
+    to the host, place_sharded_db), line, exact and big at batch 256, exact
+    again with the batch in 2 slices over a (4, 2) grid (equal to the bit),
+    the data-parallel encode of the 1M vectors over 4 entries of the card
+    (equal to the build's payload and counts to the bit), one data-parallel
+    k-means step (within 1e-4 of the one-device step), and the
+    multi-process chain in a world of one NCCL rank: the fixture in 4 chunk
+    files, merge_chunk_files_range, build_local_shards,
+    place_host_sharded_db, peer_barrier and the exact query through the
+    group (equal to the in-process result to the bit).  Returns (numbers,
+    failures, differences from the reference run)."""
+    import torch.distributed as dist
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.parallel import distributed as D
+    from pqt_tpu_torch.parallel import sharded as S
+    cfg, tree, db, data, qd, gt = (fx[k] for k in ("cfg", "tree", "db",
+                                                   "data", "qd", "gt"))
+    failed, out = [], {}
+    t0 = time.perf_counter()
+    host = db._replace(**{f: getattr(db, f).cpu().numpy()
+                          for f in db._fields if getattr(db, f) is not None})
+    shards = S.shard_database(cfg, host, N_SHARDS)
+    grid = ["cuda"] * N_SHARDS
+    sdb = S.place_sharded_db(shards, grid)
+    torch.cuda.synchronize()
+    out["shard_place_s"] = time.perf_counter() - t0
+    print(f"sharded: {N_SHARDS} shards of {cfg.hash_size // N_SHARDS} slots,"
+          f" rows {shards.n_per_shard.tolist()} padded to "
+          f"{shards.payload.shape[1]}; shard and place "
+          f"{out['shard_place_s']:.2f} s", flush=True)
+    paths = {}
+    for mode, required in (("line", PAIR_KERNELS),
+                           ("exact", SHARDED_EXACT_KERNELS),
+                           ("big", BIG_KERNELS)):
+        modes = sharded_modes(S, cfg, tree, sdb, grid, (mode,))
+        paths[f"sharded_{mode}"] = dict(serve_path(
+            torch, f"sharded path ({mode})", modes, qd, required),
+            modes=modes)
+    grid2 = ["cuda"] * (2 * N_SHARDS)
+    modes = sharded_modes(S, cfg, tree, S.place_sharded_db(shards, grid2),
+                          grid2, ("exact",), batch_split=2)
+    paths["sharded_exact_split"] = dict(serve_path(
+        torch, "sharded path (exact, the batch split over a 4x2 grid)",
+        modes, qd, SHARDED_EXACT_KERNELS), modes=modes)
+    split_equal = same_results(torch, paths["sharded_exact"]["outputs"],
+                               paths["sharded_exact_split"]["outputs"])
+    print(f"sharded: the batch split's results "
+          f"{'equal' if split_equal else 'DIFFER from'} the unsplit ones "
+          "to the bit", flush=True)
+    if not split_equal:
+        failed.append("sharded: the batch split changes the results")
+
+    # the data-parallel encode over 4 entries of the card, against the
+    # build's payload and counts; one data-parallel k-means step
+    reset_launches(torch)
+    t0 = time.perf_counter()
+    bins, codes, t3 = S.make_dp_encode_fn(cfg, grid)(tree, db.vectors)
+    torch.cuda.synchronize()
+    out["dp_encode_s"] = time.perf_counter() - t0
+    out["dp_encode_launches"] = read_launches("data-parallel encode",
+                                              ("segmented_reduce",))
+    ids = torch.arange(N_DB, dtype=torch.int32, device="cuda")
+    packed = DB.pack_payload_device(cfg, ids, codes, t3)[
+        torch.sort(bins, stable=True).indices]
+    enc_equal = torch.equal(packed, db.payload) and torch.equal(
+        torch.bincount(bins, minlength=cfg.hash_size).to(torch.int32),
+        db.counts)
+    del bins, codes, t3, packed, ids
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cents = db.vectors[torch.randint(0, N_DB, (256,), generator=gen,
+                                     device="cuda")].to(torch.float32)
+    t0 = time.perf_counter()
+    got = S.make_dp_kmeans_step(grid)(db.vectors, cents)
+    torch.cuda.synchronize()
+    out["dp_kmeans_s"] = time.perf_counter() - t0
+    want = S.make_dp_kmeans_step(["cuda"])(db.vectors, cents)
+    out["dp_kmeans_max_abs_err"] = float((got - want).abs().max())
+    km_ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    del got, want, cents
+    print(f"sharded: data-parallel encode of {N_DB} rows over "
+          f"{len(grid)} entries of the card {out['dp_encode_s']:.2f} s, "
+          f"{'equal' if enc_equal else 'NOT equal'} to the build's payload "
+          f"and counts to the bit; one data-parallel k-means step (256 "
+          f"centroids) {out['dp_kmeans_s']:.3f} s, max abs difference "
+          f"{out['dp_kmeans_max_abs_err']:.3g} from the one-device step "
+          f"({'within' if km_ok else 'NOT within'} rtol = atol = 1e-4)",
+          flush=True)
+    if not enc_equal:
+        failed.append("dp_encode: differs from the build's encode")
+    if not km_ok:
+        failed.append("dp_kmeans: differs from the one-device step")
+
+    # the multi-process chain, in a world of one NCCL rank
+    bcfg = cfg.replace(pair_filter=True)      # as the database was built
+    bounds = aligned_bounds(N_DB, N_SHARDS)
+    chunk_paths = []
+    t0 = time.perf_counter()
+    for i, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        chunk_paths.append(os.path.join(workdir, f"sift1m_chunk{i}.npz"))
+        P.encode_chunk_to_file(bcfg, tree, data[a:b], a, chunk_paths[-1],
+                               keep_vectors=True, device="cuda")
+    out["chunk_encode_s"] = time.perf_counter() - t0
+    from pqt_tpu_torch.models.db import merge_chunk_files_range
+    dev = world_of_one(D)
+    try:
+        out["backend"] = dist.get_backend()
+        mesh = D.global_device_mesh([dev] * N_SHARDS)
+        my = D.local_shard_ids(mesh)
+        lo, hi = D.host_shard_range(cfg, N_SHARDS, my)
+        t0 = time.perf_counter()
+        prefix, counts, payload, vec_csr, occ = merge_chunk_files_range(
+            bcfg, chunk_paths, lo, hi, keep_vectors=True)
+        local = D.build_local_shards(cfg, N_SHARDS, my, prefix, counts,
+                                     payload, vectors_csr=vec_csr)
+        placed = D.place_host_sharded_db(cfg, local, mesh, pair_occ=occ)
+        D.peer_barrier(timeout_s=120)
+        out["chain_s"] = time.perf_counter() - t0
+        leaves_equal = all(np.array_equal(getattr(local, f),
+                                          getattr(shards, f))
+                           for f in ("prefix", "counts", "prefix2",
+                                     "payload", "n_per_shard", "vectors"))
+        modes = sharded_modes(S, cfg, tree, placed, mesh, ("exact",),
+                              group=dist.group.WORLD)
+        paths["sharded_nccl"] = dict(serve_path(
+            torch, f"sharded path (exact, a world of one "
+            f"{out['backend']} rank)", modes, qd, SHARDED_EXACT_KERNELS),
+            modes=modes)
+        paths["sharded_nccl"]["profile"] = profile_batch(
+            torch, modes["exact"], qd[:BATCH])
+    finally:
+        dist.destroy_process_group()
+    nccl_equal = same_results(torch, paths["sharded_exact"]["outputs"],
+                              paths["sharded_nccl"]["outputs"])
+    print(f"sharded: {out['backend']} world of one: {len(chunk_paths)} chunk "
+          f"files encoded {out['chunk_encode_s']:.2f} s, merge, shards, "
+          f"placement and barrier {out['chain_s']:.2f} s; its shards "
+          f"{'equal' if leaves_equal else 'DIFFER from'} shard_database's "
+          f"and its results {'equal' if nccl_equal else 'DIFFER from'} the "
+          "in-process ones to the bit", flush=True)
+    if not nccl_equal:
+        failed.append("sharded_nccl: results differ from the in-process "
+                      "sharded exact query's")
+
+    # recall: not more than SHARDED_SLACK below the same mode on one
+    # device, nor 0.03 below the JAX package's 4-shard CPU run
+    ref = dict(single["pair"]["recall"])
+    ref.update({key.replace("big_line_", "big_"): v
+                for key, v in single["big_line"]["recall"].items()})
+    changed = differs_from_reference("dp_encode", out["dp_encode_launches"])
+    out["paths"] = {}
+    for label, path in paths.items():
+        metrics = path_recall(torch, label, path["outputs"], gt)
+        floors = {key: round(max(ref[key] - SHARDED_SLACK,
+                                 JAX_CPU_SHARDED[key] - 0.03), 4)
+                  for key in metrics}
+        failed += report(label, metrics, path["serving"],
+                         {key: ref[key] for key in metrics},
+                         "single device", floors)
+        changed += differs_from_reference(label, path["launches"], metrics)
+        profile = path.get("profile") or profile_batch(
+            torch, next(iter(path["modes"].values())), qd[:BATCH])
+        print(f"profile {label}: " + json.dumps(profile), flush=True)
+        out["paths"][label] = {"launches": path["launches"],
+                               "serving": path["serving"], "recall": metrics,
+                               "floors": floors, "profile": profile}
+    out.update(split_equal=split_equal, nccl_equal=nccl_equal,
+               nccl_leaves_equal=leaves_equal, dp_encode_equal=enc_equal)
+    return out, failed, changed
+
+
+def sift1b_sharded(torch, cfg, tree, chunk_paths, qd, gt, single):
+    """The SIFT1B phase's chunk files served over N_SHARDS shards of
+    hash_size / N_SHARDS slots in a world of one NCCL rank: the range merge
+    on the host, build_local_shards, place_host_sharded_db, then exact over
+    the shards' vectors and line at batch 64.  Returns (numbers, recall
+    below its floors, differences from the reference run)."""
+    import torch.distributed as dist
+    from pqt_tpu_torch.models.db import merge_chunk_files_range
+    from pqt_tpu_torch.parallel import distributed as D
+    from pqt_tpu_torch.parallel import sharded as S
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    dev = world_of_one(D)
+    try:
+        mesh = D.global_device_mesh([dev] * N_SHARDS)
+        my = D.local_shard_ids(mesh)
+        lo, hi = D.host_shard_range(cfg, N_SHARDS, my)
+        t0 = time.perf_counter()
+        prefix, counts, payload, vec_csr, occ = merge_chunk_files_range(
+            cfg, chunk_paths, lo, hi, keep_vectors=True)
+        out["merge_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        local = D.build_local_shards(cfg, N_SHARDS, my, prefix, counts,
+                                     payload, vectors_csr=vec_csr)
+        del prefix, counts, payload, vec_csr
+        out["split_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed = D.place_host_sharded_db(cfg, local, mesh, pair_occ=occ)
+        torch.cuda.synchronize()
+        out["place_s"] = time.perf_counter() - t0
+        out["rows"] = local.n_per_shard.tolist()
+        out["budget"] = int(local.payload.shape[1])
+        del local
+        D.peer_barrier(timeout_s=120)
+        out["held_device_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        modes = sharded_modes(S, cfg, tree, placed, mesh, ("exact", "line"),
+                              group=dist.group.WORLD)
+        path = serve_path(torch, "SIFT1B sharded path", modes, qd,
+                          SHARDED_EXACT_KERNELS + ("rerank_fused",),
+                          batch=BATCH_1B)
+        profiles = {m: profile_batch(torch, fn, qd[:BATCH_1B])
+                    for m, fn in modes.items()}
+    finally:
+        dist.destroy_process_group()
+    for m, pr in profiles.items():
+        print(f"profile sift1b_sharded {m}: " + json.dumps(pr), flush=True)
+    rss = host_rss_gib()
+    out.update(peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               host_rss_gib=rss[0], host_peak_rss_gib=rss[1])
+    print(f"sift1b_sharded: {N_SHARDS} shards of {cfg.hash_size // N_SHARDS}"
+          f" slots, rows {out['rows']} padded to {out['budget']}; range "
+          f"merge {out['merge_s']:.1f} s, shards {out['split_s']:.1f} s, "
+          f"placement {out['place_s']:.1f} s; device memory held "
+          f"{out['held_device_gib']:.2f} GiB, peak "
+          f"{out['peak_device_gib']:.2f}; host RSS {rss[0]:.2f} GiB (peak "
+          f"{rss[1]:.2f})", flush=True)
+    metrics = path_recall(torch, "sift1b_sharded", path["outputs"], gt)
+    floors = {key: round(max(single[key] - SHARDED_SLACK,
+                             SIFT1B_FLOORS.get(key, 0.0)), 4)
+              for key in metrics}
+    failed = report("sift1b_sharded", metrics, path["serving"],
+                    {key: single[key] for key in metrics},
+                    "single device", floors)
+    changed = differs_from_reference("sift1b_sharded", path["launches"],
+                                     metrics)
+    out.update(launches=path["launches"], serving=path["serving"],
+               recall=metrics, floors=floors, profiles=profiles)
+    return out, failed, changed
 
 
 # kernel E/F/G rows: one CUDA kernel stands for the three TPU lookups
@@ -2345,14 +2729,26 @@ def main(json_path=None):
 
     summary, fixture = query_paths(torch, P)
     summary.update(phase7_paths(torch, P, fixture))
+    with tempfile.TemporaryDirectory(prefix="pqt_sharded_") as workdir:
+        summary["sharded"], failed8, changed8 = sharded_phase(
+            torch, P, fixture, summary["paths"], workdir)
     del fixture
     peak_before = torch.cuda.max_memory_allocated()
     with tempfile.TemporaryDirectory(prefix="pqt_sift1b_") as workdir:
         summary["sift1b"] = sift1b_phase(torch, P, workdir)
+    if failed8:
+        raise SmokeFailure(f"sharded path failed: {failed8}")
+    if changed8:
+        raise SmokeFailure(f"sharded launch counts or recall differ from "
+                           f"the reference run's: {changed8}")
     runs = [p["launches"] for p in summary["paths"].values()] + [
         summary[label]["launches"]
         for label in ("split", "multidb", "multidb_spill", "cli")] + [
-        summary["sift1b"]["build_launches"], summary["sift1b"]["launches"]]
+        summary["sift1b"]["build_launches"], summary["sift1b"]["launches"],
+        summary["cli"]["sharded"]["launches"],
+        summary["sharded"]["dp_encode_launches"],
+        summary["sift1b"]["sharded"]["launches"]] + [
+        p["launches"] for p in summary["sharded"]["paths"].values()]
     launches = {c.__name__: sum(r[c.__name__] for r in runs)
                 for c in counters()}
     rows = []

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Recall of the JAX package (pqt_tpu) on the CPU, on chip_smoke.py's SIFT1M
-fixture and budget: the references the port's BIG, parts, split, multi-DB
-and command-line paths are held to there.
+fixture and budget: the references the port's BIG, parts, split, multi-DB,
+command-line and sharded paths are held to there.
 
 Run from the repository root (needs JAX; takes some minutes and a few GiB
 of host RAM):
@@ -24,15 +24,20 @@ the multi-database engine over the pair path's tree (group_parts 2, raw
 vectors, the pair filter on; `query_multi_knn` occurrence and distance
 line and exact), and the JAX package's own command lines with
 chip_smoke.py's arguments (`cli_args`: convert, create_db --mode full,
-query --exact-rerank --groundtruth) in a temporary directory.  It prints
-R@1, R@10 and the top-10 intersection of each (the query tool: what it
-printed), and the candidate recall, against an exact float64 brute force.
+query --exact-rerank --groundtruth) in a temporary directory, and the
+database split into 4 hash-range shards on 4 virtual CPU devices
+(`shard_database`, `make_sharded_query_fn` in line, exact and big mode,
+n_intermediate 256; XLA_FLAGS asks for the devices before JAX is
+imported).  It prints R@1, R@10 and the top-10 intersection of each (the
+query tool: what it printed), and the candidate recall, against an exact
+float64 brute force.
 The JAX package trains with its own random draws, so its tree is not the
 port's; the numbers are the level the port should reach, not its bits.
 """
 
 import argparse
 import json
+import os
 import tempfile
 import time
 
@@ -78,7 +83,15 @@ def cli_exact(data, queries, gt):
     return {key[len("exact_"):]: v for key, v in metrics.items()}
 
 
+N_SHARDS = 4
+
+
 def main(json_path=None):
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count={N_SHARDS}"
+            .strip())
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -135,6 +148,15 @@ def main(json_path=None):
         mcfg.replace(multidb_rank="distance"), tree, mdb, x, K)
     modes["multidb_exact"] = lambda x: query_multi_knn(mcfg, tree, mdb, x,
                                                        K, True)
+    from jax.sharding import Mesh
+    from pqt_tpu.parallel import sharded
+    mesh = Mesh(np.array(jax.devices()[:N_SHARDS]), ("db",))
+    shards = sharded.place_sharded_db(
+        sharded.shard_database(cfg, db, N_SHARDS), mesh)
+    for mode in ("line", "exact", "big"):
+        fn = sharded.make_sharded_query_fn(cfg, mesh, K, mode=mode,
+                                           n_intermediate=256)
+        modes[f"sharded_{mode}"] = lambda x, fn=fn: fn(tree, shards, x)
     out = {}
     for name, fn in modes.items():
         res = [fn(jnp.asarray(queries[s:s + BATCH]))

@@ -6,7 +6,8 @@ either package saved loads in the other; loads check the stored geometry
 against the requested config.  A database saved out of core keeps its
 memmap leaves in raw `<path>.npz.<leaf>.bin` sidecar files with their shape
 and dtype in the npz; the port reads them through numpy memmaps and copies
-them to the device in row blocks.
+them to the device in row blocks (`load_database`), or leaves every leaf on
+the host for sharding (`load_database_host`).
 """
 
 from __future__ import annotations
@@ -136,8 +137,9 @@ def save_database(path: str, cfg: PQTConfig, db: PQTDatabase,
     np.savez_compressed(base, **arrays)
 
 
-def load_database(path: str, cfg: PQTConfig, device="cuda") -> PQTDatabase:
-    dev = resolve_device(device)
+def _read_database(path: str, cfg: PQTConfig) -> dict:
+    """A database file's leaves as host arrays: the inline ones read from
+    the npz, sidecar ones as read-only memmaps; geometry checked."""
     base = _npz_path(path)
     with np.load(base, allow_pickle=False) as z:
         _check_config(str(z["config"]), cfg, _DB_FIELDS)
@@ -155,17 +157,31 @@ def load_database(path: str, cfg: PQTConfig, device="cuda") -> PQTDatabase:
         payload = leaf("payload")
         if payload is None:     # format v1 stored ids/codes/t3 apart
             payload = pack_payload(z["ids"], z["codes"], z["t3"])
-        db = PQTDatabase.from_numpy(
-            prefix=z["prefix"], counts=z["counts"], payload=payload,
-            pair_occ=leaf("pair_occ"), vectors=leaf("vectors"),
-            vectors_csr=leaf("vectors_csr"), device=dev)
-    if db.prefix.shape[0] != cfg.hash_size:
+        leaves = dict(prefix=z["prefix"], counts=z["counts"],
+                      payload=payload, pair_occ=leaf("pair_occ"),
+                      vectors=leaf("vectors"),
+                      vectors_csr=leaf("vectors_csr"))
+    if leaves["prefix"].shape[0] != cfg.hash_size:
         raise ArtifactMismatch("hash table size mismatch")
-    if db.payload.shape[1] != payload_width(cfg):
+    if payload.shape[1] != payload_width(cfg):
         raise ArtifactMismatch(
-            f"payload width {db.payload.shape[1]} != {payload_width(cfg)} "
+            f"payload width {payload.shape[1]} != {payload_width(cfg)} "
             "(line_parts / payload_compact mismatch)")
-    return db
+    return leaves
+
+
+def load_database(path: str, cfg: PQTConfig, device="cuda") -> PQTDatabase:
+    dev = resolve_device(device)
+    return PQTDatabase.from_numpy(**_read_database(path, cfg), device=dev)
+
+
+def load_database_host(path: str, cfg: PQTConfig) -> PQTDatabase:
+    """The database's leaves on the host, for sharding
+    (`parallel.sharded.shard_database`): numpy arrays, and read-only
+    memmaps of a spilled database's sidecars, so no device and no whole
+    copy of a sidecar in host RAM.  prefix2 is left None (the shards derive
+    their own)."""
+    return PQTDatabase(prefix2=None, **_read_database(path, cfg))
 
 
 def load_or_build(path: str, loader: Callable, builder: Callable,

@@ -1,0 +1,441 @@
+"""Multi-device serving: a hash-range-sharded database and a merged top-k.
+
+Port of pqt_tpu/parallel/sharded.py.  The database is split by hash range:
+
+  * each of S shards owns a contiguous range of span = hash_size / S bins,
+    and, since the CSR payload is sorted by bin, a contiguous slice of the
+    payload (and of the raw vectors in CSR order); its prefix is rebased to
+    that slice;
+  * every shard runs a whole query core (`query_core_pair`, `query_core`,
+    `query_core_exact` or `query_big_core`) over its own tables with
+    bin_offset = s * span, so bins outside its range count as empty, and
+    produces its own top-k;
+  * the per-shard lists are merged by kernel A (`_top_ids`: the k smallest
+    of each query's shard-major row of S * k' distances, lowest index first
+    on ties, which is `lax.top_k`'s order), so given the same per-shard
+    lists the merged ids equal the JAX package's to the bit;
+  * the batch can also be cut into `batch_split` slices, each served by its
+    own (shard, slice) cell of the device grid (the JAX mesh's second axis).
+
+The mesh is a list of torch devices, shard-major: cell (s, j) -- shard s,
+batch slice j -- is `devices[s * batch_split + j]`; a device may repeat
+(several shards on one card, or on the CPU).  In one process every cell's
+core is launched on its device before anything waits (the cores make no
+host sync), then the (B, k') lists move to the first cell's device with
+non_blocking copies and are merged there.  Across processes (`group`, a
+torch.distributed process group) each rank serves its own shards, shard s
+on rank s // (S / world); the lists are all-gathered over the group in
+rank (= shard) order, every rank runs the same merge, and n_candidates is
+an all-reduce sum.  The tree and the queries are taken where they are: a
+tensor (tree) on the cell's device, or a mapping from device to replica
+(`parallel.distributed.replicate`); nothing is moved to a device behind the
+caller's back.
+
+The data-parallel building blocks split rows over devices: the encode
+(`make_dp_encode_fn`) and one Lloyd step (`make_dp_kmeans_step`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from collections.abc import Mapping
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pqt_tpu_torch.config import PQTConfig
+from pqt_tpu_torch.models.db import (PQTDatabase, encode_line_codes,
+                                     encode_part_codes, to_device)
+from pqt_tpu_torch.models.query import (QueryResult, _top_ids, query_core,
+                                        query_core_exact, query_core_pair)
+from pqt_tpu_torch.models.query_big import query_big_core
+from pqt_tpu_torch.ops import binning
+from pqt_tpu_torch.utils.device import resolve_device
+
+MODES = ("line", "exact", "big")
+# the leaves with a leading shard axis
+_SHARD_LEAVES = ("prefix", "counts", "prefix2", "payload", "vectors")
+
+
+class ShardedDatabase(NamedTuple):
+    """A database split into S hash-range shards.
+
+    On the host (`shard_database`, `build_local_shards`) each leaf is a
+    numpy array with a leading shard axis.  Placed (`place_sharded_db`),
+    each of those leaves is a tuple of tensors, one per cell of the device
+    grid, shard-major; cells of one shard on one device share a tensor.
+    """
+    prefix: object          # (S, span) int32, rebased to each shard's slice
+    counts: object          # (S, span) int32
+    prefix2: object         # (S, span, 2) int32 rebased (start, end) extents
+    payload: object         # (S, max_n, w) int32, -1 in the id column of
+                            # the padding rows
+    n_per_shard: np.ndarray  # (S,) int32 true payload lengths (host)
+    pair_occ: object        # (p//2, radix^2) uint8, the global table (host),
+                            # or placed: one copy per device, by cell
+    vectors: object = None  # (S, max_n, dim) raw vectors in CSR order, in
+                            # their own dtype (uint8 for SIFT)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.n_per_shard)
+
+
+def _stack_shards(span: int, prefix: np.ndarray, counts: np.ndarray,
+                  payload: np.ndarray, vectors_csr: Optional[np.ndarray],
+                  pad_to_multiple: int) -> ShardedDatabase:
+    """Split CSR host arrays covering len(prefix) // span shards' bins into
+    stacked shards (the body of the JAX package's shard_database and
+    build_local_shards).  Shard i's payload is [prefix[i*span],
+    prefix[(i+1)*span]); its prefix is rebased to that slice.  Reads the
+    payload and vectors (numpy arrays or memmaps) slice by slice."""
+    k = prefix.shape[0] // span
+    n = payload.shape[0]
+    starts = [int(prefix[i * span]) for i in range(k)]
+    ends = starts[1:] + [n]
+    lens = [e - s for s, e in zip(starts, ends)]
+    max_n = max(max(lens), 1)
+    max_n = -(-max_n // pad_to_multiple) * pad_to_multiple
+
+    sh_prefix = np.empty((k, span), np.int32)
+    sh_counts = np.empty((k, span), np.int32)
+    sh_prefix2 = np.empty((k, span, 2), np.int32)
+    sh_payload = np.zeros((k, max_n, payload.shape[1]), np.int32)
+    sh_payload[:, :, 0] = -1          # id column: -1 marks padding
+    sh_vectors = None
+    if vectors_csr is not None:
+        sh_vectors = np.zeros((k, max_n, vectors_csr.shape[1]),
+                              vectors_csr.dtype)
+    for i in range(k):
+        sh_prefix[i] = prefix[i * span:(i + 1) * span] - starts[i]
+        sh_counts[i] = counts[i * span:(i + 1) * span]
+        sh_prefix2[i, :, 0] = sh_prefix[i]
+        sh_prefix2[i, :, 1] = sh_prefix[i] + sh_counts[i]
+        sh_payload[i, :lens[i]] = payload[starts[i]:ends[i]]
+        if sh_vectors is not None:
+            sh_vectors[i, :lens[i]] = vectors_csr[starts[i]:ends[i]]
+    return ShardedDatabase(
+        prefix=sh_prefix, counts=sh_counts, prefix2=sh_prefix2,
+        payload=sh_payload, n_per_shard=np.asarray(lens, np.int32),
+        pair_occ=None, vectors=sh_vectors)
+
+
+def _host(x):
+    """A host leaf as a numpy array (memmaps pass through); a tensor on a
+    card is refused: sharding reads host arrays."""
+    if x is None or isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        raise TypeError("shard_database takes a database with host leaves "
+                        f"(numpy arrays or memmaps), not tensors on "
+                        f"{x.device}; load it with "
+                        "io.artifacts.load_database_host")
+    return np.asarray(x)
+
+
+def shard_database(cfg: PQTConfig, db: PQTDatabase, n_shards: int,
+                   pad_to_multiple: int = 1024) -> ShardedDatabase:
+    """Split a built database into hash-range shards, on the host.
+
+    `db` holds host leaves (numpy arrays or memmaps, as
+    `load_database_host` or a merge with to_device=False gives them).  The
+    raw vectors go into the shards in CSR order: `vectors_csr` as it is,
+    or `vectors` (by id) re-laid as vectors[ids].  hash_size must divide
+    evenly by n_shards (ValueError).
+    """
+    if n_shards < 1 or cfg.hash_size % n_shards:
+        raise ValueError(f"hash_size {cfg.hash_size} does not divide into "
+                         f"{n_shards} shards")
+    payload = _host(db.payload)
+    vectors_csr = _host(db.vectors_csr)
+    if vectors_csr is None and db.vectors is not None:
+        vectors_csr = _host(db.vectors)[np.asarray(payload[:, 0])]
+    sdb = _stack_shards(cfg.hash_size // n_shards, _host(db.prefix),
+                        _host(db.counts), payload, vectors_csr,
+                        pad_to_multiple)
+    return sdb._replace(pair_occ=_host(db.pair_occ))
+
+
+def _devices(devices) -> list:
+    return [resolve_device(d) for d in devices]
+
+
+def place_sharded_db(sdb: ShardedDatabase, devices) -> ShardedDatabase:
+    """Put each shard on its devices: `devices` is the shard-major grid of
+    S * J cells (J = len(devices) / S batch slices; J = 1 for one device a
+    shard).  Shards are uploaded one after another, each to the distinct
+    devices of its cells only; pair_occ goes once to every distinct
+    device."""
+    devices = _devices(devices)
+    S = sdb.n_shards
+    if not devices or len(devices) % S:
+        raise ValueError(f"{len(devices)} devices do not form a grid over "
+                         f"{S} shards")
+    J = len(devices) // S
+    cells = {name: [] for name in _SHARD_LEAVES}
+    for s in range(S):
+        row = devices[s * J:(s + 1) * J]
+        for name in _SHARD_LEAVES:
+            host = getattr(sdb, name)
+            if host is None:
+                continue
+            copies = {}
+            for d in row:
+                if d not in copies:
+                    copies[d] = to_device(np.asarray(host[s]), d)
+                cells[name].append(copies[d])
+    occ = None
+    if sdb.pair_occ is not None:
+        on = {d: to_device(np.asarray(sdb.pair_occ), d)
+              for d in dict.fromkeys(devices)}
+        occ = tuple(on[d] for d in devices)
+    return ShardedDatabase(
+        n_per_shard=np.asarray(sdb.n_per_shard), pair_occ=occ,
+        **{name: tuple(c) if getattr(sdb, name) is not None else None
+           for name, c in cells.items()})
+
+
+def _replica(x, dev: torch.device, what: str):
+    """x on `dev`: the mapping's entry, or x itself when it lies there."""
+    if isinstance(x, Mapping):
+        return x[dev]
+    where = x.cb1.device if isinstance(x, torch.nn.Module) else x.device
+    if where != dev:
+        raise ValueError(f"the {what} is on {where} but a shard is served "
+                         f"on {dev}: pass replicate(devices, {what})")
+    return x
+
+
+def _on(dev: torch.device):
+    """The device context kernels launch in (a no-op off the card)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _rank_shards(n_shards: int, group) -> list:
+    """The shards this process serves: all of them, or with a process
+    group, its contiguous run of n_shards / world (rank-major)."""
+    if group is None:
+        return list(range(n_shards))
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n_shards % world:
+        raise ValueError(f"{n_shards} shards do not divide over {world} "
+                         "processes")
+    per = n_shards // world
+    return list(range(rank * per, (rank + 1) * per))
+
+
+def _serve_cell(cfg, mode, k, n_intermediate, tree, sdb, c, queries,
+                bin_offset):
+    """One shard's core on one cell: (ids, dists, n_candidates)."""
+    occ = None if sdb.pair_occ is None else sdb.pair_occ[c]
+    if mode == "exact":
+        return query_core_exact(cfg, tree, sdb.prefix2[c], sdb.payload[c],
+                                sdb.vectors[c], queries, k,
+                                bin_offset=bin_offset, pair_occ=occ)
+    if mode == "big":
+        return query_big_core(cfg, tree, sdb.prefix[c], sdb.counts[c],
+                              sdb.payload[c], queries, k, n_intermediate,
+                              bin_offset=bin_offset)
+    if cfg.pair_pipeline_enabled:
+        return query_core_pair(cfg, tree, sdb.prefix2[c], sdb.payload[c],
+                               queries, k, bin_offset=bin_offset,
+                               pair_occ=occ)
+    return query_core(cfg, tree, sdb.prefix[c], sdb.counts[c],
+                      sdb.payload[c], queries, k, bin_offset=bin_offset,
+                      pair_occ=occ)
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x, concatenated in rank order on axis 0."""
+    import torch.distributed as dist
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, x, group=group)
+    return torch.cat(out)
+
+
+def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
+                          mode: str = "line", n_intermediate: int = 256,
+                          batch_split: int = 1, group=None):
+    """The sharded query step: fn(tree, sdb, queries) -> QueryResult.
+
+    `devices` is the shard-major grid of S * batch_split cells; with
+    `group`, the grid over every process (for batch_split 1,
+    `distributed.global_device_mesh`), of which `sdb` holds the cells of
+    this rank's shards.  queries (B, dim), B a
+    multiple of batch_split; the result's tensors lie on the first cell's
+    device of this process, equal on every rank.
+
+    mode: "line" (the line-code re-rank, the pair or parts pipeline by
+    cfg), "exact" (every gathered candidate ranked by its true distance
+    from the shard's raw vectors in CSR order; needs sdb.vectors) or "big"
+    (the BIG two-stage enumeration with line re-rank, n_intermediate).
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    devices = _devices(devices)
+    if batch_split < 1 or not devices or len(devices) % batch_split:
+        raise ValueError(f"{len(devices)} devices do not form a grid of "
+                         f"{batch_split} batch slices")
+    J = batch_split
+    n_shards = len(devices) // J
+    if cfg.hash_size % n_shards:
+        raise ValueError(f"hash_size {cfg.hash_size} does not divide into "
+                         f"{n_shards} shards")
+    span = cfg.hash_size // n_shards
+
+    def query_fn(tree, sdb: ShardedDatabase, queries) -> QueryResult:
+        if mode == "exact" and sdb.vectors is None:
+            raise ValueError("mode='exact' needs a ShardedDatabase built "
+                             "from a db with keep_vectors=True")
+        shards = _rank_shards(n_shards, group)
+        cell_devs = [devices[s * J + j] for s in shards for j in range(J)]
+        if len(sdb.prefix) != len(cell_devs):
+            raise ValueError(f"the sharded database has {len(sdb.prefix)} "
+                             f"cells; this process serves {len(cell_devs)}")
+        for c, d in enumerate(cell_devs):
+            if sdb.prefix[c].device != d:
+                raise ValueError(f"cell {c} of the database is on "
+                                 f"{sdb.prefix[c].device}, the grid puts "
+                                 f"it on {d}")
+        B = _replica(queries, cell_devs[0], "queries").shape[0]
+        if B % J:
+            raise ValueError(f"batch {B} does not divide into {J} slices")
+        bs = B // J
+        lists = []
+        for c, d in enumerate(cell_devs):   # launch every cell, wait for none
+            s, j = shards[c // J], c % J
+            with _on(d):
+                q = _replica(queries, d, "queries")[j * bs:(j + 1) * bs]
+                ids, dists, nc = _serve_cell(
+                    cfg, mode, k, n_intermediate,
+                    _replica(tree, d, "tree"), sdb, c, q, s * span)
+            lists.append((ids, dists, nc))
+        merge_dev = cell_devs[0]
+        with _on(merge_dev):
+            local = torch.stack([
+                torch.stack([ids, dists.contiguous().view(torch.int32)])
+                .to(merge_dev, non_blocking=True)
+                for ids, dists, _ in lists])          # (L*J, 2, bs, k')
+            kk = local.shape[-1]
+            local = local.view(len(shards), J, 2, bs, kk)
+            n_local = torch.stack([nc.to(merge_dev, non_blocking=True)
+                                   for _, _, nc in lists]).view(
+                len(shards), J, bs).sum(0)
+            if group is not None:
+                import torch.distributed as dist
+                from pqt_tpu_torch.parallel import distributed
+                distributed.refuse_if_poisoned("the sharded query's "
+                                               "all_gather")
+                local = _all_gather(local, group)     # (S, J, 2, bs, k')
+                dist.all_reduce(n_local, group=group)
+            out_ids, out_d = [], []
+            for j in range(J):
+                flat_ids = local[:, j, 0].permute(1, 0, 2).reshape(
+                    bs, n_shards * kk)
+                flat_d = local[:, j, 1].view(torch.float32).permute(
+                    1, 0, 2).reshape(bs, n_shards * kk)
+                ids, dists = _top_ids(flat_d, flat_ids, k)
+                out_ids.append(ids)
+                out_d.append(dists)
+            return QueryResult(indices=torch.cat(out_ids),
+                               dists=torch.cat(out_d),
+                               n_candidates=n_local.reshape(B))
+
+    return query_fn
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel building blocks: the encode and one k-means step
+# ---------------------------------------------------------------------------
+
+def _tree_on(tree, dev: torch.device):
+    """The tree on `dev`: itself when it lies there, else a copy."""
+    if tree.cb1.device == dev:
+        return tree
+    return type(tree)(*(getattr(tree, b).to(dev) for b in
+                        ("cb1", "cb2", "centroids_full", "pair_dists")))
+
+
+def make_dp_encode_fn(cfg: PQTConfig, devices, encode_chunk: int = 65536):
+    """Data-parallel database encoding: fn(tree, data) -> (bins (n,) int32,
+    codes (n, line_parts), t3 (n,) float32) in row order, on the first
+    device.
+
+    The rows go to the devices in contiguous runs of whole encode chunks
+    (`encode_chunk` rows, build_database's default), each encoded as
+    build_database encodes that chunk, so bins, codes and t3 equal the
+    build's encode to the bit; the tree is copied to each device.  data:
+    (n, dim) host array or tensor; uint8 rows go up raw and are cast on
+    the device.
+    """
+    devices = _devices(devices)
+
+    def encode_fn(tree, data):
+        n = data.shape[0]
+        starts = list(range(0, n, encode_chunk))
+        per = -(-len(starts) // len(devices))
+        parts = []
+        for i, d in enumerate(devices):      # launch on every device first
+            with _on(d):
+                t = _tree_on(tree, d)
+                for s in starts[i * per:(i + 1) * per]:
+                    x = torch.as_tensor(data[s:s + encode_chunk]).to(d)
+                    x = x.to(torch.float32)
+                    codes, t3 = encode_line_codes(cfg, t, x)
+                    bins = binning.hashed_bin_ids(
+                        encode_part_codes(cfg, t, x), cfg.part_radix,
+                        cfg.hash_size)
+                    parts.append((bins, codes, t3))
+        first = devices[0]
+        return tuple(torch.cat([p[i].to(first, non_blocking=True)
+                                for p in parts]) for i in range(3))
+
+    return encode_fn
+
+
+def make_dp_kmeans_step(devices, group=None):
+    """One data-parallel Lloyd E+M step: fn(data, centroids) -> centroids
+    (k, d) float32 on the first device.
+
+    The rows are split over the devices; each makes its partial per-cluster
+    sums (one-hot^T @ x, as the JAX package) and counts, which are summed
+    over the devices and, with `group`, over the processes by an
+    all-reduce.  A cluster left empty keeps its centroid.
+    """
+    from pqt_tpu_torch.ops.distance import pairwise_sqdist
+    devices = _devices(devices)
+
+    def step(data, centroids):
+        first = devices[0]
+        rows = np.array_split(np.arange(data.shape[0]), len(devices))
+        partial = []
+        for d, r in zip(devices, rows):
+            if not len(r):
+                continue
+            with _on(d):
+                x = torch.as_tensor(data[r[0]:r[-1] + 1]).to(d).to(
+                    torch.float32)
+                c = torch.as_tensor(centroids).to(d).to(torch.float32)
+                a = torch.argmin(pairwise_sqdist(x, c), dim=-1)
+                onehot = (a[:, None] == torch.arange(
+                    c.shape[0], device=d)).to(torch.float32)
+                partial.append((onehot.T @ x, onehot.sum(0)))
+        with _on(first):
+            sums = sum(p[0].to(first, non_blocking=True) for p in partial)
+            counts = sum(p[1].to(first, non_blocking=True) for p in partial)
+            if group is not None:
+                import torch.distributed as dist
+                from pqt_tpu_torch.parallel import distributed
+                distributed.refuse_if_poisoned("the k-means all_reduce")
+                dist.all_reduce(sums, group=group)
+                dist.all_reduce(counts, group=group)
+            cents = torch.as_tensor(centroids).to(first).to(torch.float32)
+            return torch.where(counts[:, None] > 0,
+                               sums / torch.clamp_min(counts, 1.0)[:, None],
+                               cents)
+
+    return step

@@ -1,16 +1,21 @@
 """CLI: batch-query a built database; report throughput and recall.
 
 Port of pqt_tpu/tools/query.py (the reference's tool_query and the recall
-analysis of its tests), without --sharded: it loads the tree and the
-database (either package's artifacts) onto --device, a spilled database's
-sidecar leaves uploaded once at load, and serves the queries in batches
-through line, exact (--exact-rerank) or refine (--refine) query_knn.  The
-clock stops after the card has finished the last batch.
+analysis of its tests): it loads the tree and the database (either
+package's artifacts) onto --device, a spilled database's sidecar leaves
+uploaded once at load, and serves the queries in batches through line,
+exact (--exact-rerank) or refine (--refine) query_knn.  With --sharded N
+the database is loaded on the host instead (a spilled one's sidecars as
+memmaps), split into N hash-range shards there, each shard put on its own
+device -- cards 0..N-1 with --device cuda, the CPU N times with --device
+cpu -- and served in line or exact mode with the per-shard top-k lists
+merged (parallel/sharded.py).  The clock stops after the card has
+finished the last batch.
 
 Usage:
   python -m pqt_tpu_torch.tools.query --basename out/sift1m --dim 128 \
       --queries sift_query.fvecs [--groundtruth sift_gt.ivecs] [--k 100] \
-      [--device cuda]
+      [--device cuda] [--sharded N]
 """
 
 from __future__ import annotations
@@ -50,14 +55,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--refine", action="store_true",
                     help="two-stage line -> exact refine (in-RAM and "
                          "spilled databases)")
+    ap.add_argument("--sharded", type=int, default=0, metavar="N",
+                    help="serve from a hash-range-sharded database over N "
+                         "devices with merged per-shard top-k")
     ap.add_argument("--device", default="cuda",
                     help="device the database is loaded on and served from")
     return ap.parse_args(argv)
 
 
 def load_runner(args: argparse.Namespace, dev):
-    """The database loaded on `dev` for `args`, and the function that
-    serves one batch of queries with it (float32 (B, dim) -> ids (B, k))."""
+    """The database loaded on `dev` for `args` (on the host with
+    --sharded), and the function that serves one batch of queries with it
+    (float32 (B, dim) -> ids (B, k))."""
     from pqt_tpu_torch.config import PQTConfig
     from pqt_tpu_torch.io import artifacts
     from pqt_tpu_torch.models.query import query_knn, query_knn_refine
@@ -69,7 +78,13 @@ def load_runner(args: argparse.Namespace, dev):
                     k1_build=min(16, args.c1), max_bins=args.maxbins,
                     max_candidates=args.candidates)
     paths = artifact_paths(args.basename, cfg)
+    if args.sharded and args.refine:
+        raise SystemExit("--refine is not available with --sharded "
+                         "(sharded modes: line, or exact via "
+                         "--exact-rerank)")
     tree = artifacts.load_tree(paths["tree"], cfg, dev)
+    if args.sharded:
+        return _sharded_runner(args, cfg, tree, paths["db"], dev)
     db = artifacts.load_database(paths["db"], cfg, dev)
     if args.refine:
         def run(q):
@@ -78,6 +93,37 @@ def load_runner(args: argparse.Namespace, dev):
         def run(q):
             return query_knn(cfg, tree, db, q, args.k,
                              args.exact_rerank).indices
+    return db, run
+
+
+def _sharded_runner(args, cfg, tree, db_path: str, dev):
+    """The database on the host, split into args.sharded shards there and
+    each put on its device: cards 0..N-1 on the card (N must not exceed
+    the cards visible), the CPU N times on the CPU."""
+    import torch
+
+    from pqt_tpu_torch.io import artifacts
+    from pqt_tpu_torch.parallel.distributed import replicate
+    from pqt_tpu_torch.parallel.sharded import (make_sharded_query_fn,
+                                                place_sharded_db,
+                                                shard_database)
+    n = args.sharded
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count()
+        if visible < n:
+            raise SystemExit(f"--sharded {n} needs that many devices; "
+                             f"{visible} visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [dev] * n
+    db = artifacts.load_database_host(db_path, cfg)
+    sdb = place_sharded_db(shard_database(cfg, db, n), devices)
+    qfn = make_sharded_query_fn(
+        cfg, devices, args.k, mode="exact" if args.exact_rerank else "line")
+    trees = replicate(devices, tree)
+
+    def run(q):
+        return qfn(trees, sdb, replicate(devices, q)).indices
     return db, run
 
 

@@ -11,6 +11,11 @@ package's, on the CPU.
     database up to near-ties (at most 0.1% of vectors, as in
     tests/test_torch_build.py), and the port's `query` over JAX-made
     artifacts prints the JAX `query`'s recall;
+  * `query --sharded 4 --exact-rerank` over the JAX package's artifacts
+    prints the JAX `query --sharded 4`'s recall, with the JAX package's
+    sharded ids up to ties; `--refine --sharded` fails loudly; a spilled
+    database is sharded from its sidecar memmaps, its bytes moved to the
+    device shard by shard and never whole;
   * diagnostics: `ground_truth_bins` and `gt_bin_probe_positions` equal to
     the bit, `quantization_stats` within float32 rounding.
 """
@@ -18,9 +23,11 @@ package's, on the CPU.
 import re
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.sharding import Mesh
 
 import pqt_tpu as P
 from pqt_tpu.io import artifacts as JA
@@ -28,11 +35,14 @@ from pqt_tpu.io import native as JN
 from pqt_tpu.io import texmex as JX
 from pqt_tpu.models import tree as JT
 from pqt_tpu.ops.distance import brute_force_knn
+from pqt_tpu.parallel import sharded as JS
 from pqt_tpu.tools import create_db as j_create_db
 from pqt_tpu.tools import query as j_query
 from pqt_tpu.utils import diagnostics as JD
 import pqt_tpu_torch as T
+from pqt_tpu_torch.io import artifacts as TA
 from pqt_tpu_torch.io import native as TN
+from pqt_tpu_torch.models import db as TDB
 from pqt_tpu_torch.io import texmex as TX
 from pqt_tpu_torch.tools import convert, create_db, query
 from pqt_tpu_torch.utils import diagnostics as TD
@@ -210,15 +220,20 @@ def test_create_db_and_query_mains(dataset, capsys):
     assert "loading tree from" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("mode", ["exact", "line"])
-def test_query_main_over_jax_artifacts_prints_jax_recall(dataset, capsys,
-                                                         mode):
-    d, *_ = dataset
+def _jax_artifacts(d):
+    """The JAX package's create_db output over the fixture (made once)."""
     if not (d / "jax_32_4_8_4.db.npz").exists():
         j_create_db.main(["--dataset", str(d / "base.fvecs"),
                           "--basename", str(d / "jax"), "--chunksize",
                           "1500", "--train-size", "4096", "--kmeans-iters",
                           "8", "--keep-vectors"] + COMMON)
+
+
+@pytest.mark.parametrize("mode", ["exact", "line"])
+def test_query_main_over_jax_artifacts_prints_jax_recall(dataset, capsys,
+                                                         mode):
+    d, *_ = dataset
+    _jax_artifacts(d)
     args = ["--basename", str(d / "jax"), "--queries", str(d / "query.fvecs"),
             "--groundtruth", str(d / "gt.ivecs")] + QUERY_ARGS + (
         ["--exact-rerank"] if mode == "exact" else [])
@@ -227,6 +242,85 @@ def test_query_main_over_jax_artifacts_prints_jax_recall(dataset, capsys,
     want = _recall(capsys.readouterr().out)
     query.main(args + ["--device", "cpu"])
     assert _recall(capsys.readouterr().out) == want
+
+
+def test_sharded_query_main_matches_jax(dataset, capsys):
+    """--sharded 4 --exact-rerank on the CPU: the JAX tool's printed recall,
+    and the JAX package's sharded ids (the JAX tool's own code path) up to
+    ties."""
+    d, _, queries, _ = dataset
+    _jax_artifacts(d)
+    args = ["--basename", str(d / "jax"), "--queries", str(d / "query.fvecs"),
+            "--groundtruth", str(d / "gt.ivecs"), "--exact-rerank",
+            "--sharded", "4"] + QUERY_ARGS
+    capsys.readouterr()
+    j_query.main(args)
+    want = _recall(capsys.readouterr().out)
+    query.main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "database: 4096 vectors" in out
+    assert _recall(out) == want
+
+    cfg = P.PQTConfig(dim=32, p=4, c1=8, c2=4, line_parts=8,
+                      hash_size=1 << 14, k1_query=4, k1_build=8,
+                      max_bins=256, max_candidates=1024)
+    stem = str(d / "jax") + "_32_4_8_4"
+    mesh = Mesh(np.array(jax.devices()[:4]), ("db",))
+    sdb = JS.place_sharded_db(JS.shard_database(
+        cfg, JA.load_database(stem + ".db.npz", cfg), 4), mesh)
+    ref = JS.make_sharded_query_fn(cfg, mesh, 10, mode="exact")(
+        JA.load_tree(stem + ".tree.npz", cfg), sdb, jnp.asarray(queries))
+    _, run = query.load_runner(query.parse_args(args + ["--device", "cpu"]),
+                               torch.device("cpu"))
+    got = run(torch.from_numpy(queries)).numpy()
+    want_d, want_i = np.asarray(ref.dists), np.asarray(ref.indices)
+    for b, s in zip(*np.nonzero(got != want_i)):
+        assert np.isclose(want_d[b], want_d[b, s], rtol=1e-5).sum() > 1
+
+
+def test_query_refine_sharded_conflict_errors(dataset):
+    d, *_ = dataset
+    with pytest.raises(SystemExit, match="refine"):
+        query.main(["--basename", str(d / "port"), "--queries",
+                    str(d / "query.fvecs"), "--refine", "--sharded", "2",
+                    "--device", "cpu"] + QUERY_ARGS)
+
+
+def test_sharded_spilled_database_from_memmaps(dataset, capsys):
+    """A spilled database (payload and CSR-ordered vectors in sidecars) is
+    loaded on the host as memmaps and sharded from them: the bytes moved to
+    the device are exactly the shards' and the pair table's, so no
+    whole-database tensor is ever made; exact recall as unsharded."""
+    d, *_ = dataset
+    create_db.main(["--dataset", str(d / "base.fvecs"), "--basename",
+                    str(d / "shd"), "--chunksize", "1500", "--train-size",
+                    "4096", "--kmeans-iters", "8", "--keep-vectors",
+                    "--spill", str(d / "shd_spill"), "--device", "cpu"]
+                   + COMMON)
+    capsys.readouterr()
+    tcfg = T.PQTConfig.from_json(CLI_CFG.to_json())
+    stem = str(d / "shd") + "_32_4_8_4.db.npz"
+    host = TA.load_database_host(stem, tcfg)
+    assert isinstance(host.payload, np.memmap)
+    assert isinstance(host.vectors_csr, np.memmap) and host.vectors is None
+    from pqt_tpu_torch.parallel.sharded import shard_database
+    shards = shard_database(tcfg, host, 4)
+    want = sum(getattr(shards, f).nbytes for f in
+               ("prefix", "counts", "prefix2", "payload", "vectors"))
+    want += 0 if host.pair_occ is None else host.pair_occ.nbytes
+    args = ["--basename", str(d / "shd"), "--queries",
+            str(d / "query.fvecs"), "--groundtruth", str(d / "gt.ivecs"),
+            "--exact-rerank", "--device", "cpu"] + QUERY_ARGS
+    before = TDB.to_device.bytes_copied
+    query.load_runner(query.parse_args(args + ["--sharded", "4"]),
+                      torch.device("cpu"))
+    assert TDB.to_device.bytes_copied - before == want
+    recall = {}
+    for extra in ([], ["--sharded", "4"]):
+        query.main(args + extra)
+        recall[len(extra)] = float(re.search(
+            r"'R@1': ([0-9.]+)", capsys.readouterr().out).group(1))
+    assert recall[2] >= recall[0] - 1e-9 and recall[2] >= 0.9, recall
 
 
 def test_encode_merge_and_spill_modes(dataset, capsys):

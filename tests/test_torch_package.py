@@ -31,7 +31,9 @@ def test_import_loads_neither_jax_nor_pqt_tpu():
             "pqt_tpu_torch.utils.metrics, pqt_tpu_torch.models.split, "
             "pqt_tpu_torch.models.multidb, pqt_tpu_torch.io.texmex, "
             "pqt_tpu_torch.tools.convert, pqt_tpu_torch.tools.create_db, "
-            "pqt_tpu_torch.tools.query, pqt_tpu_torch.utils.diagnostics\n"
+            "pqt_tpu_torch.tools.query, pqt_tpu_torch.utils.diagnostics, "
+            "pqt_tpu_torch.parallel.sharded, "
+            "pqt_tpu_torch.parallel.distributed\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pqt_tpu' or "
             "m.startswith('pqt_tpu.')]\n"
