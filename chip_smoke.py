@@ -27,9 +27,13 @@ Phases (any failure exits non-zero before the last line is printed):
      distances also run at SIFT1B_CONFIG's widths (2^29-slot tables, the
      probe table's 4 GiB among them; the phase's peak device memory is
      printed), the top-k with kernel A's merge mode (32768 and 65536 kept
-     of 65536-wide rows, also timed beside torch.sort); top-k and prefix
-     sums run in the mode their wrapper picks and in every other mode that
-     takes the shape (all held and timed), the segment sums of the encode
+     of 65536-wide rows); the top-k rows above 16384 elements are timed
+     beside torch.sort(stable) too, with each route of kernel A (one block
+     a row, and a thread-block cluster of 4 and of 8 blocks a row) and
+     how many times it reads the row; top-k and prefix
+     sums run in the mode and route their wrapper picks and in every other
+     mode and route that takes the shape (all held and timed), the segment
+     sums of the encode
      also over a rotating set of inputs larger than L2 (cold, beside the
      warm repeats), the lookups and row gathers with
      a sectors' bound beside the byte bound, the exact distances
@@ -89,7 +93,7 @@ Phases (any failure exits non-zero before the last line is printed):
      the card, and serve 1024 queries in batches of 64 through exact and
      refine over vectors_csr, line, query_candidates, BIG line and BIG
      perfect (vectors by id attached on the card); kernel A's merge mode
-     must launch; encode, merge, save and load seconds, bin occupancy,
+     and its cluster route must launch; encode, merge, save and load seconds, bin occupancy,
      peak device memory and host RSS are printed; then, the single-device
      database freed, phase 8's chain over the same chunk files: 4 shards
      of 2^27 slots in a world of one NCCL rank, exact and line at batch
@@ -466,6 +470,12 @@ def topk_cases(torch, gen):
               ("multidb_occurrence_sort", 256, 1024, 1024),
               ("multidb_occurrence_key", 256, 1024, 100),
               ("sift1b_pair_select", 256 * 2, 256 * 256, 256),
+              # the same select at the SIFT1B phase's batch of 64: the pair
+              # stage and the BIG path's stage 1
+              ("sift1b_big_pair_merge", 64 * 2, 256 * 256, 256),
+              # the BIG path's stage 2 at SIFT1M widths (n_intermediate 256,
+              # 4 x 512 bins enumerated), batch 256
+              ("big_final_bins", 256, 256 * 256, 4 * 512),
               ("sift1b_final_topk", 256, 8192, 100),
               ("sift1b_refine_line_topk", 256, 8192, 800),
               # the BIG path's stage 2 at SIFT1B widths (batch 64, and
@@ -500,6 +510,54 @@ def topk_modes(prim, n, k):
         ("sort", n, prim.TOPK_SORT_MAX), ("select", k, prim.TOPK_SORT_MAX),
         ("merge", k if k > prim.TOPK_SORT_MAX else 0, prim.TOPK_MERGE_MAX))
         if 0 < size <= cap]
+
+
+def topk_plans(prim, n, k, every=False):
+    """(label, plan) of each of kernel A's modes and routes that take rows
+    of n elements, k kept: every mode of topk_modes on the one-block route
+    and, for rows of more than TOPK_SORT_MAX elements (for any row with
+    `every`, which also tries merge mode's cluster route at k <=
+    TOPK_SORT_MAX), select and merge on every cluster size that holds
+    them."""
+    modes = topk_modes(prim, n, k)
+    plans = [(mode, prim._topk_plan(n, k, mode, 0)) for mode in modes]
+    if n <= prim.TOPK_SORT_MAX and not every:
+        return plans
+    on_cluster = [m for m in modes if m != "sort"]
+    if every and "merge" not in on_cluster:
+        on_cluster.append("merge")
+    for mode in on_cluster:
+        for c in prim.TOPK_CLUSTER_SIZES:
+            try:
+                plans.append((f"{mode} cluster {c}",
+                              prim._topk_plan(n, k, mode, c)))
+            except NotImplementedError:
+                pass
+    return plans
+
+
+def topk_reads(torch, prim, x, k, plan):
+    """(reads, scratch bytes) of kernel A's plan on x: how many times it
+    reads each row from device memory or L2, and the bytes of scratch rows
+    it writes and reads.  The one-block select reads a row longer than one
+    tile again on every pass (so does the one-block merge's select, for k <
+    n); the one-block merge then reads and writes its scratch rows of
+    sort_len pairs in the run sorts and in each merge pass (the last one
+    writes k pairs).  The cluster route reads the row once and keeps every
+    pair on chip."""
+    b, n = x.shape
+    if plan.cluster:
+        return 1.0, 0
+    reads = 1.0
+    if plan.mode in ("select", "merge") and k < n and \
+            n > plan.items * plan.threads:
+        reads += float(radix_passes(torch, x, k, prim.TOPK_DIGIT_BITS)
+                       .double().mean())
+    scratch = 0
+    if plan.mode == "merge":
+        passes = (plan.sort_len // prim.TOPK_SORT_MAX).bit_length() - 1
+        scratch = b * plan.sort_len * 8 * (2 * passes + 2 * int(k < n))
+    return reads, scratch
 
 
 def scan_plans(prim, rows, n):
@@ -877,49 +935,41 @@ def check_kernels(torch):
                             "bound_by": b_by, "max_abs_err": err, **extra})
 
     for case, (x, k), (b, n, _) in topk_cases(torch, gen):
-        # the mode the wrapper picks, and the other one where it takes the
-        # shape: both are held against the plain version, both are timed
+        # the plan the wrapper picks and every other mode and route that
+        # takes the shape: each is held against the plain version to the
+        # bit, each is timed
         plan = prim._topk_plan(n, k)
-        others = [m for m in topk_modes(prim, n, k) if m != plan.mode]
-        alt = prim._topk_plan(n, k, others[0]) if others else None
+        plans = topk_plans(prim, n, k)
+        label = next(lab for lab, p in plans if p == plan)
         pv, pi = prim.bitonic_topk_plain(x, k)
-        for p in (plan, alt) if alt else (plan,):
-            v, i = (prim.bitonic_topk(x, k) if p is plan
+        for lab, p in plans:
+            v, i = (prim.bitonic_topk(x, k) if p == plan
                     else prim._topk_launch(x, k, p))
             torch.cuda.synchronize()
             if not (torch.equal(v, pv) and torch.equal(i, pi)):
                 bad = int((i != pi).sum())
-                raise SmokeFailure(f"bitonic_topk {case} in {p.mode} mode: "
-                                   f"{bad} indices differ from the plain "
-                                   "version")
+                raise SmokeFailure(f"bitonic_topk {case} ({lab}): {bad} "
+                                   "indices differ from the plain version")
         b_ms, b_by = bound(b * n * 4 + b * k * 8, b * n)
-        # select mode reads a row longer than one tile again on every pass
-        # (so does merge mode's select, for k < n); merge mode then reads
-        # and writes its scratch rows of sort_len pairs in the run sorts and
-        # in each merge pass (the last one writes k pairs)
-        reads = 1.0
-        if plan.mode in ("select", "merge") and k < n and \
-                n > plan.items * plan.threads:
-            reads += float(radix_passes(torch, x, k, prim.TOPK_DIGIT_BITS)
-                           .double().mean())
-        scratch = 0
-        if plan.mode == "merge":
-            passes = (plan.sort_len // prim.TOPK_SORT_MAX).bit_length() - 1
-            scratch = b * plan.sort_len * 8 * (2 * passes + 2 * int(k < n))
+        reads, scratch = topk_reads(torch, prim, x, k, plan)
         pass_ms = bound(reads * b * n * 4 + b * k * 8 + scratch, b * n)[0]
+        others = [(lab, p) for lab, p in plans if p != plan]
+        long_row = n > prim.TOPK_SORT_MAX
         record("bitonic_topk", "pqt_tpu_torch/csrc/topk.cu",
                "pqt_tpu/ops/pallas/primitives.py:79",
-               f"{case} ({b},{n})->{k} {plan.mode}",
+               f"{case} ({b},{n})->{k} {label}",
                device_ms(torch, lambda: prim.bitonic_topk(x, k)),
                device_ms(torch, lambda: prim.bitonic_topk_plain(x, k)),
                device_ms(torch, lambda: torch.topk(x, k, largest=False)),
-               b_ms, b_by, 0.0, mode=plan.mode, reads=reads,
-               pass_bound_ms=pass_ms, other_mode=alt and alt.mode,
-               other_mode_ms=device_ms(
-                   torch, lambda: prim._topk_launch(x, k, alt))
-               if alt else None,
+               b_ms, b_by, 0.0, mode=plan.mode, route=label, reads=reads,
+               pass_bound_ms=pass_ms,
+               other_routes={lab: device_ms(
+                   torch, lambda: prim._topk_launch(x, k, p))
+                   for lab, p in others},
+               other_reads={lab: topk_reads(torch, prim, x, k, p)[0]
+                            for lab, p in others},
                sort_ms=device_ms(torch, lambda: torch.sort(x, stable=True))
-               if plan.mode == "merge" else None)
+               if long_row or plan.mode == "merge" else None)
 
     for case, (x, excl), (b, n) in scan_cases(torch, gen):
         # the mode the wrapper picks, and every other mode that takes the
@@ -1228,6 +1278,19 @@ def topk_hard_rows(torch, gen):
     mz[:, ::7] = -1.0
     yield "merge: +0.0 and -0.0 mixed", mz, 50000
     yield "merge: odd width 70001, k = 20000", wide, 20000
+    # the cluster route: ties at the cut across the slices' boundaries
+    # (16384 x r for 4 blocks, 8192 x r for 8), a row that is no multiple
+    # of a slice, and short rows whose last slices are empty
+    cross = torch.full((2, m), 5.0, device="cuda")
+    cross[:, 16000:17000] = 0.0
+    cross[:, 32700:32800] = 0.0
+    cross[:, 49100:49200] = 1.0
+    yield "cluster: ties at the cut across slices", cross, 1170
+    yield "cluster: ties across slices, k = n", cross, m
+    yield ("cluster: width 40000, k = 20000",
+           levels.repeat(1, 3)[:2, :40000].contiguous(), 20000)
+    yield ("cluster: width 1025, empty slices",
+           levels[:, :1025].contiguous(), 600)
 
 
 def scan_hard_rows(torch, gen):
@@ -1484,12 +1547,12 @@ def check_other_paths(torch):
         n = x.shape[1]
         want = prim.bitonic_topk_plain(x, k)
         got = {"default": prim.bitonic_topk(x, k)}
-        for mode in topk_modes(prim, n, k):
-            got[mode] = prim._topk_launch(x, k, prim._topk_plan(n, k, mode))
-        for mode, (v, i) in got.items():
+        for label, p in topk_plans(prim, n, k, every=True):
+            got[label] = prim._topk_launch(x, k, p)
+        for label, (v, i) in got.items():
             if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
                 raise SmokeFailure(f"bitonic_topk {name} {tuple(x.shape)}->"
-                                   f"{k} ({mode} mode) differs")
+                                   f"{k} ({label}) differs")
     for name, x in scan_hard_rows(torch, gen):
         b, n = x.shape
         for excl in (False, True):
@@ -1605,18 +1668,21 @@ def reset_launches(torch):
         c.launches = 0
     top, rerank = counters()[0], counters()[2]
     top.mode_launches = dict.fromkeys(top.mode_launches, 0)
+    top.cluster_launches = 0
     rerank.wide_launches = 0
 
 
 def read_launches(label, required, modes=()):
     """The counts since the last reset, with kernel A's by mode and kernel
     C's wide-layout ones; fails if a kernel of the path, or a mode in
-    `modes` ("bitonic_topk:merge", "rerank_fused:wide"), has none."""
+    `modes` ("bitonic_topk:merge", "bitonic_topk:cluster" -- kernel A's
+    launches on the cluster route --, "rerank_fused:wide"), has none."""
     top, rerank = counters()[0], counters()[2]
     launches = {c.__name__: c.launches for c in counters()}
     launches.update({f"bitonic_topk:{m}": n
                      for m, n in top.mode_launches.items()})
     launches["rerank_fused:wide"] = rerank.wide_launches
+    launches["bitonic_topk:cluster"] = top.cluster_launches
     print(f"launches on the {label}: " + json.dumps(launches), flush=True)
     for name in tuple(required) + tuple(modes):
         if launches[name] == 0:
@@ -1973,7 +2039,8 @@ def sift1b_phase(torch, P, workdir):
     by_id = db._replace(vectors=data)
     modes.update(query_modes(P, cfg, tree, by_id, ("big_perfect",)))
     path = serve_path(torch, "SIFT1B phase", modes, qd,
-                      ALL_KERNELS + EXACT_KERNELS, ("bitonic_topk:merge",),
+                      ALL_KERNELS + EXACT_KERNELS,
+                      ("bitonic_topk:merge", "bitonic_topk:cluster"),
                       batch=BATCH_1B)
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"sift1b: device memory held after the load {loaded_gib:.2f} GiB "
@@ -2631,7 +2698,7 @@ def sift1b_sharded(torch, cfg, tree, chunk_paths, qd, gt, single):
                               group=dist.group.WORLD)
         path = serve_path(torch, "SIFT1B sharded path", modes, qd,
                           SHARDED_EXACT_KERNELS + ("rerank_fused",),
-                          batch=BATCH_1B)
+                          ("bitonic_topk:cluster",), batch=BATCH_1B)
         profiles = {m: profile_batch(torch, fn, qd[:BATCH_1B])
                     for m, fn in modes.items()}
     finally:
@@ -2707,8 +2774,13 @@ def main(json_path=None):
             for key in ("cold_ms", "cold_library_ms", "cold_old_route_ms"):
                 if key in c:
                     other += f"  {key[:-3].replace('_', ' ')} {c[key]:.4f}"
-            if c.get("other_mode"):
-                other += f"  {c['other_mode']} mode {c['other_mode_ms']:.4f}"
+            if "reads" in c:
+                other += f"  reads {c['reads']:.2f}"
+            if c.get("sort_ms"):
+                other += f"  torch.sort {c['sort_ms']:.4f}"
+            for label, ms in c.get("other_routes", {}).items():
+                other += (f"  {label} {ms:.4f} (reads "
+                          f"{c['other_reads'][label]:.2f})")
             for mode, ms in c.get("other_modes", {}).items():
                 other += f"  {mode} mode {ms:.4f}"
             print(f"    {c['case']:64s} ms {c['ms']:.4f}  plain "

@@ -7,7 +7,7 @@ yardsticks, on one CUDA card: the source of the cut between B's modes
 H's rows are held to, and of the comparison of C with an older tree's.
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
-                                   [--only scan|lut|gather|rerank]
+                                   [--only scan|lut|gather|rerank|topk]
                                    [--cases NAME,...]
 
 The random-read ladder (`--only gather`) gathers rows of 8, 72 and 128
@@ -252,6 +252,92 @@ def sweep_rerank(torch, emit, cases=None):
         torch.cuda.empty_cache()
 
 
+def sweep_topk(torch, emit, cases=None):
+    """Kernel A at chip_smoke.py's top-k shapes of rows above 16384
+    elements (the same seeded inputs as its phase 3), on every mode and
+    route that takes them (one block a row, a cluster of 4 and of 8
+    blocks), beside torch.topk and torch.sort(stable); then chip_smoke.py's
+    hard top-k rows on every route (held, not timed)."""
+    from pqt_tpu_torch.ops.cuda import primitives as prim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, (x, k), (b, n, _) in smoke.topk_cases(torch, gen):
+        if n <= prim.TOPK_SORT_MAX or (cases and name not in cases):
+            continue
+        pv, pi = prim.bitonic_topk_plain(x, k)
+        case = {"kernel": "topk", "case": name, "shape": [b, n, k],
+                "plan": prim._topk_plan(n, k)._asdict(),
+                "bound_ms": smoke.bound(b * n * 4 + b * k * 8, b * n)[0],
+                "topk_ms": smoke.device_ms(
+                    torch, lambda: torch.topk(x, k, largest=False)),
+                "sort_ms": smoke.device_ms(
+                    torch, lambda: torch.sort(x, stable=True))}
+        plans = smoke.topk_plans(prim, n, k)
+        plans += [(f"{label} runs", p._replace(runs=True))
+                  for label, p in plans if p.cluster and p.mode == "merge"]
+        for label, p in plans:
+            v, i = prim._topk_launch(x, k, p)
+            torch.cuda.synchronize()
+            if not (torch.equal(v, pv) and torch.equal(i, pi)):
+                raise smoke.SmokeFailure(
+                    f"bitonic_topk {name} ({label}): "
+                    f"{int((i != pi).sum())} indices differ")
+            emit(dict(case, variant=label, ms=smoke.device_ms(
+                torch, lambda: prim._topk_launch(x, k, p)),
+                reads=smoke.topk_reads(torch, prim, x, k, p)[0]))
+        del x, pv, pi
+    # ladders for the cut between the routes: k at the SIFT1M BIG stage 2's
+    # (256, 65536), and row lengths above 16384 (select of 256, merge of
+    # half the row and of the whole row), 64 rows each
+    ladder = [(f"k ladder {k}", 256, 1 << 16, k)
+              for k in (128, 256, 512, 1024, 2048, 4096)]
+    ladder += [(f"n ladder {n} {label}", 64, n, k(n))
+               for n in (20000, 32768, 40000, 49152, 70001, 100000, 131072)
+               for label, k in (("select", lambda n: 256),
+                                ("merge", lambda n: n // 2),
+                                ("merge all", lambda n: n))]
+    for name, b, n, k in ladder:
+        if cases and name not in cases:
+            continue
+        x = torch.rand((b, n), generator=gen, device="cuda") * 1e4
+        x[: b // 2] = torch.round(x[: b // 2] / 1e3)
+        plans = [(label, p) for label, p in smoke.topk_plans(prim, n, k)
+                 if label.split(" cluster")[0] == prim._topk_plan(n, k).mode]
+        if len(plans) < 2:
+            continue
+        pv, pi = prim.bitonic_topk_plain(x, k)
+        case = {"kernel": "topk", "case": name, "shape": [b, n, k],
+                "plan": prim._topk_plan(n, k)._asdict(),
+                "bound_ms": smoke.bound(b * n * 4 + b * k * 8, b * n)[0],
+                "topk_ms": smoke.device_ms(
+                    torch, lambda: torch.topk(x, k, largest=False)),
+                "sort_ms": smoke.device_ms(
+                    torch, lambda: torch.sort(x, stable=True))}
+        for label, p in plans:
+            v, i = prim._topk_launch(x, k, p)
+            if not (torch.equal(v, pv) and torch.equal(i, pi)):
+                raise smoke.SmokeFailure(f"bitonic_topk {name} ({label}) "
+                                         "differs")
+            emit(dict(case, variant=label, ms=smoke.device_ms(
+                torch, lambda: prim._topk_launch(x, k, p)),
+                reads=smoke.topk_reads(torch, prim, x, k, p)[0]))
+        del x, pv, pi
+    held = 0
+    for name, x, k in smoke.topk_hard_rows(torch, gen):
+        want = prim.bitonic_topk_plain(x, k)
+        plans = smoke.topk_plans(prim, x.shape[1], k, every=True)
+        plans += [(f"{label} runs", p._replace(runs=True))
+                  for label, p in plans if p.cluster and p.mode == "merge"]
+        for label, p in plans:
+            v, i = prim._topk_launch(x, k, p)
+            if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
+                raise smoke.SmokeFailure(f"bitonic_topk {name} "
+                                         f"{tuple(x.shape)}->{k} ({label}) "
+                                         "differs")
+            held += 1
+    print(f"topk hard rows: {held} (row, route) pairs equal to the plain "
+          "version", flush=True)
+
+
 def main(json_path, only, cases):
     import torch
     if not torch.cuda.is_available():
@@ -272,7 +358,10 @@ def main(json_path, only, cases):
             print(f"{r['kernel']:10s} {r['case']:32s} {r['variant']:28s} "
                   f"refused: {r['refused']}", flush=True)
             return
-        if "cumsum_ms" in r:
+        if "topk_ms" in r:
+            extra = (f"reads {r['reads']:.2f}  torch.topk "
+                     f"{r['topk_ms']:.4f}  torch.sort {r['sort_ms']:.4f}")
+        elif "cumsum_ms" in r:
             extra = f"cumsum {r['cumsum_ms']:.4f}  copy {r['copy_ms']:.4f}"
         elif "index_ms" in r:
             extra = (f"table[idx] {r['index_ms']:.4f}  sectors' bound "
@@ -296,6 +385,8 @@ def main(json_path, only, cases):
         sweep_gather(torch, emit, cases)
     if only in (None, "rerank"):
         sweep_rerank(torch, emit, cases)
+    if only in (None, "topk"):
+        sweep_topk(torch, emit, cases)
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
@@ -306,7 +397,8 @@ def main(json_path, only, cases):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH")
-    ap.add_argument("--only", choices=("scan", "lut", "gather", "rerank"))
+    ap.add_argument("--only", choices=("scan", "lut", "gather", "rerank",
+                                       "topk"))
     ap.add_argument("--cases", help="comma-separated case names to run")
     args = ap.parse_args()
     try:

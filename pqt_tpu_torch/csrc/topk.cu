@@ -50,7 +50,28 @@
 //   padding repeats), so the order is the same total order as the other
 //   modes'.  Each merge pass reads and writes the scratch rows once; the
 //   runs' sorts are bound by shared memory, as in sort mode.
+//
+// Rows of more than 16384 elements, up to C x 16384, take the cluster
+// route in select and merge mode (pqt_topk_cluster; the wrapper picks the
+// route from the cut in ops/cuda/primitives.py): one thread-block cluster
+// of C blocks (C <= 8, the portable limit) a row, each block holding one
+// slice of the row as keys in registers, so the row is read from device
+// memory once and every radix pass of the select runs on chip.  After each
+// pass's histogram, a cluster barrier, then every block sums the C
+// histograms through distributed shared memory (DSMEM) and all agree on the
+// k-th key's bucket.  The survivors are compacted in position order: block
+// r's tie base and first slot are the counts of blocks 0 to r-1, read the
+// same way.  Select mode then gathers the k survivors into block 0's shared
+// memory and bitonic-sorts them there, as the one-block select does; merge
+// mode scatters them across the cluster, per_k pairs a block, and sorts
+// them by a stable least-significant-digit radix sort on the keys (4 passes
+// of 8 bits; each pass ranks a block's pairs a warp at a time, takes a
+// cluster-wide digit-major, block-minor prefix over DSMEM and scatters each
+// pair into the shared memory of the block that holds its new slot; a pass
+// in which every key shares one digit is skipped).  The pairs never go
+// through device memory; values and indices are written once.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -71,6 +92,12 @@ constexpr int kMergeThreads = 512;
 constexpr int kMergeItems = 8;             // outputs a merging thread makes
 constexpr int kMergeTile = kMergeThreads * kMergeItems;   // 32 KB of pairs
 constexpr int kMaxMerge = 1 << 20;         // merge mode's most pairs a row
+constexpr int kClusterThreads = 512;       // cluster route: threads a block
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kClusterRun = 8192;          // most pairs a block sorts in
+                                           // merge mode (two 64 KB buffers)
+constexpr int kClusterRounds = kClusterRun / kClusterThreads;
+constexpr int kMaxCluster = 8;             // the portable cluster size
 
 __device__ __forceinline__ bool pair_after(float va, int ia, float vb,
                                            int ib) {
@@ -83,6 +110,12 @@ __device__ __forceinline__ uint32_t float_key(float v) {
   uint32_t u = __float_as_uint(v);
   if (u == 0x80000000u) u = 0u;
   return u ^ ((u & 0x80000000u) ? 0xFFFFFFFFu : 0x80000000u);
+}
+
+// The float of a key (float_key's inverse); neg_zero: the value was -0.0.
+__device__ __forceinline__ float key_float(uint32_t key, bool neg_zero) {
+  const uint32_t u = (key & 0x80000000u) ? key ^ 0x80000000u : ~key;
+  return __uint_as_float(neg_zero ? 0x80000000u : u);
 }
 
 // Ascending bitonic sort of len (a power of two) (value, index) pairs in
@@ -461,7 +494,509 @@ merge_pass_kernel(const float* __restrict__ src_v,
   }
 }
 
+// The lanes of the warp whose digit d (kDigitBits bits) and liveness equal
+// this lane's: one ballot a bit, which measured faster on this card than
+// __match_any_sync.
+__device__ __forceinline__ unsigned match_digit(uint32_t d, bool live) {
+  const unsigned l = __ballot_sync(kFull, live);
+  unsigned peers = live ? l : ~l;
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) {
+    const bool bit = (d >> b) & 1u;
+    const unsigned v = __ballot_sync(kFull, bit);
+    peers &= bit ? v : ~v;
+  }
+  return peers;
+}
+
+// The cluster route, select and merge mode, for rows of up to C x ITEMS x
+// kClusterThreads elements: a cluster of C blocks a row (blockIdx.x / C),
+// block `rank` holding positions [rank * slice, (rank + 1) * slice) as keys
+// in registers, thread t positions rank * slice + j * kClusterThreads + t
+// (j < ITEMS), so position order is (j, warp, lane) order within a block.
+// Select mode: each block selects the k smallest of its own slice (they
+// hold every one of the row's k smallest that lies in the slice), with no
+// cluster traffic, and sends them to block 0's shared memory (sort_len
+// values, then sort_len indices, the candidates of blocks 0 to C-1 in turn,
+// padded with (+inf, INT_MAX)), which sorts them and writes the first k.
+// Merge mode: the k-th smallest key of the whole row, from the C blocks'
+// histograms; survivor g goes to slot g % per_k of block g / per_k, as a
+// (value bits, index) pair, then the stable radix passes between two
+// buffers of per_k pairs; a kBins counter row a warp follows them in
+// dynamic shared memory.
+template <int ITEMS, bool MERGE, bool RUNS = false>
+__global__ void __launch_bounds__(kClusterThreads, MERGE ? 1 : 2)
+cluster_topk_kernel(const float* __restrict__ x, int n, int k, int slice,
+                    int per_k, int sort_len, float* __restrict__ out_v,
+                    int* __restrict__ out_i) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float smem[];
+  // the select's histograms, then the radix passes' block digit counts;
+  // two of each, by pass parity, so that one cluster barrier a pass
+  // separates a block's writes from the other blocks' reads
+  __shared__ __align__(16) int hist[2][kBins];
+  __shared__ int cells[ITEMS * kClusterWarps];
+  __shared__ int goff[kBins], lstart[kBins];
+  __shared__ int wsum[2][kBins / 32];
+  __shared__ int s_mine, s_bucket, s_before, s_count, s_ties0, s_first,
+      s_skip, s_total;
+
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const size_t row = blockIdx.x / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int p0 = rank * slice, p1 = min(n, p0 + slice);
+  const int held = max(0, p1 - p0);
+  const float* xr = x + row * n;
+  // merge mode keeps the row's k smallest; select mode, a slice's
+  const int kept = MERGE ? k : min(k, held);
+  const bool all = MERGE ? k == n : kept == held;
+
+  // Select mode's first access to another block's shared memory comes
+  // after no cluster barrier: arrive now, wait before it, so that every
+  // block of the cluster has started by then.
+  if (!MERGE)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  // 1. The slice, read once.  Keys lose the sign of zero: keep it aside.
+  uint32_t key[ITEMS];
+  uint32_t neg_zero = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int idx = p0 + j * kClusterThreads + tid;
+    const float v = idx < p1 ? __ldg(xr + idx) : 0.0f;
+    if (__float_as_uint(v) == 0x80000000u) neg_zero |= 1u << j;
+    key[j] = float_key(v);
+  }
+
+  // 2. The kept-th smallest key, digit by digit from the top, as in
+  //    radix_select_kernel: of the slice (select mode), or of the row
+  //    (merge mode), from the sum of the C blocks' histograms read through
+  //    DSMEM after a cluster barrier a pass.  Plain shared atomics: adding
+  //    a warp's equal digits once, found by match_digit, measured slower.
+  uint32_t prefix = 0;
+  int shift = 32;
+  int need = kept;
+  for (int pass = 0; !all && pass < 32 / kDigitBits; ++pass) {
+    const int lo = shift - kDigitBits;
+    int* h = hist[pass & 1];
+    for (int b = tid; b < kBins; b += kClusterThreads) h[b] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int idx = p0 + j * kClusterThreads + tid;
+      const bool live = idx < p1 && (shift == 32 ||
+                                     (key[j] >> shift) == (prefix >> shift));
+      if (live) atomicAdd(&h[(key[j] >> lo) & (kBins - 1)], 1);
+    }
+    if (MERGE)
+      cluster.sync();                      // every block's histogram is done
+    else
+      __syncthreads();
+    if (warp == 0) {
+      constexpr int kPerLane = kBins / 32;
+      static_assert(kPerLane == 8, "two int4 a lane");
+      int c[kPerLane] = {};
+      for (int r = 0; r < (MERGE ? C : 1); ++r) {
+        const int4* q = reinterpret_cast<const int4*>(
+            (MERGE ? cluster.map_shared_rank(h, r) : h) + lane * kPerLane);
+        const int4 a = q[0], b = q[1];
+        c[0] += a.x; c[1] += a.y; c[2] += a.z; c[3] += a.w;
+        c[4] += b.x; c[5] += b.y; c[6] += b.z; c[7] += b.w;
+      }
+      int sum = 0;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) sum += c[i];
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      int run = incl - sum;
+      if (run < need && need <= incl) {
+        for (int i = 0; i < kPerLane; ++i) {
+          if (need <= run + c[i]) {
+            s_bucket = lane * kPerLane + i;
+            s_before = run;
+            s_count = c[i];
+            break;
+          }
+          run += c[i];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (uint32_t)s_bucket << lo;
+    need -= s_before;
+    shift = lo;
+    const bool whole = need == s_count;    // the bucket is taken whole
+    __syncthreads();                       // s_* are written again
+    if (whole) break;
+  }
+
+  // 3. Survivors in position order: every key below the cut and the first
+  //    `need` ties.  (ties << 16) | below of every (item, warp) cell,
+  //    scanned (at most 16384 of each a block: no carry); a warp's
+  //    survivors of one item take consecutive slots.  Merge mode: block r's
+  //    tie base and first slot are the counts of blocks 0 to r-1, read
+  //    through DSMEM.  Select mode: block r's first slot is the count that
+  //    blocks 0 to r-1 keep, min(k, their slice), known without asking.
+  //    (Placing select mode's candidates in any order, through a shared
+  //    counter, measured slower.)
+  const uint32_t cut = prefix >> (shift & 31);
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int idx = p0 + j * kClusterThreads + tid;
+    const uint32_t hi = key[j] >> (shift & 31);
+    const bool cand = idx < p1 && (all || hi <= cut);
+    // most warps hold no candidate of an item: one ballot says so
+    const unsigned cb = __ballot_sync(kFull, cand);
+    const unsigned bb =
+        cb ? __ballot_sync(kFull, cand && (all || hi < cut)) : 0u;
+    if (lane == 0)
+      cells[j * kClusterWarps + warp] = (__popc(cb & ~bb) << 16) | __popc(bb);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    constexpr int kPer = ITEMS * kClusterWarps / 32;
+    int c[kPer];
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      c[i] = cells[lane * kPer + i];
+      sum += c[i];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += t;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      cells[lane * kPer + i] = run;
+      run += c[i];
+    }
+    if (lane == 31) s_mine = incl;
+  }
+  if (MERGE) {
+    cluster.sync();                        // every block's counts are done
+    if (tid == 0) {
+      int tiebase = 0, first = 0;
+      for (int r = 0; r < rank; ++r) {
+        const int m = *cluster.map_shared_rank(&s_mine, r);
+        const int ties = m >> 16;
+        first += (m & 0xFFFF) + min(max(need - tiebase, 0), ties);
+        tiebase += ties;
+      }
+      s_ties0 = tiebase;
+      s_first = first;
+    }
+    __syncthreads();
+  } else {
+    if (tid == 0) {
+      int first = 0, total = 0;
+      for (int r = 0; r < C; ++r) {
+        const int kr = min(k, max(0, min(slice, n - r * slice)));
+        first += r < rank ? kr : 0;
+        total += kr;
+      }
+      s_ties0 = 0;
+      s_first = first;
+      s_total = total;
+    }
+    __syncthreads();
+    if (rank == 0) {                       // pad past every block's share
+      int* si = reinterpret_cast<int*>(smem + sort_len);
+      for (int t = s_total + tid; t < sort_len; t += kClusterThreads) {
+        smem[t] = INFINITY;
+        si[t] = INT_MAX;
+      }
+    }
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  }
+  uint2* pairs = reinterpret_cast<uint2*>(smem);   // merge mode's buffers
+  {
+    const int tiebase = s_ties0, first = s_first;
+    const int taken0 = min(need, tiebase);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int idx = p0 + j * kClusterThreads + tid;
+      const uint32_t hi = key[j] >> (shift & 31);
+      const bool cand = idx < p1 && (all || hi <= cut);
+      const unsigned cb = __ballot_sync(kFull, cand);
+      if (cb == 0) continue;
+      const bool below = cand && (all || hi < cut);
+      const bool tie = cand && !below;
+      const unsigned bb = __ballot_sync(kFull, below);
+      const unsigned tb = cb & ~bb;
+      const int cell = cells[j * kClusterWarps + warp];
+      const int below_before = (cell & 0xFFFF) + __popc(bb & lanes_below);
+      const int ties_before = (cell >> 16) + __popc(tb & lanes_below);
+      if (below || (tie && tiebase + ties_before < need)) {
+        const int g = first + below_before +
+                      min(need, tiebase + ties_before) - taken0;
+        const float v = key_float(key[j], (neg_zero >> j) & 1u);
+        if (MERGE) {
+          const int b = g / per_k;
+          cluster.map_shared_rank(pairs, b)[g - b * per_k] =
+              make_uint2(__float_as_uint(v), (uint32_t)idx);
+        } else {
+          float* dv = cluster.map_shared_rank(smem, 0);
+          dv[g] = v;
+          reinterpret_cast<int*>(dv + sort_len)[g] = idx;
+        }
+      }
+    }
+  }
+  cluster.sync();                          // every survivor is in place
+
+  if (!MERGE) {
+    // 4s. Block 0 sorts the candidates; the other blocks are done (no
+    //     block reads their shared memory any more).
+    if (rank != 0) return;
+    int* si = reinterpret_cast<int*>(smem + sort_len);
+    bitonic_sort_pairs(smem, si, sort_len);
+    for (int t = tid; t < k; t += kClusterThreads) {
+      out_v[row * k + t] = smem[t];
+      out_i[row * k + t] = si[t];
+    }
+    return;
+  }
+
+  if (RUNS) {
+    // 4r. Each block sorts its run alone (the passes below without the
+    //     cluster's prefix or copy), then every pair's place in the row is
+    //     its place in its run plus, in each other run, the count of pairs
+    //     before it, found by binary search through DSMEM.
+    const int m = min(max(k - rank * per_k, 0), per_k);
+    const int chunk = per_k / kClusterWarps;
+    const int rounds = chunk / 32;
+    int* whist = reinterpret_cast<int*>(pairs + 2 * per_k);
+    int* my_hist = whist + warp * kBins;
+    for (int pass = 0; pass < 32 / kDigitBits; ++pass) {
+      const int lo = pass * kDigitBits;
+      for (int b = lane; b < kBins; b += 32) my_hist[b] = 0;
+      __syncwarp();
+      uint2 pr[kClusterRounds];
+      int rk[kClusterRounds];
+#pragma unroll
+      for (int rd = 0; rd < kClusterRounds; ++rd) {
+        if (rd >= rounds) break;
+        const int e = warp * chunk + rd * 32 + lane;
+        const bool live = e < m;
+        pr[rd] = live ? pairs[e] : make_uint2(0u, 0u);
+        const uint32_t d =
+            (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
+        const unsigned peers = match_digit(d, live);
+        const int leader = 31 - __clz(peers);
+        int base = 0;
+        if (lane == leader && live) {
+          base = my_hist[d];
+          my_hist[d] = base + __popc(peers);
+        }
+        rk[rd] =
+            __shfl_sync(kFull, base, leader) + __popc(peers & lanes_below);
+        __syncwarp();
+      }
+      __syncthreads();
+      if (tid < kBins) {
+        int run = 0;
+        for (int w = 0; w < kClusterWarps; ++w) {
+          const int c = whist[w * kBins + tid];
+          whist[w * kBins + tid] = run;
+          run += c;
+        }
+        int li = run;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int u = __shfl_up_sync(kFull, li, off);
+          if (lane >= off) li += u;
+        }
+        if (lane == 31) wsum[1][warp] = li;
+        lstart[tid] = li - run;
+      }
+      __syncthreads();
+      if (tid < kBins) {
+        int l = 0;
+        for (int w = 0; w < warp; ++w) l += wsum[1][w];
+        lstart[tid] += l;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int rd = 0; rd < kClusterRounds; ++rd) {
+        if (rd >= rounds) break;
+        if (warp * chunk + rd * 32 + lane < m) {
+          const uint32_t d =
+              (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
+          pairs[lstart[d] + my_hist[d] + rk[rd]] = pr[rd];
+        }
+      }
+      __syncthreads();
+    }
+    cluster.sync();                        // every run is sorted
+    for (int e = tid; e < m; e += kClusterThreads) {
+      const uint2 p = pairs[e];
+      const uint32_t key_e = float_key(__uint_as_float(p.x));
+      int g = e;
+      for (int r = 0; r < C; ++r) {
+        if (r == rank) continue;
+        const uint2* other = cluster.map_shared_rank(pairs, r);
+        int lo = 0, hi = min(max(k - r * per_k, 0), per_k);
+        while (lo < hi) {                  // pairs of run r before p
+          const int mid = (lo + hi) >> 1;
+          const uint2 q = other[mid];
+          const uint32_t kq = float_key(__uint_as_float(q.x));
+          if (kq < key_e || (kq == key_e && q.y < p.y))
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        g += lo;
+      }
+      out_v[row * k + g] = __uint_as_float(p.x);
+      out_i[row * k + g] = (int)p.y;
+    }
+    cluster.sync();          // no block leaves while another reads its run
+    return;
+  }
+
+  // 4m. Stable LSD radix passes over the k pairs, per_k a block.  A warp
+  //     ranks a chunk of its block's pairs 32 at a time, holding them in
+  //     registers (match_digit finds the lanes of one digit, the highest of
+  //     them bumps the warp's counter); the block partitions its pairs by
+  //     digit in place, stably; then each block copies its run of every
+  //     digit to the cluster-wide digit-major, block-minor offsets, which
+  //     DSMEM gives: consecutive pairs go to consecutive slots, so a warp's
+  //     remote stores are contiguous.
+  const int m = min(max(k - rank * per_k, 0), per_k);
+  const int chunk = per_k / kClusterWarps;   // a multiple of 32
+  const int rounds = chunk / 32;
+  int* whist = reinterpret_cast<int*>(pairs + 2 * per_k);
+  int* my_hist = whist + warp * kBins;
+  int cur = 0;
+  for (int pass = 0; pass < 32 / kDigitBits; ++pass) {
+    const int lo = pass * kDigitBits;
+    uint2* buf = pairs + cur * per_k;
+    for (int b = lane; b < kBins; b += 32) my_hist[b] = 0;
+    __syncwarp();
+    uint2 pr[kClusterRounds];
+    int rk[kClusterRounds];
+#pragma unroll
+    for (int rd = 0; rd < kClusterRounds; ++rd) {
+      if (rd >= rounds) break;
+      const int e = warp * chunk + rd * 32 + lane;
+      const bool live = e < m;
+      pr[rd] = live ? buf[e] : make_uint2(0u, 0u);
+      const uint32_t d =
+          (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
+      const unsigned peers = match_digit(d, live);
+      const int leader = 31 - __clz(peers);
+      int base = 0;
+      if (lane == leader && live) {
+        base = my_hist[d];
+        my_hist[d] = base + __popc(peers);
+      }
+      rk[rd] = __shfl_sync(kFull, base, leader) + __popc(peers & lanes_below);
+      __syncwarp();
+    }
+    __syncthreads();                       // every pair read, every rank
+    int* bh = hist[pass & 1];
+    if (tid == 0) s_skip = 0;
+    if (tid < kBins) {
+      int run = 0;
+      for (int w = 0; w < kClusterWarps; ++w) {
+        const int c = whist[w * kBins + tid];
+        whist[w * kBins + tid] = run;
+        run += c;
+      }
+      bh[tid] = run;
+    }
+    cluster.sync();                        // every block's counts are done
+    if (tid < kBins) {
+      // digit-major starts: of this block's run of digit tid within the
+      // block (local) and within the cluster's k pairs (global)
+      int total = 0, before = 0;
+      for (int r = 0; r < C; ++r) {
+        const int c = cluster.map_shared_rank(bh, r)[tid];
+        total += c;
+        before += r < rank ? c : 0;
+      }
+      if (total == k) s_skip = 1;          // every key shares this digit
+      const int mine = bh[tid];
+      int gi = total, li = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, gi, off);
+        const int u = __shfl_up_sync(kFull, li, off);
+        if (lane >= off) {
+          gi += t;
+          li += u;
+        }
+      }
+      if (lane == 31) {
+        wsum[0][warp] = gi;
+        wsum[1][warp] = li;
+      }
+      goff[tid] = gi - total + before;
+      lstart[tid] = li - mine;
+    }
+    __syncthreads();
+    if (s_skip) continue;                  // the pass would keep the order
+    if (tid < kBins) {
+      int g = 0, l = 0;
+      for (int w = 0; w < warp; ++w) {
+        g += wsum[0][w];
+        l += wsum[1][w];
+      }
+      goff[tid] += g;
+      lstart[tid] += l;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rd = 0; rd < kClusterRounds; ++rd) {
+      if (rd >= rounds) break;
+      if (warp * chunk + rd * 32 + lane < m) {
+        const uint32_t d =
+            (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
+        buf[lstart[d] + my_hist[d] + rk[rd]] = pr[rd];
+      }
+    }
+    __syncthreads();                       // the block's pairs by digit
+    uint2* dst = pairs + (cur ^ 1) * per_k;
+    for (int t = tid; t < m; t += kClusterThreads) {
+      const uint2 p = buf[t];
+      const uint32_t d = (float_key(__uint_as_float(p.x)) >> lo) & (kBins - 1);
+      const int g = goff[d] + t - lstart[d];
+      const int b = g / per_k;
+      cluster.map_shared_rank(dst, b)[g - b * per_k] = p;
+    }
+    cluster.sync();                        // every pair is in its new slot
+    cur ^= 1;
+  }
+  const uint2* buf = pairs + cur * per_k;
+  const size_t out = row * k + (size_t)rank * per_k;
+  for (int e = tid; e < m; e += kClusterThreads) {
+    const uint2 p = buf[e];
+    out_v[out + e] = __uint_as_float(p.x);
+    out_i[out + e] = (int)p.y;
+  }
+  cluster.sync();          // no block leaves while another reads its counts
+}
+
+using ClusterKernel = void (*)(const float*, int, int, int, int, int, float*,
+                               int*);
+
 constexpr int kMaxDevices = 64;
+// The cluster route's most dynamic shared memory: merge mode's two buffers
+// of kClusterRun pairs and its warps' counters (144 KB).
+constexpr int kClusterSmem =
+    2 * kClusterRun * (int)(sizeof(float) + sizeof(int)) +
+    kClusterWarps * kBins * (int)sizeof(int);
 
 // Dynamic shared memory for the longest sort: 128 KB, above the 48 KB a
 // kernel gets without asking.
@@ -470,6 +1005,12 @@ cudaError_t allow_sort_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               kMaxSort * (int)(sizeof(float) + sizeof(int)));
+}
+
+template <typename Kernel>
+cudaError_t allow_cluster_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem);
 }
 
 // Raise the dynamic shared-memory limit of every variant, once per device.
@@ -487,14 +1028,43 @@ cudaError_t configure() {
       allow_sort_smem(radix_select_kernel<16, true, false>),
       allow_sort_smem(radix_select_kernel<32, true, false>),
       allow_sort_smem(radix_select_kernel<32, false, false>),
-      allow_sort_smem(run_sort_kernel)};
+      allow_sort_smem(run_sort_kernel),
+      allow_cluster_smem(cluster_topk_kernel<16, false>),
+      allow_cluster_smem(cluster_topk_kernel<32, false>),
+      allow_cluster_smem(cluster_topk_kernel<16, true>),
+      allow_cluster_smem(cluster_topk_kernel<32, true>),
+      allow_cluster_smem(cluster_topk_kernel<16, true, true>),
+      allow_cluster_smem(cluster_topk_kernel<32, true, true>)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
   configured[dev] = true;
   return cudaSuccess;
 }
 
+// Whether a cluster of cfg's shape can be resident at all (C blocks of
+// cfg's shared memory on C free SMs of one GPC): a launch the card refuses
+// never runs.  Asked once a (device, variant, C), and again only for more
+// shared memory than was found to fit.
+cudaError_t check_cluster(ClusterKernel kernel, int variant,
+                          const cudaLaunchConfig_t& cfg, int cluster) {
+  static size_t fits[kMaxDevices][6][kMaxCluster + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  size_t& ok = fits[dev][variant][cluster];
+  if (cfg.dynamicSmemBytes <= ok) return cudaSuccess;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  ok = cfg.dynamicSmemBytes;
+  return cudaSuccess;
+}
+
 bool power_of_two(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+int round_up(int v, int step) { return (v + step - 1) / step * step; }
 
 }  // namespace
 
@@ -604,4 +1174,67 @@ extern "C" int pqt_topk_merge(const float* x, int rows, int n, int k,
     ni = ti;
   }
   return 0;
+}
+
+// Cluster route (select mode when merge == 0, merge mode otherwise): x
+// (rows, n) float32 -> (rows, k) values and int32 indices, like the other
+// modes, one cluster of `cluster` blocks (2 to 8) a row.  threads: 512;
+// items: keys a thread holds (16 or 32), with ceil(n / cluster) rounded up
+// to a multiple of 512 at most items x 512.  sort_len: select, the power of
+// two >= min(n, cluster x k), at most 16384 (the candidates block 0
+// sorts); merge, the pairs a block holds, ceil(k / cluster) rounded up to a
+// multiple of 512, at most 8192.  Returns the CUDA
+// error code (0 = success; cudaErrorInvalidConfiguration when no cluster
+// of that shape fits the card).
+extern "C" int pqt_topk_cluster(const float* x, int rows, int n, int k,
+                                int cluster, int items, int threads,
+                                int sort_len, int merge, float* out_v,
+                                int* out_i, void* stream) {
+  if (rows < 1 || k < 1 || k > n || cluster < 2 || cluster > kMaxCluster ||
+      merge < 0 || merge > 2 ||
+      threads != kClusterThreads || (items != 16 && items != 32) ||
+      (long long)rows * cluster > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int slice = round_up((n + cluster - 1) / cluster, threads);
+  if (slice > items * threads) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  if (merge) {
+    if (sort_len != round_up((k + cluster - 1) / cluster, threads) ||
+        sort_len > kClusterRun)
+      return (int)cudaErrorInvalidValue;
+    smem = (size_t)sort_len * 2 * (sizeof(float) + sizeof(int)) +
+           (size_t)kClusterWarps * kBins * sizeof(int);
+  } else {
+    if (!power_of_two(sort_len) || sort_len < min(n, cluster * k) ||
+        sort_len > kMaxSort)
+      return (int)cudaErrorInvalidValue;
+    smem = (size_t)sort_len * (sizeof(float) + sizeof(int));
+  }
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  const ClusterKernel kernel =
+      merge == 2 ? (items == 16 ? cluster_topk_kernel<16, true, true>
+                                : cluster_topk_kernel<32, true, true>)
+      : merge    ? (items == 16 ? cluster_topk_kernel<16, true>
+                                : cluster_topk_kernel<32, true>)
+                 : (items == 16 ? cluster_topk_kernel<16, false>
+                                : cluster_topk_kernel<32, false>);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = check_cluster(kernel, 2 * merge + (items == 32), cfg, cluster);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, n, k, slice, merge ? sort_len : 0,
+                           sort_len, out_v, out_i);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -42,7 +42,9 @@ _SIGNATURES = {
     "topk": {"pqt_topk": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
                           _I),
              "pqt_topk_merge": ((_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _P, _P), _I)},
+                                 _P, _P), _I),
+             "pqt_topk_cluster": ((_P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                   _P, _P), _I)},
     "scan": {"pqt_block_scan_rows": ((_P, _I, _L, _I, _I, _I, _I, _P, _P),
                                      _I),
              "pqt_block_scan_onepass": ((_P, _I, _L, _I, _I, _P,

@@ -25,11 +25,12 @@ from pqt_tpu_torch.ops.cuda import build
 # sorts at most TOPK_SORT_MAX (value, index) pairs in shared memory (8 bytes
 # a pair, 128 KB): the whole row in sort mode, the k survivors in select
 # mode.  Select mode takes rows up to TOPK_SELECT_MAX_ROW elements, held in
-# registers up to TOPK_SELECT_ITEMS[-1] x TOPK_SELECT_THREADS = 16384 and
-# read again on every pass above that.  Merge mode keeps more than
-# TOPK_SORT_MAX, up to TOPK_MERGE_MAX: the select's survivors (or the whole
-# row) sorted in runs of TOPK_SORT_MAX, then merged in device memory,
-# TOPK_MERGE_TILE outputs a block.
+# registers up to TOPK_SELECT_ITEMS[-1] x TOPK_SELECT_THREADS = 16384 and,
+# on the one-block route, read again on every pass above that.  Merge mode
+# keeps more than TOPK_SORT_MAX, up to TOPK_MERGE_MAX: on the one-block
+# route the select's survivors (or the whole row) sorted in runs of
+# TOPK_SORT_MAX, then merged in device memory, TOPK_MERGE_TILE outputs a
+# block.  Longer rows take the cluster route below.
 TOPK_SORT_MAX = 16384
 TOPK_SELECT_MAX_ROW = 1 << 30
 TOPK_MERGE_MAX = 1 << 20
@@ -42,6 +43,30 @@ TOPK_DIGIT_BITS = 8
 # to them on longer rows with k <= n / 2 (chip_smoke.py times both modes at
 # every top-k shape; PERF.md).
 TOPK_SORT_ROW = 512
+# The cluster route (csrc/topk.cu, pqt_topk_cluster) of select and merge
+# mode: one thread-block cluster of C blocks of TOPK_CLUSTER_THREADS a row,
+# C the smallest of TOPK_CLUSTER_SIZES that holds the row (8 at most, the
+# portable cluster size).  A block keeps a slice of ceil(n / C) elements,
+# rounded up to a multiple of TOPK_CLUSTER_THREADS, in registers, 16 or 32 a
+# thread (TOPK_SELECT_ITEMS[-2:]), so the row is read once.  Select mode
+# selects each slice's k smallest and sorts the C x k candidates in one
+# block (at most TOPK_SORT_MAX); merge mode sorts ceil(k / C) pairs a
+# block, rounded up likewise, at most TOPK_CLUSTER_RUN, in the cluster's
+# shared memory.
+TOPK_CLUSTER_THREADS = 512
+TOPK_CLUSTER_SIZES = (4, 8)
+TOPK_CLUSTER_RUN = 8192
+# The cut between the routes, from chip_sweep.py's timings of both on the
+# H100 (`--only topk`: chip_smoke.py's shapes, a ladder of k at (256, 65536)
+# and a ladder of row lengths from 20000 to 131072; PERF.md): rows of more
+# than TOPK_SORT_MAX and at most TOPK_CLUSTER_MAX_ROW elements take the
+# cluster route in merge mode (faster at every length and k measured), and
+# in select mode up to k = TOPK_CLUSTER_SELECT_MAX_K (from k = 512 on, the
+# sort of C x k candidates in one block made it slower than the one-block
+# select).  Longer rows and larger selects keep the one-block route.
+TOPK_CLUSTER_MAX_ROW = (TOPK_CLUSTER_SIZES[-1] * TOPK_SELECT_ITEMS[-1]
+                        * TOPK_CLUSTER_THREADS)
+TOPK_CLUSTER_SELECT_MAX_K = 256
 # Kernel B's modes (csrc/scan.cu): rows of at most SCAN_ROWS_MAX elements,
 # and rows of at most SCAN_ROWS_WALK_MAX when there are SCAN_MANY_ROWS rows
 # or more, are scanned in rows mode, up to SCAN_ROWS_WARPS warps a block, a
@@ -116,15 +141,24 @@ def bitonic_topk_plain(x: torch.Tensor, k: int):
 class TopkPlan(NamedTuple):
     """How kernel A runs a (rows, n) -> k call."""
     mode: str       # "sort" (the whole row), "select" (radix select +
-                    # sort) or "merge" (select + run sorts + merges)
+                    # sort) or "merge" (select + a sort of k > 16384 pairs)
     items: int      # keys a select thread holds per tile (0 in sort mode)
-    threads: int    # threads of a (select) block, one block per row
+    threads: int    # threads of a (select) block, one block per row, or of
+                    # each block of a row's cluster
     sort_len: int   # pairs the block sorts: n or k, up to a power of two;
-                    # merge mode: pairs of a scratch row, whole runs
+                    # merge mode: pairs of a scratch row, whole runs, or on
+                    # the cluster route the pairs each block sorts
+    cluster: int = 0    # blocks of a row's cluster (0: one block a row)
+    runs: bool = False  # cluster merge: run sorts and a DSMEM merge in
+                        # place of the cluster-wide radix sort
 
 
 def _pow2_at_least(v: int) -> int:
     return 1 << max(1, (v - 1).bit_length())
+
+
+def _round_up(v: int, step: int) -> int:
+    return -(-v // step) * step
 
 
 def _select_shape(n: int):
@@ -135,15 +169,50 @@ def _select_shape(n: int):
     return items, min(TOPK_SELECT_THREADS, 32 * -(-needed // 32))
 
 
-def _topk_plan(n: int, k: int, mode: Optional[str] = None) -> TopkPlan:
-    """Kernel A's mode and launch shape for rows of n elements, k kept.
+def _cluster_plan(n: int, k: int, mode: str,
+                  blocks: Optional[int] = None) -> Optional[TopkPlan]:
+    """The cluster route's plan for rows of n elements, k kept, in select
+    or merge mode: the smallest cluster size (or `blocks`) whose blocks
+    hold a slice of the row in registers and, in select mode, whose
+    candidates (each block's k smallest) block 0 sorts in shared memory
+    (at most TOPK_SORT_MAX), in merge mode whose blocks hold their share of
+    the k pairs in shared memory; None where none does."""
+    T = TOPK_CLUSTER_THREADS
+    for c in (blocks,) if blocks else TOPK_CLUSTER_SIZES:
+        piece = _round_up(-(-n // c), T)
+        items = next((i for i in TOPK_SELECT_ITEMS[-2:] if piece <= i * T),
+                     None)
+        if items is None:
+            continue
+        if mode == "select":
+            # block 0 sorts every block's k smallest of its slice
+            sort_len = _pow2_at_least(min(n, c * k))
+            if sort_len <= TOPK_SORT_MAX:
+                return TopkPlan("select", items, T, sort_len, c)
+            continue
+        per_block = _round_up(-(-k // c), T)
+        if per_block <= TOPK_CLUSTER_RUN:
+            return TopkPlan("merge", items, T, per_block, c)
+    return None
+
+
+def _topk_plan(n: int, k: int, mode: Optional[str] = None,
+               cluster: Optional[int] = None) -> TopkPlan:
+    """Kernel A's mode, route and launch shape for rows of n elements, k
+    kept.
 
     Sort mode for rows of at most TOPK_SORT_ROW elements and for k above
     n / 2 (rows of at most TOPK_SORT_MAX), select mode for other k up to
-    TOPK_SORT_MAX, merge mode for k above it; `mode` forces one.  Raises
-    NotImplementedError for what no mode takes: a sort of more than
-    TOPK_SORT_MAX elements, a select of more than TOPK_SORT_MAX, a merge of
-    more than TOPK_MERGE_MAX, or a row longer than TOPK_SELECT_MAX_ROW.
+    TOPK_SORT_MAX, merge mode for k above it; `mode` forces one.  Merge,
+    and select up to k = TOPK_CLUSTER_SELECT_MAX_K, take the cluster route
+    for rows of more than TOPK_SORT_MAX and at most TOPK_CLUSTER_MAX_ROW
+    elements where a cluster holds them, one block a row otherwise;
+    `cluster` forces the one-block route (0) or a cluster of that many
+    blocks.  Raises NotImplementedError for what no
+    mode takes: a sort of more than TOPK_SORT_MAX elements, a select of
+    more than TOPK_SORT_MAX, a merge of more than TOPK_MERGE_MAX, a row
+    longer than TOPK_SELECT_MAX_ROW, or a cluster that does not hold the
+    row.
     """
     if not 1 <= k <= n:
         raise ValueError(f"bitonic_topk: k={k} outside [1, {n}]")
@@ -154,10 +223,10 @@ def _topk_plan(n: int, k: int, mode: Optional[str] = None) -> TopkPlan:
         else:
             mode = "select" if k <= TOPK_SORT_MAX else "merge"
     if mode == "sort":
-        if n > TOPK_SORT_MAX:
+        if n > TOPK_SORT_MAX or cluster:
             raise NotImplementedError(
                 f"bitonic_topk: a sort of rows of {n} > {TOPK_SORT_MAX} "
-                "elements")
+                "elements, or on a cluster")
         sort_len = _pow2_at_least(n)
         return TopkPlan("sort", 0, min(1024, sort_len // 2), sort_len)
     if mode not in ("select", "merge"):
@@ -167,6 +236,19 @@ def _topk_plan(n: int, k: int, mode: Optional[str] = None) -> TopkPlan:
         raise NotImplementedError(
             f"bitonic_topk: k={k} of rows of {n} elements ({mode} mode keeps "
             f"k <= {cap} of rows up to {TOPK_SELECT_MAX_ROW})")
+    if cluster is None:
+        faster = TOPK_SORT_MAX < n <= TOPK_CLUSTER_MAX_ROW and (
+            mode == "merge" or k <= TOPK_CLUSTER_SELECT_MAX_K)
+        plan = _cluster_plan(n, k, mode) if faster else None
+        if plan is not None:
+            return plan
+    elif cluster:
+        plan = _cluster_plan(n, k, mode, cluster)
+        if plan is None or cluster > TOPK_CLUSTER_SIZES[-1]:
+            raise NotImplementedError(
+                f"bitonic_topk: no cluster of {cluster} blocks holds "
+                f"rows of {n} elements, k={k}, in {mode} mode")
+        return plan
     if mode == "select":
         return TopkPlan("select", *_select_shape(n), _pow2_at_least(k))
     # the merge mode's select runs the row tile by tile (32 keys a thread)
@@ -183,7 +265,14 @@ def _topk_launch(x: torch.Tensor, k: int, plan: TopkPlan):
         return out_v, out_i
     lib = build.load("topk")
     with torch.cuda.device(x.device):
-        if plan.mode == "merge":
+        if plan.cluster:
+            err = lib.pqt_topk_cluster(_ptr(x), B, N, k, plan.cluster,
+                                       plan.items, plan.threads,
+                                       plan.sort_len,
+                                       int(plan.mode == "merge")
+                                       + int(plan.runs),
+                                       _ptr(out_v), _ptr(out_i), _stream(x))
+        elif plan.mode == "merge":
             scratch = [torch.empty((B, plan.sort_len), dtype=dt,
                                    device=x.device)
                        for dt in (torch.float32, torch.int32) * 2]
@@ -198,6 +287,7 @@ def _topk_launch(x: torch.Tensor, k: int, plan: TopkPlan):
     build.check(err, "bitonic_topk")
     bitonic_topk.launches += 1
     bitonic_topk.mode_launches[plan.mode] += 1
+    bitonic_topk.cluster_launches += bool(plan.cluster)
     return out_v, out_i
 
 
@@ -207,9 +297,10 @@ def bitonic_topk(x: torch.Tensor, k: int):
     Values come out ascending and ties lowest index first, like `lax.top_k`
     of the negated row and a stable ascending sort (-0.0 and +0.0 equal, as
     in the sort).  Inputs must not be NaN.  On the card the kernel runs in
-    the mode `_topk_plan` picks; any N up to TOPK_SELECT_MAX_ROW, with k up
-    to TOPK_MERGE_MAX.  `bitonic_topk.mode_launches` counts the launches by
-    mode.
+    the mode and on the route `_topk_plan` picks; any N up to
+    TOPK_SELECT_MAX_ROW, with k up to TOPK_MERGE_MAX.
+    `bitonic_topk.mode_launches` counts the launches by mode,
+    `bitonic_topk.cluster_launches` those on the cluster route.
     """
     _, N = x.shape
     plan = _topk_plan(N, k)
@@ -221,6 +312,7 @@ def bitonic_topk(x: torch.Tensor, k: int):
 
 bitonic_topk.launches = 0
 bitonic_topk.mode_launches = {"sort": 0, "select": 0, "merge": 0}
+bitonic_topk.cluster_launches = 0
 
 
 def block_scan_plain(x: torch.Tensor, exclusive: bool = False):

@@ -95,6 +95,24 @@ def test_topk_plan_picks_the_mode(name):
     (_, n, k), mode = TOPK_SHAPES[name]
     plan = prim._topk_plan(n, k)
     assert plan.mode == mode
+    if plan.cluster:
+        # the cluster route: each block holds a slice of the row in
+        # registers, and block 0 sorts the select's candidates, or each
+        # block its share of the merge's pairs, in shared memory
+        T = plan.threads
+        assert n > prim.TOPK_SORT_MAX and plan.cluster <= 8
+        assert -(-n // plan.cluster) <= plan.items * T
+        assert plan.sort_len & (plan.sort_len - 1) == 0 or mode == "merge"
+        if mode == "merge":
+            assert plan.sort_len % T == 0
+            assert plan.cluster * plan.sort_len >= k
+            assert plan.sort_len <= prim.TOPK_CLUSTER_RUN
+        else:
+            assert min(n, plan.cluster * k) <= plan.sort_len
+            assert plan.sort_len <= prim.TOPK_SORT_MAX
+        # the one-block route stays for what the cluster does not take
+        plan = prim._topk_plan(n, k, cluster=0)
+        assert plan.mode == mode and not plan.cluster
     assert plan.sort_len >= (n if mode == "sort" else k)
     assert plan.sort_len & (plan.sort_len - 1) == 0
     if mode == "merge":
@@ -226,7 +244,8 @@ def _merge_path(a, b, diag):
 
 
 def _merge_model(x, k, seed=0):
-    """Merge mode as csrc/topk.cu runs it, row by row: the select's k
+    """Merge mode on the one-block route as csrc/topk.cu runs it, row by
+    row: the select's k
     survivors in any order (the whole row for k = n) in a scratch row of
     len pairs, runs of TOPK_SORT_MAX sorted by (value, index), then merge
     passes in which every 4096-pair tile finds its split points by
@@ -234,7 +253,7 @@ def _merge_model(x, k, seed=0):
     its own."""
     rng = np.random.default_rng(seed)
     n = x.shape[1]
-    plan = prim._topk_plan(n, k)
+    plan = prim._topk_plan(n, k, cluster=0)
     assert plan.mode == "merge"
     L, R, tile, items = (plan.sort_len, prim.TOPK_SORT_MAX,
                          prim.TOPK_MERGE_TILE, 8)
@@ -290,6 +309,213 @@ def test_merge_model_matches_lax_top_k(b, n, k):
     plain_v, plain_i = bitonic_topk_plain(torch.from_numpy(x), k)
     np.testing.assert_array_equal(got_v, plain_v.numpy())
     np.testing.assert_array_equal(got_i, plain_i.numpy())
+
+
+def _digit_cut(hist_of, k):
+    """(prefix, shift, need) of the k-th smallest key, by 8-bit digits from
+    the top as csrc/topk.cu finds it, stopping once its bucket is taken
+    whole; hist_of(prefix, shift, lo) is the histogram of digit [lo, lo + 8)
+    of the live keys (bits [shift, 32) equal to prefix's)."""
+    bits = prim.TOPK_DIGIT_BITS
+    prefix, shift, need = 0, 32, k
+    while shift > 0:
+        lo = shift - bits
+        hist = hist_of(prefix, shift, lo)
+        incl = np.cumsum(hist)
+        bucket = int(np.searchsorted(incl, need))   # first incl >= need
+        before = int(incl[bucket] - hist[bucket])
+        prefix |= bucket << lo
+        need -= before
+        shift = lo
+        if need == hist[bucket]:
+            break
+    return prefix, shift, need
+
+
+def _slice_hist(key, prefix, shift, lo):
+    bins = 1 << prim.TOPK_DIGIT_BITS
+    live = (key >> shift) == (prefix >> shift) if shift < 32 else \
+        np.ones(key.size, bool)
+    return np.bincount((key[live] >> lo) & (bins - 1), minlength=bins)
+
+
+def _survivors(key, cut, shift, need, tiebase, first):
+    """Kernel A's slots for one slice's survivors, as the cluster route
+    compacts them in position order: every key below the cut, then the
+    ties whose rank in the row (the ties of the earlier slices, tiebase,
+    then this slice's in position order) is below `need`.  Returns (local
+    positions, slots)."""
+    hi = key >> shift
+    below, tie = hi < cut, hi == cut
+    below_before = np.cumsum(below) - below       # exclusive, in order
+    ties_before = np.cumsum(tie) - tie
+    take = below | (tie & (tiebase + ties_before < need))
+    slot = (first + below_before + np.minimum(need, tiebase + ties_before)
+            - min(need, tiebase))
+    return np.flatnonzero(take), slot[take]
+
+
+def _cluster_model(x, k):
+    """The cluster route as csrc/topk.cu runs it, row by row and slice by
+    slice: C slices of ceil(n / C) elements, rounded up to whole blocks.
+    Select mode: each slice's own k smallest (its digit cut from its own
+    histograms, its ties in position order), block 0's C x k candidates
+    sorted by (value, position).  Merge mode: the row's cut from the sum of
+    the slices' histograms, the cross-slice tie base and first slot of
+    every slice, the survivors scattered per_k a block, then four stable
+    radix passes of 8 bits over the blocks' pairs: each block ranks its
+    pairs a warp at a time, partitions them by digit, and its run of every
+    digit goes to the digit-major, block-minor offset of the cluster (a
+    pass in which one digit holds every key is skipped)."""
+    n = x.shape[1]
+    plan = prim._topk_plan(n, k)
+    assert plan.cluster, plan
+    C, T, bins = plan.cluster, plan.threads, 1 << prim.TOPK_DIGIT_BITS
+    piece = -(-(-(-n // C)) // T) * T
+    assert piece <= plan.items * T
+    warps = T // 32
+    out_v, out_i = [], []
+    for row in x:
+        key = _float_keys(row).astype(np.int64)
+        spans = [(min(n, r * piece), min(n, (r + 1) * piece))
+                 for r in range(C)]
+        if plan.mode == "select":
+            cands = []
+            for a, b in spans:
+                kept = min(k, b - a)
+                if kept == b - a:                  # the slice whole
+                    cands.append(np.arange(a, b))
+                    continue
+                prefix, shift, need = _digit_cut(
+                    lambda p, s, lo: _slice_hist(key[a:b], p, s, lo), kept)
+                local, slot = _survivors(key[a:b], prefix >> shift, shift,
+                                         need, 0, 0)
+                assert np.array_equal(np.sort(slot), np.arange(kept))
+                cands.append(a + local)
+            cand = np.concatenate(cands)
+            assert cand.size <= plan.sort_len
+            order = np.lexsort((cand, row[cand]))  # (value, position)
+            out_i.append(cand[order[:k]].astype(np.int32))
+            out_v.append(row[cand[order[:k]]])
+            continue
+        per_k = plan.sort_len
+        if k == n:
+            prefix, shift, need, cut = 0, 0, 0, 1 << 32   # all below
+        else:
+            prefix, shift, need = _digit_cut(
+                lambda p, s, lo: sum(_slice_hist(key[a:b], p, s, lo)
+                                     for a, b in spans), k)
+            cut = prefix >> shift
+        blocks = np.zeros((C, per_k), np.int64)            # positions
+        filled = np.zeros(C * per_k, bool)
+        tiebase = first = 0
+        for a, b in spans:
+            hi = key[a:b] >> shift
+            local, slot = _survivors(key[a:b], cut, shift, need, tiebase,
+                                     first)
+            blocks.reshape(-1)[slot] = a + local
+            assert not filled[slot].any()
+            filled[slot] = True
+            ties = int((hi == cut).sum())
+            first += int((hi < cut).sum()) + min(max(need - tiebase, 0),
+                                                 ties)
+            tiebase += ties
+        assert first == k and filled[:k].all() and not filled[k:].any()
+        held = [min(max(k - r * per_k, 0), per_k) for r in range(C)]
+        runs = [blocks[r, :held[r]] for r in range(C)]
+        chunk = per_k // warps
+        for lo in range(0, 32, prim.TOPK_DIGIT_BITS):
+            digits = [(_float_keys(row[run]).astype(np.int64) >> lo)
+                      & (bins - 1) for run in runs]
+            counts = np.stack([np.bincount(d, minlength=bins)
+                               for d in digits])           # (C, bins)
+            total = counts.sum(0)
+            if (total == k).any():
+                continue                   # one digit holds every key
+            goff = (np.cumsum(total) - total)[None, :] + \
+                np.cumsum(counts, 0) - counts
+            lstart = np.cumsum(counts, 1) - counts
+            dest = np.empty(k, np.int64)
+            for r, d in enumerate(digits):
+                # a warp's rank among its chunk's equal digits, then the
+                # warps' exclusive starts: a stable partition by digit
+                w = np.arange(d.size) // chunk
+                wcount = np.zeros((warps, bins), np.int64)
+                rank = np.empty(d.size, np.int64)
+                for e in range(d.size):
+                    rank[e] = wcount[w[e], d[e]]
+                    wcount[w[e], d[e]] += 1
+                wstart = np.cumsum(wcount, 0) - wcount
+                t = lstart[r, d] + wstart[w, d] + rank
+                assert np.array_equal(np.sort(t), np.arange(d.size))
+                assert np.array_equal(np.argsort(t), np.argsort(
+                    d, kind="stable"))
+                dest[goff[r, d] + t - lstart[r, d]] = runs[r]
+            runs = [dest[r * per_k:r * per_k + held[r]] for r in range(C)]
+        idx = np.concatenate(runs)
+        out_i.append(idx.astype(np.int32))
+        out_v.append(row[idx])
+    return np.stack(out_v), np.stack(out_i)
+
+
+@pytest.mark.parametrize("b,n,k", [(2, 65536, 32768), (1, 65536, 65536),
+                                   (1, 40000, 20000), (2, 65536, 256),
+                                   (1, 70001, 20000), (2, 70001, 256),
+                                   (2, 20000, 100)])
+def test_cluster_model_matches_lax_top_k(b, n, k):
+    """The model of the cluster route (select and merge mode on rows above
+    16384 elements) equals lax.top_k of the negated row and the plain
+    version to the bit on tie-heavy rows: ties at the cut across the
+    slices, k = n, rows that are no multiple of a slice, +inf tails."""
+    rng = np.random.default_rng(b * n + k + 1)
+    x = _tie_heavy(rng, b, n)
+    got_v, got_i = _cluster_model(x, k)
+    neg, lax_i = jax.lax.top_k(-jnp.asarray(x), k)
+    np.testing.assert_array_equal(got_v, -np.asarray(neg))
+    np.testing.assert_array_equal(got_i, np.asarray(lax_i))
+    plain_v, plain_i = bitonic_topk_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got_v, plain_v.numpy())
+    np.testing.assert_array_equal(got_i, plain_i.numpy())
+
+
+@pytest.mark.parametrize("k", [256, 40000])
+def test_cluster_model_on_signed_zeros(k):
+    """-0.0 and +0.0 share one key on the cluster route too: they tie, come
+    out lowest position first like the plain version's, and keep their own
+    sign bits."""
+    rng = np.random.default_rng(k)
+    x = np.where(rng.random((1, 65536)) < 0.5, 0.0, -0.0).astype(np.float32)
+    x[:, ::7] = -1.0
+    got_v, got_i = _cluster_model(x, k)
+    plain_v, plain_i = bitonic_topk_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got_i, plain_i.numpy())
+    np.testing.assert_array_equal(np.signbit(got_v),
+                                  np.signbit(plain_v.numpy()))
+
+
+@pytest.mark.parametrize("n", [16385, 40000, 65536, 70001,
+                               prim.TOPK_CLUSTER_MAX_ROW])
+def test_topk_plan_takes_the_cluster_route(n):
+    """Rows above 16384 elements and up to C x 16384 take the cluster route
+    in merge mode and in select mode up to TOPK_CLUSTER_SELECT_MAX_K, on
+    the smallest cluster that holds them; longer rows, larger selects and
+    the forced one-block route take one block a row."""
+    C = next(c for c in prim.TOPK_CLUSTER_SIZES if n <= c * 16384)
+    assert prim._topk_plan(n, 256).cluster == C
+    assert prim._topk_plan(n, 256, cluster=0).cluster == 0
+    assert prim._topk_plan(n, 512).cluster == 0
+    k = max(16385, n // 2)
+    assert prim._topk_plan(n, k) == prim._cluster_plan(n, k, "merge")
+    assert prim._topk_plan(n, k).cluster >= C
+    for bigger in (n + 1, 2 * n):
+        if bigger > prim.TOPK_CLUSTER_MAX_ROW:
+            assert prim._topk_plan(bigger, 256).cluster == 0
+            assert prim._topk_plan(bigger, bigger // 2).cluster == 0
+    with pytest.raises(NotImplementedError):
+        prim._topk_plan(prim.TOPK_CLUSTER_MAX_ROW + 1, 256, cluster=8)
+    with pytest.raises(NotImplementedError):
+        prim._topk_plan(n, n, cluster=4) if n > 4 * 8192 else \
+            prim._topk_plan(n, 256, "sort", cluster=4)
 
 
 @pytest.mark.parametrize("fill", [3.0, np.inf])
