@@ -93,9 +93,10 @@ Phases (any failure exits non-zero before the last line is printed):
      the card, and serve 1024 queries in batches of 64 through exact and
      refine over vectors_csr, line, query_candidates, BIG line and BIG
      perfect (vectors by id attached on the card); kernel A's merge mode
-     and its cluster route must launch; encode, merge, save and load seconds, bin occupancy,
-     peak device memory and host RSS are printed; then, the single-device
-     database freed, phase 8's chain over the same chunk files: 4 shards
+     and its cluster route must launch; encode, merge, save and load
+     seconds, bin occupancy, peak device memory and host RSS are printed;
+     then, the single-device database freed, phase 8's chain over the same
+     chunk files: 4 shards
      of 2^27 slots in a world of one NCCL rank, exact and line at batch
      64, held to the floors above and 0.002 below the single-device
      recall, with the range merge's seconds and the host peak RSS;

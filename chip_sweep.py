@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time kernel B (block_scan) in each of its modes along a ladder of row
 lengths, kernel E (lut_gather), kernel H (gather_rows) along a ladder of
-random reads, and the line re-rank (kernel C) at its path shapes, against
+random reads, the line re-rank (kernel C) at its path shapes, and kernel A
+(bitonic_topk) on each route at its rows above 16384 elements, against
 yardsticks, on one CUDA card: the source of the cut between B's modes
 (SCAN_* in pqt_tpu_torch/ops/cuda/primitives.py), of the random-read rate
-H's rows are held to, and of the comparison of C with an older tree's.
+H's rows are held to, of the comparison of C with an older tree's, and of
+the cut between A's routes (TOPK_CLUSTER_* there).
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
                                    [--only scan|lut|gather|rerank|topk]
@@ -23,6 +25,15 @@ chip_smoke.py times them.  The yardsticks: torch.cumsum and a copy of the
 same bytes for B; table[idx], the sectors' bound and, at a 2 GiB table,
 the same lookups in address order for E.  Prints one line per variant and
 writes them all to PATH as JSON, with the card's name and power limit.
+
+Kernel A (`--only topk`) runs chip_smoke.py's top-k shapes of rows above
+16384 elements on the same seeded inputs, then a ladder of k at (256,
+65536) and of row lengths from 20000 to 131072 (a select of 256, a merge
+of half the row and of the whole row), on every route that takes them
+(one block a row, a thread-block cluster of 4 and of 8 blocks), each held
+to the plain version to the bit and timed beside torch.topk and
+torch.sort(stable), with how many times it reads the row; then
+chip_smoke.py's hard top-k rows on every route.
 
 The line re-rank (`--only rerank`) runs chip_smoke.py's RERANK_SHAPES on
 the same seeded inputs: the old route (kernel H's payload rows, then kernel
@@ -271,10 +282,7 @@ def sweep_topk(torch, emit, cases=None):
                     torch, lambda: torch.topk(x, k, largest=False)),
                 "sort_ms": smoke.device_ms(
                     torch, lambda: torch.sort(x, stable=True))}
-        plans = smoke.topk_plans(prim, n, k)
-        plans += [(f"{label} runs", p._replace(runs=True))
-                  for label, p in plans if p.cluster and p.mode == "merge"]
-        for label, p in plans:
+        for label, p in smoke.topk_plans(prim, n, k):
             v, i = prim._topk_launch(x, k, p)
             torch.cuda.synchronize()
             if not (torch.equal(v, pv) and torch.equal(i, pi)):
@@ -324,10 +332,7 @@ def sweep_topk(torch, emit, cases=None):
     held = 0
     for name, x, k in smoke.topk_hard_rows(torch, gen):
         want = prim.bitonic_topk_plain(x, k)
-        plans = smoke.topk_plans(prim, x.shape[1], k, every=True)
-        plans += [(f"{label} runs", p._replace(runs=True))
-                  for label, p in plans if p.cluster and p.mode == "merge"]
-        for label, p in plans:
+        for label, p in smoke.topk_plans(prim, x.shape[1], k, every=True):
             v, i = prim._topk_launch(x, k, p)
             if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
                 raise smoke.SmokeFailure(f"bitonic_topk {name} "

@@ -52,24 +52,25 @@
 //   runs' sorts are bound by shared memory, as in sort mode.
 //
 // Rows of more than 16384 elements, up to C x 16384, take the cluster
-// route in select and merge mode (pqt_topk_cluster; the wrapper picks the
-// route from the cut in ops/cuda/primitives.py): one thread-block cluster
-// of C blocks (C <= 8, the portable limit) a row, each block holding one
-// slice of the row as keys in registers, so the row is read from device
-// memory once and every radix pass of the select runs on chip.  After each
-// pass's histogram, a cluster barrier, then every block sums the C
-// histograms through distributed shared memory (DSMEM) and all agree on the
-// k-th key's bucket.  The survivors are compacted in position order: block
-// r's tie base and first slot are the counts of blocks 0 to r-1, read the
-// same way.  Select mode then gathers the k survivors into block 0's shared
-// memory and bitonic-sorts them there, as the one-block select does; merge
-// mode scatters them across the cluster, per_k pairs a block, and sorts
-// them by a stable least-significant-digit radix sort on the keys (4 passes
-// of 8 bits; each pass ranks a block's pairs a warp at a time, takes a
-// cluster-wide digit-major, block-minor prefix over DSMEM and scatters each
-// pair into the shared memory of the block that holds its new slot; a pass
-// in which every key shares one digit is skipped).  The pairs never go
-// through device memory; values and indices are written once.
+// route (pqt_topk_cluster) in merge mode and in select mode for small k;
+// the wrapper's _topk_plan picks the route from the cut that chip_sweep.py
+// measured: one thread-block cluster of C blocks (C <= 8, the portable
+// limit) a row, each block holding one slice of the row as keys in
+// registers, so the row is read from device memory once.
+// * Merge mode finds the row's k-th key by the select's digit passes, each
+//   pass's histograms summed through distributed shared memory (DSMEM)
+//   after a cluster barrier; compacts the survivors in position order
+//   (block r's tie base and first slot are the counts of blocks 0 to r-1,
+//   read the same way), per_k a block; and sorts them by a stable
+//   least-significant-digit radix sort on the keys, 4 passes of 8 bits:
+//   each block ranks and partitions its pairs by digit in its own shared
+//   memory, then copies each digit's run to the cluster-wide digit-major,
+//   block-minor offset in the shared memory of the block that holds it (a
+//   pass in which one digit holds every key is skipped).  The pairs never
+//   go through device memory; values and indices are written once.
+// * Select mode has each block select its own slice's k smallest, with no
+//   cluster traffic (a digit pass a cluster barrier was slower), and sort
+//   the C x k candidates in block 0, as the one-block select sorts its k.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -494,21 +495,6 @@ merge_pass_kernel(const float* __restrict__ src_v,
   }
 }
 
-// The lanes of the warp whose digit d (kDigitBits bits) and liveness equal
-// this lane's: one ballot a bit, which measured faster on this card than
-// __match_any_sync.
-__device__ __forceinline__ unsigned match_digit(uint32_t d, bool live) {
-  const unsigned l = __ballot_sync(kFull, live);
-  unsigned peers = live ? l : ~l;
-#pragma unroll
-  for (int b = 0; b < kDigitBits; ++b) {
-    const bool bit = (d >> b) & 1u;
-    const unsigned v = __ballot_sync(kFull, bit);
-    peers &= bit ? v : ~v;
-  }
-  return peers;
-}
-
 // The cluster route, select and merge mode, for rows of up to C x ITEMS x
 // kClusterThreads elements: a cluster of C blocks a row (blockIdx.x / C),
 // block `rank` holding positions [rank * slice, (rank + 1) * slice) as keys
@@ -524,7 +510,7 @@ __device__ __forceinline__ unsigned match_digit(uint32_t d, bool live) {
 // (value bits, index) pair, then the stable radix passes between two
 // buffers of per_k pairs; a kBins counter row a warp follows them in
 // dynamic shared memory.
-template <int ITEMS, bool MERGE, bool RUNS = false>
+template <int ITEMS, bool MERGE>
 __global__ void __launch_bounds__(kClusterThreads, MERGE ? 1 : 2)
 cluster_topk_kernel(const float* __restrict__ x, int n, int k, int slice,
                     int per_k, int sort_len, float* __restrict__ out_v,
@@ -575,7 +561,8 @@ cluster_topk_kernel(const float* __restrict__ x, int n, int k, int slice,
   //    radix_select_kernel: of the slice (select mode), or of the row
   //    (merge mode), from the sum of the C blocks' histograms read through
   //    DSMEM after a cluster barrier a pass.  Plain shared atomics: adding
-  //    a warp's equal digits once, found by match_digit, measured slower.
+  //    a warp's equal digits once, found by a ballot a digit bit, measured
+  //    slower.
   uint32_t prefix = 0;
   int shift = 32;
   int need = kept;
@@ -768,111 +755,14 @@ cluster_topk_kernel(const float* __restrict__ x, int n, int k, int slice,
     return;
   }
 
-  if (RUNS) {
-    // 4r. Each block sorts its run alone (the passes below without the
-    //     cluster's prefix or copy), then every pair's place in the row is
-    //     its place in its run plus, in each other run, the count of pairs
-    //     before it, found by binary search through DSMEM.
-    const int m = min(max(k - rank * per_k, 0), per_k);
-    const int chunk = per_k / kClusterWarps;
-    const int rounds = chunk / 32;
-    int* whist = reinterpret_cast<int*>(pairs + 2 * per_k);
-    int* my_hist = whist + warp * kBins;
-    for (int pass = 0; pass < 32 / kDigitBits; ++pass) {
-      const int lo = pass * kDigitBits;
-      for (int b = lane; b < kBins; b += 32) my_hist[b] = 0;
-      __syncwarp();
-      uint2 pr[kClusterRounds];
-      int rk[kClusterRounds];
-#pragma unroll
-      for (int rd = 0; rd < kClusterRounds; ++rd) {
-        if (rd >= rounds) break;
-        const int e = warp * chunk + rd * 32 + lane;
-        const bool live = e < m;
-        pr[rd] = live ? pairs[e] : make_uint2(0u, 0u);
-        const uint32_t d =
-            (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
-        const unsigned peers = match_digit(d, live);
-        const int leader = 31 - __clz(peers);
-        int base = 0;
-        if (lane == leader && live) {
-          base = my_hist[d];
-          my_hist[d] = base + __popc(peers);
-        }
-        rk[rd] =
-            __shfl_sync(kFull, base, leader) + __popc(peers & lanes_below);
-        __syncwarp();
-      }
-      __syncthreads();
-      if (tid < kBins) {
-        int run = 0;
-        for (int w = 0; w < kClusterWarps; ++w) {
-          const int c = whist[w * kBins + tid];
-          whist[w * kBins + tid] = run;
-          run += c;
-        }
-        int li = run;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int u = __shfl_up_sync(kFull, li, off);
-          if (lane >= off) li += u;
-        }
-        if (lane == 31) wsum[1][warp] = li;
-        lstart[tid] = li - run;
-      }
-      __syncthreads();
-      if (tid < kBins) {
-        int l = 0;
-        for (int w = 0; w < warp; ++w) l += wsum[1][w];
-        lstart[tid] += l;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int rd = 0; rd < kClusterRounds; ++rd) {
-        if (rd >= rounds) break;
-        if (warp * chunk + rd * 32 + lane < m) {
-          const uint32_t d =
-              (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
-          pairs[lstart[d] + my_hist[d] + rk[rd]] = pr[rd];
-        }
-      }
-      __syncthreads();
-    }
-    cluster.sync();                        // every run is sorted
-    for (int e = tid; e < m; e += kClusterThreads) {
-      const uint2 p = pairs[e];
-      const uint32_t key_e = float_key(__uint_as_float(p.x));
-      int g = e;
-      for (int r = 0; r < C; ++r) {
-        if (r == rank) continue;
-        const uint2* other = cluster.map_shared_rank(pairs, r);
-        int lo = 0, hi = min(max(k - r * per_k, 0), per_k);
-        while (lo < hi) {                  // pairs of run r before p
-          const int mid = (lo + hi) >> 1;
-          const uint2 q = other[mid];
-          const uint32_t kq = float_key(__uint_as_float(q.x));
-          if (kq < key_e || (kq == key_e && q.y < p.y))
-            lo = mid + 1;
-          else
-            hi = mid;
-        }
-        g += lo;
-      }
-      out_v[row * k + g] = __uint_as_float(p.x);
-      out_i[row * k + g] = (int)p.y;
-    }
-    cluster.sync();          // no block leaves while another reads its run
-    return;
-  }
-
   // 4m. Stable LSD radix passes over the k pairs, per_k a block.  A warp
   //     ranks a chunk of its block's pairs 32 at a time, holding them in
-  //     registers (match_digit finds the lanes of one digit, the highest of
-  //     them bumps the warp's counter); the block partitions its pairs by
-  //     digit in place, stably; then each block copies its run of every
-  //     digit to the cluster-wide digit-major, block-minor offsets, which
-  //     DSMEM gives: consecutive pairs go to consecutive slots, so a warp's
-  //     remote stores are contiguous.
+  //     registers (__match_any_sync finds the lanes of one digit, the
+  //     highest of them bumps the warp's counter); the block partitions its
+  //     pairs by digit in place, stably; then each block copies its run of
+  //     every digit to the cluster-wide digit-major, block-minor offsets,
+  //     which DSMEM gives: consecutive pairs go to consecutive slots, so a
+  //     warp's remote stores are contiguous.
   const int m = min(max(k - rank * per_k, 0), per_k);
   const int chunk = per_k / kClusterWarps;   // a multiple of 32
   const int rounds = chunk / 32;
@@ -894,7 +784,7 @@ cluster_topk_kernel(const float* __restrict__ x, int n, int k, int slice,
       pr[rd] = live ? buf[e] : make_uint2(0u, 0u);
       const uint32_t d =
           (float_key(__uint_as_float(pr[rd].x)) >> lo) & (kBins - 1);
-      const unsigned peers = match_digit(d, live);
+      const unsigned peers = __match_any_sync(kFull, live ? d : kBins);
       const int leader = 31 - __clz(peers);
       int base = 0;
       if (lane == leader && live) {
@@ -1032,9 +922,7 @@ cudaError_t configure() {
       allow_cluster_smem(cluster_topk_kernel<16, false>),
       allow_cluster_smem(cluster_topk_kernel<32, false>),
       allow_cluster_smem(cluster_topk_kernel<16, true>),
-      allow_cluster_smem(cluster_topk_kernel<32, true>),
-      allow_cluster_smem(cluster_topk_kernel<16, true, true>),
-      allow_cluster_smem(cluster_topk_kernel<32, true, true>)};
+      allow_cluster_smem(cluster_topk_kernel<32, true>)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
   configured[dev] = true;
@@ -1047,7 +935,7 @@ cudaError_t configure() {
 // shared memory than was found to fit.
 cudaError_t check_cluster(ClusterKernel kernel, int variant,
                           const cudaLaunchConfig_t& cfg, int cluster) {
-  static size_t fits[kMaxDevices][6][kMaxCluster + 1] = {};
+  static size_t fits[kMaxDevices][4][kMaxCluster + 1] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1191,7 +1079,6 @@ extern "C" int pqt_topk_cluster(const float* x, int rows, int n, int k,
                                 int sort_len, int merge, float* out_v,
                                 int* out_i, void* stream) {
   if (rows < 1 || k < 1 || k > n || cluster < 2 || cluster > kMaxCluster ||
-      merge < 0 || merge > 2 ||
       threads != kClusterThreads || (items != 16 && items != 32) ||
       (long long)rows * cluster > INT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -1213,12 +1100,10 @@ extern "C" int pqt_topk_cluster(const float* x, int rows, int n, int k,
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
   const ClusterKernel kernel =
-      merge == 2 ? (items == 16 ? cluster_topk_kernel<16, true, true>
-                                : cluster_topk_kernel<32, true, true>)
-      : merge    ? (items == 16 ? cluster_topk_kernel<16, true>
-                                : cluster_topk_kernel<32, true>)
-                 : (items == 16 ? cluster_topk_kernel<16, false>
-                                : cluster_topk_kernel<32, false>);
+      merge ? (items == 16 ? cluster_topk_kernel<16, true>
+                           : cluster_topk_kernel<32, true>)
+            : (items == 16 ? cluster_topk_kernel<16, false>
+                           : cluster_topk_kernel<32, false>);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -1231,7 +1116,8 @@ extern "C" int pqt_topk_cluster(const float* x, int rows, int n, int k,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = check_cluster(kernel, 2 * merge + (items == 32), cfg, cluster);
+  err = check_cluster(kernel, 2 * (merge != 0) + (items == 32), cfg,
+                      cluster);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&cfg, kernel, x, n, k, slice, merge ? sort_len : 0,
                            sort_len, out_v, out_i);

@@ -149,8 +149,6 @@ class TopkPlan(NamedTuple):
                     # merge mode: pairs of a scratch row, whole runs, or on
                     # the cluster route the pairs each block sorts
     cluster: int = 0    # blocks of a row's cluster (0: one block a row)
-    runs: bool = False  # cluster merge: run sorts and a DSMEM merge in
-                        # place of the cluster-wide radix sort
 
 
 def _pow2_at_least(v: int) -> int:
@@ -208,11 +206,10 @@ def _topk_plan(n: int, k: int, mode: Optional[str] = None,
     for rows of more than TOPK_SORT_MAX and at most TOPK_CLUSTER_MAX_ROW
     elements where a cluster holds them, one block a row otherwise;
     `cluster` forces the one-block route (0) or a cluster of that many
-    blocks.  Raises NotImplementedError for what no
-    mode takes: a sort of more than TOPK_SORT_MAX elements, a select of
-    more than TOPK_SORT_MAX, a merge of more than TOPK_MERGE_MAX, a row
-    longer than TOPK_SELECT_MAX_ROW, or a cluster that does not hold the
-    row.
+    blocks.  Raises NotImplementedError for what no mode takes: a sort of
+    more than TOPK_SORT_MAX elements, a select of more than TOPK_SORT_MAX,
+    a merge of more than TOPK_MERGE_MAX, a row longer than
+    TOPK_SELECT_MAX_ROW, or a cluster that does not hold the row.
     """
     if not 1 <= k <= n:
         raise ValueError(f"bitonic_topk: k={k} outside [1, {n}]")
@@ -269,8 +266,7 @@ def _topk_launch(x: torch.Tensor, k: int, plan: TopkPlan):
             err = lib.pqt_topk_cluster(_ptr(x), B, N, k, plan.cluster,
                                        plan.items, plan.threads,
                                        plan.sort_len,
-                                       int(plan.mode == "merge")
-                                       + int(plan.runs),
+                                       int(plan.mode == "merge"),
                                        _ptr(out_v), _ptr(out_i), _stream(x))
         elif plan.mode == "merge":
             scratch = [torch.empty((B, plan.sort_len), dtype=dt,
