@@ -29,8 +29,9 @@ Phases (any failure exits non-zero before the last line is printed):
      printed), the top-k with kernel A's merge mode (32768 and 65536 kept
      of 65536-wide rows); the top-k rows above 16384 elements are timed
      beside torch.sort(stable) too, with each route of kernel A (one block
-     a row, and a thread-block cluster of 4 and of 8 blocks a row) and
-     how many times it reads the row; top-k and prefix
+     a row, and a thread-block cluster of 4 and of 8 blocks a row) and,
+     for the one-block route, how many times its passes read the row
+     (worked out from the input); top-k and prefix
      sums run in the mode and route their wrapper picks and in every other
      mode and route that takes the shape (all held and timed), the segment
      sums of the encode
@@ -538,17 +539,18 @@ def topk_plans(prim, n, k, every=False):
 
 
 def topk_reads(torch, prim, x, k, plan):
-    """(reads, scratch bytes) of kernel A's plan on x: how many times it
-    reads each row from device memory or L2, and the bytes of scratch rows
-    it writes and reads.  The one-block select reads a row longer than one
-    tile again on every pass (so does the one-block merge's select, for k <
-    n); the one-block merge then reads and writes its scratch rows of
-    sort_len pairs in the run sorts and in each merge pass (the last one
-    writes k pairs).  The cluster route reads the row once and keeps every
-    pair on chip."""
+    """(reads, scratch bytes) of kernel A's one-block plan on x, worked out
+    from x (a model, not a measurement): how many times it reads each row
+    from device memory or L2, and the bytes of scratch rows it writes and
+    reads.  The one-block select reads a row longer than one tile again on
+    every pass (so does the one-block merge's select, for k < n); the
+    one-block merge then reads and writes its scratch rows of sort_len
+    pairs in the run sorts and in each merge pass (the last one writes k
+    pairs).  (None, 0) for the cluster route: its source reads the row
+    once, but what its registers spill to local memory is not counted."""
     b, n = x.shape
     if plan.cluster:
-        return 1.0, 0
+        return None, 0
     reads = 1.0
     if plan.mode in ("select", "merge") and k < n and \
             n > plan.items * plan.threads:
@@ -953,7 +955,10 @@ def check_kernels(torch):
                                    "indices differ from the plain version")
         b_ms, b_by = bound(b * n * 4 + b * k * 8, b * n)
         reads, scratch = topk_reads(torch, prim, x, k, plan)
-        pass_ms = bound(reads * b * n * 4 + b * k * 8 + scratch, b * n)[0]
+        # the one-block route's modelled reads, and the bound they give
+        modelled = {} if reads is None else {
+            "reads": reads, "pass_bound_ms": bound(
+                reads * b * n * 4 + b * k * 8 + scratch, b * n)[0]}
         others = [(lab, p) for lab, p in plans if p != plan]
         long_row = n > prim.TOPK_SORT_MAX
         record("bitonic_topk", "pqt_tpu_torch/csrc/topk.cu",
@@ -962,13 +967,12 @@ def check_kernels(torch):
                device_ms(torch, lambda: prim.bitonic_topk(x, k)),
                device_ms(torch, lambda: prim.bitonic_topk_plain(x, k)),
                device_ms(torch, lambda: torch.topk(x, k, largest=False)),
-               b_ms, b_by, 0.0, mode=plan.mode, route=label, reads=reads,
-               pass_bound_ms=pass_ms,
+               b_ms, b_by, 0.0, mode=plan.mode, route=label, **modelled,
                other_routes={lab: device_ms(
                    torch, lambda: prim._topk_launch(x, k, p))
                    for lab, p in others},
-               other_reads={lab: topk_reads(torch, prim, x, k, p)[0]
-                            for lab, p in others},
+               other_reads={lab: r for lab, p in others if (r := topk_reads(
+                   torch, prim, x, k, p)[0]) is not None},
                sort_ms=device_ms(torch, lambda: torch.sort(x, stable=True))
                if long_row or plan.mode == "merge" else None)
 
@@ -1959,13 +1963,13 @@ def sift1b_fixture(torch, n, seed=0):
     return sub, draw
 
 
-def sift1b_phase(torch, P, workdir):
-    """SIFT1B_CONFIG at full width over 10M vectors, out of core: chunk
-    files, host merge with the spill, sidecar save, load onto the card;
-    then exact and refine through vectors_csr, line, candidates, BIG line
-    and BIG perfect at batch 64."""
+def sift1b_database(torch, P, workdir):
+    """SIFT1B_CONFIG at full width over 10M vectors, built out of core:
+    chunk files, host merge with the spill, sidecar save, load onto the
+    card.  Returns a dict: cfg, tree, db, data (on the card), qd (the
+    queries), paths (the chunk files), times, build_launches, nonempty,
+    largest."""
     from pqt_tpu_torch.io import native
-    from pqt_tpu_torch.ops.distance import brute_force_knn
 
     cfg = P.SIFT1B_CONFIG.replace(kmeans_iters=8, train_subsample=100_000)
     print(f"-- sift1b: {N_1B} vectors of SIFT1B's 10^9, a cut forced by "
@@ -1977,9 +1981,8 @@ def sift1b_phase(torch, P, workdir):
     if native.get_lib() is None:
         raise SmokeFailure("the native host runtime did not load: "
                            f"{native.load_error()}")
-    torch.cuda.reset_peak_memory_stats()
     times = {}
-    t_phase = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     _, draw = sift1b_fixture(torch, N_1B)
     data = torch.empty((N_1B, 128), dtype=torch.uint8, device="cuda")
     for s in range(0, N_1B, N_1B_CHUNK):
@@ -2030,6 +2033,26 @@ def sift1b_phase(torch, P, workdir):
           f"load {times['load_s']:.1f} s; non-empty bins {nonempty}, "
           f"largest bin {largest}; host RSS {rss[0]:.2f} GiB (peak "
           f"{rss[1]:.2f})", flush=True)
+    return {"cfg": cfg, "tree": tree, "db": db, "data": data, "qd": qd,
+            "paths": paths, "times": times, "build_launches": build_launches,
+            "nonempty": nonempty, "largest": largest}
+
+
+def sift1b_phase(torch, P, workdir):
+    """SIFT1B_CONFIG at full width over 10M vectors, out of core
+    (sift1b_database); then exact and refine through vectors_csr, line,
+    candidates, BIG line and BIG perfect at batch 64."""
+    from pqt_tpu_torch.ops.distance import brute_force_knn
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    built = sift1b_database(torch, P, workdir)
+    cfg, tree, db, data, qd, paths, times = (
+        built[k] for k in ("cfg", "tree", "db", "data", "qd", "paths",
+                           "times"))
+    build_launches = built["build_launches"]
+    nonempty, largest = built["nonempty"], built["largest"]
+    del built              # the database is freed before the sharded chain
 
     loaded_gib = torch.cuda.memory_allocated() / 2 ** 30
     load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2780,8 +2803,9 @@ def main(json_path=None):
             if c.get("sort_ms"):
                 other += f"  torch.sort {c['sort_ms']:.4f}"
             for label, ms in c.get("other_routes", {}).items():
-                other += (f"  {label} {ms:.4f} (reads "
-                          f"{c['other_reads'][label]:.2f})")
+                other += f"  {label} {ms:.4f}"
+                if label in c["other_reads"]:
+                    other += f" (reads {c['other_reads'][label]:.2f})"
             for mode, ms in c.get("other_modes", {}).items():
                 other += f"  {mode} mode {ms:.4f}"
             print(f"    {c['case']:64s} ms {c['ms']:.4f}  plain "

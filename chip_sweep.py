@@ -9,8 +9,8 @@ H's rows are held to, of the comparison of C with an older tree's, and of
 the cut between A's routes (TOPK_CLUSTER_* there).
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
-                                   [--only scan|lut|gather|rerank|topk]
-                                   [--cases NAME,...]
+    [--only scan|lut|gather|rerank|topk|topk_ptxas|topk_stress|topk_path]
+    [--cases NAME,...] [--topk-lib PATH] [--second-lib]
 
 The random-read ladder (`--only gather`) gathers rows of 8, 72 and 128
 bytes (the extent, SIFT1B payload and vector rows) at 2M and 512k uniform
@@ -26,14 +26,19 @@ same bytes for B; table[idx], the sectors' bound and, at a 2 GiB table,
 the same lookups in address order for E.  Prints one line per variant and
 writes them all to PATH as JSON, with the card's name and power limit.
 
-Kernel A (`--only topk`) runs chip_smoke.py's top-k shapes of rows above
-16384 elements on the same seeded inputs, then a ladder of k at (256,
-65536) and of row lengths from 20000 to 131072 (a select of 256, a merge
-of half the row and of the whole row), on every route that takes them
-(one block a row, a thread-block cluster of 4 and of 8 blocks), each held
-to the plain version to the bit and timed beside torch.topk and
-torch.sort(stable), with how many times it reads the row; then
-chip_smoke.py's hard top-k rows on every route.
+Kernel A (`--only topk`) runs ladders of k at (256, 65536), of rows at
+(rows, 65536) -> 256 and of row lengths from 20000 to 131072 (a select of
+256, a merge of half the row and of the whole row), on every route that
+takes them (one block a row, a thread-block cluster of 4 and of 8
+blocks), each held to the plain version to the bit and timed beside
+torch.topk and torch.sort(stable).  `--only topk_ptxas` builds variants
+of csrc/topk.cu (TOPK_VARIANTS) with nvcc's register and spill report;
+`--only topk --topk-lib PATH` then times one of them, a variant a process.
+`--only topk_stress` launches every cluster route many times on the hard
+rows (`--second-lib`: alternating between two loaded copies of the
+library).  `--only topk_path` builds chip_smoke.py's SIFT1B database and
+profiles its exact and BIG line queries with the pair select on either
+route, alternately.
 
 The line re-rank (`--only rerank`) runs chip_smoke.py's RERANK_SHAPES on
 the same seeded inputs: the old route (kernel H's payload rows, then kernel
@@ -53,6 +58,7 @@ import argparse
 import hashlib
 import json
 import os
+import statistics
 import sys
 
 import chip_smoke as smoke
@@ -264,40 +270,20 @@ def sweep_rerank(torch, emit, cases=None):
 
 
 def sweep_topk(torch, emit, cases=None):
-    """Kernel A at chip_smoke.py's top-k shapes of rows above 16384
-    elements (the same seeded inputs as its phase 3), on every mode and
-    route that takes them (one block a row, a cluster of 4 and of 8
-    blocks), beside torch.topk and torch.sort(stable); then chip_smoke.py's
-    hard top-k rows on every route (held, not timed)."""
+    """Kernel A on every route that takes each shape (one block a row, a
+    cluster of 4 and of 8 blocks), each held to the plain version to the
+    bit and timed beside torch.topk and torch.sort(stable): ladders of k at
+    (256, 65536), of rows at (rows, 65536) -> 256 (SIFT1B's pair select at
+    batch 64 and 256, and between) and of row lengths from 20000 to 131072
+    (a select of 256, a merge of half the row and of the whole row), the
+    source of the cut between the routes.  chip_smoke.py's phase 3 times
+    and holds every route at the paths' own shapes and on the hard rows."""
     from pqt_tpu_torch.ops.cuda import primitives as prim
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, (x, k), (b, n, _) in smoke.topk_cases(torch, gen):
-        if n <= prim.TOPK_SORT_MAX or (cases and name not in cases):
-            continue
-        pv, pi = prim.bitonic_topk_plain(x, k)
-        case = {"kernel": "topk", "case": name, "shape": [b, n, k],
-                "plan": prim._topk_plan(n, k)._asdict(),
-                "bound_ms": smoke.bound(b * n * 4 + b * k * 8, b * n)[0],
-                "topk_ms": smoke.device_ms(
-                    torch, lambda: torch.topk(x, k, largest=False)),
-                "sort_ms": smoke.device_ms(
-                    torch, lambda: torch.sort(x, stable=True))}
-        for label, p in smoke.topk_plans(prim, n, k):
-            v, i = prim._topk_launch(x, k, p)
-            torch.cuda.synchronize()
-            if not (torch.equal(v, pv) and torch.equal(i, pi)):
-                raise smoke.SmokeFailure(
-                    f"bitonic_topk {name} ({label}): "
-                    f"{int((i != pi).sum())} indices differ")
-            emit(dict(case, variant=label, ms=smoke.device_ms(
-                torch, lambda: prim._topk_launch(x, k, p)),
-                reads=smoke.topk_reads(torch, prim, x, k, p)[0]))
-        del x, pv, pi
-    # ladders for the cut between the routes: k at the SIFT1M BIG stage 2's
-    # (256, 65536), and row lengths above 16384 (select of 256, merge of
-    # half the row and of the whole row), 64 rows each
     ladder = [(f"k ladder {k}", 256, 1 << 16, k)
               for k in (128, 256, 512, 1024, 2048, 4096)]
+    ladder += [(f"rows ladder {b}", b, 1 << 16, 256)
+               for b in (128, 512, 1024)]
     ladder += [(f"n ladder {n} {label}", 64, n, k(n))
                for n in (20000, 32768, 40000, 49152, 70001, 100000, 131072)
                for label, k in (("select", lambda n: 256),
@@ -329,28 +315,233 @@ def sweep_topk(torch, emit, cases=None):
                 torch, lambda: prim._topk_launch(x, k, p)),
                 reads=smoke.topk_reads(torch, prim, x, k, p)[0]))
         del x, pv, pi
-    held = 0
-    for name, x, k in smoke.topk_hard_rows(torch, gen):
+
+
+# Variants of csrc/topk.cu that `--only topk_ptxas` builds: (name, the
+# text replaced, its replacement).  The cluster kernel's launch bounds:
+# "select min blocks 2" holds both select instances to 64 registers (two
+# blocks an SM), "select min blocks 1" lets both use 128 (one block an SM);
+# as built, the 32-key select takes 128 and the 16-key one 64.
+_TOPK_BOUNDS = "__launch_bounds__(kClusterThreads,\n" \
+    "                                  MERGE || ITEMS == 32 ? 1 : 2)"
+TOPK_VARIANTS = (
+    ("as built", None, None),
+    ("select min blocks 2", _TOPK_BOUNDS,
+     "__launch_bounds__(kClusterThreads, MERGE ? 1 : 2)"),
+    ("select min blocks 1", _TOPK_BOUNDS,
+     "__launch_bounds__(kClusterThreads, 1)"))
+
+
+def variant_dir(name):
+    from pqt_tpu_torch.ops.cuda import build
+    return build.BUILD_ROOT / "variants" / name.replace(" ", "-")
+
+
+def ptxas_report(log):
+    """(function, registers, stack bytes, spill store bytes, spill load
+    bytes) of each kernel in nvcc's `-Xptxas -v` log."""
+    import re
+    rows, fn, frame = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append((fn, int(m.group(1))) + (frame or (0, 0, 0)))
+            fn = None
+    return rows
+
+
+def demangle(names):
+    import shutil
+    import subprocess
+    if not shutil.which("c++filt"):
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                         capture_output=True).stdout.splitlines()
+    return [o.replace("(anonymous namespace)::", "") for o in out]
+
+
+def sweep_topk_ptxas(torch, emit, cases=None):
+    """Build each of TOPK_VARIANTS of csrc/topk.cu with nvcc's register
+    report (`-Xptxas -v`) into pqt_tpu_torch/_build/variants/<name>/, and
+    report each kernel's registers and spills; `--topk-lib` then times a
+    variant."""
+    import subprocess
+    from pqt_tpu_torch.ops.cuda import build
+    src = (build.CSRC / "topk.cu").read_text()
+    for name, old, new in TOPK_VARIANTS:
+        if old is not None and src.count(old) != 1:
+            raise smoke.SmokeFailure(f"topk variant {name}: {old!r} is not "
+                                     "in csrc/topk.cu once")
+        out = variant_dir(name)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "topk.cu").write_text(src if old is None
+                                     else src.replace(old, new))
+        proc = subprocess.run(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(out / "libtopk.so"), str(out / "topk.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise smoke.SmokeFailure(f"topk variant {name}: nvcc failed\n"
+                                     f"{proc.stdout}{proc.stderr}")
+        rows = ptxas_report(proc.stdout + proc.stderr)
+        for (fn, regs, stack, st, ld), pretty in zip(
+                rows, demangle([r[0] for r in rows])):
+            if cases and not any(c in pretty for c in cases):
+                continue
+            emit({"kernel": "ptxas", "variant": name, "function": pretty,
+                  "registers": regs, "stack_bytes": stack,
+                  "spill_store_bytes": st, "spill_load_bytes": ld,
+                  "library": str(out / "libtopk.so")})
+
+
+def use_topk_library(path):
+    """Load kernel A's library from `path` (a variant that
+    `--only topk_ptxas` built) in place of the package's build."""
+    import ctypes
+    from pqt_tpu_torch.ops.cuda import build
+    lib = ctypes.CDLL(os.path.abspath(path))
+    for fn, (argtypes, restype) in build._SIGNATURES["topk"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    build._libs["topk"] = lib
+    return lib
+
+
+def sweep_topk_stress(torch, emit, cases=None, second_lib=False,
+                      repeats=500):
+    """Launch every cluster route of kernel A (select and merge, 4 and 8
+    blocks) `repeats` times back to back on each of chip_smoke.py's hard
+    rows and at SIFT1B's long-row shapes, each result held to the plain
+    version to the bit.  With `second_lib`, a second copy of the built
+    library is loaded and the launches alternate between the two.  A
+    failed launch ends the process (the context is lost): the counts so far
+    are printed first."""
+    import shutil
+    from pqt_tpu_torch.ops.cuda import build
+    from pqt_tpu_torch.ops.cuda import primitives as prim
+    libs = [build.load("topk")]
+    if second_lib:
+        copy = variant_dir("second copy")
+        copy.mkdir(parents=True, exist_ok=True)
+        shutil.copy(build._build_dir(build.find_nvcc()) / "libtopk.so",
+                    copy / "libtopk.so")
+        libs.append(use_topk_library(copy / "libtopk.so"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = list(smoke.topk_hard_rows(torch, gen))
+    for b, k in ((128, 256), (512, 256), (64, 32768), (64, 1 << 16)):
+        x = torch.rand((b, 1 << 16), generator=gen, device="cuda") * 1e4
+        x[: b // 2] = torch.round(x[: b // 2] / 1e3)
+        rows.append((f"SIFT1B shape ({b}, 65536) -> {k}", x, k))
+    counts = {}
+    for name, x, k in rows:
+        if cases and name not in cases:
+            continue
         want = prim.bitonic_topk_plain(x, k)
         for label, p in smoke.topk_plans(prim, x.shape[1], k, every=True):
-            v, i = prim._topk_launch(x, k, p)
-            if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
-                raise smoke.SmokeFailure(f"bitonic_topk {name} "
-                                         f"{tuple(x.shape)}->{k} ({label}) "
-                                         "differs")
-            held += 1
-    print(f"topk hard rows: {held} (row, route) pairs equal to the plain "
-          "version", flush=True)
+            if not p.cluster:
+                continue
+            route = f"{label.split(' cluster')[0]} cluster {p.cluster}"
+            c = counts.setdefault(route, {"launches": 0, "differ": 0})
+            for r in range(repeats):
+                build._libs["topk"] = libs[r % len(libs)]
+                try:
+                    v, i = prim._topk_launch(x, k, p)
+                    same = torch.equal(v, want[0]) and torch.equal(i, want[1])
+                except RuntimeError as e:
+                    print(f"topk stress: {route} on {name!r} failed after "
+                          f"{json.dumps(counts)}: {e}", flush=True)
+                    raise smoke.SmokeFailure(f"topk stress: {e}")
+                c["launches"] += 1
+                c["differ"] += not same
+    for route, c in counts.items():
+        emit({"kernel": "topk_stress", "variant": route,
+              "libraries": len(libs), **c})
+    if any(c["differ"] for c in counts.values()):
+        raise smoke.SmokeFailure(f"topk stress: results differ {counts}")
 
 
-def main(json_path, only, cases):
+def sweep_topk_path(torch, emit, cases=None, rounds=8, batch=64):
+    """SIFT1B's exact and BIG line queries at batch 64 (chip_smoke.py's
+    SIFT1B phase: 10M vectors at SIFT1B_CONFIG's widths), profiled with the
+    pair select (B*2, 65536) -> 256 on the cluster route and on the
+    one-block route (TOPK_CLUSTER_SELECT_MAX_K set to 0), in the order
+    ABBA `rounds` times: each profile's device busy ms and kernel A's
+    share of it, and the two routes' ids held equal.  Per mode and route:
+    the median busy time and the distance between its quartiles; per mode,
+    how many of the 2 x `rounds` pairs (the two profiles next to each
+    other in ABBA) the cluster select's busy time was the lower."""
+    import tempfile
+    import pqt_tpu_torch as P
+    from pqt_tpu_torch.ops.cuda import primitives as prim
+    routes = {"cluster select": prim.TOPK_CLUSTER_SELECT_MAX_K,
+              "one-block select": 0}
+    with tempfile.TemporaryDirectory(prefix="pqt_sweep_") as workdir:
+        built = smoke.sift1b_database(torch, P, workdir)
+        modes = smoke.query_modes(P, built["cfg"], built["tree"],
+                                  built["db"], ("exact", "big_line"))
+        x = built["qd"][:batch]
+        outputs = {}
+        for route, cap in routes.items():
+            prim.TOPK_CLUSTER_SELECT_MAX_K = cap
+            outputs[route] = {m: [fn(x)] for m, fn in modes.items()}
+        if not smoke.same_results(torch, *outputs.values()):
+            raise smoke.SmokeFailure("topk path: the routes' ids or "
+                                     "distances differ")
+        order = list(routes) + list(routes)[::-1]
+        busy = {}
+        for rd in range(rounds):
+            for route in order:
+                prim.TOPK_CLUSTER_SELECT_MAX_K = routes[route]
+                for m, fn in modes.items():
+                    pr = smoke.profile_batch(torch, fn, x)
+                    if "device_busy_ms" not in pr:
+                        raise smoke.SmokeFailure(f"topk path: {pr}")
+                    top = sum(ms for name, ms in pr["top_kernels_ms"]
+                              if "topk" in name or "radix_select" in name)
+                    emit({"kernel": "topk_path", "case": m, "variant": route,
+                          "round": rd, "busy_ms": pr["device_busy_ms"],
+                          "wall_ms": pr["wall_ms"], "topk_ms": top})
+                    busy.setdefault((m, route), []).append(
+                        pr["device_busy_ms"])
+        prim.TOPK_CLUSTER_SELECT_MAX_K = routes["cluster select"]
+    for m in modes:
+        for route in routes:
+            v = busy[(m, route)]
+            q = statistics.quantiles(v, n=4)
+            print(f"topk path {m:9s} {route:18s} busy ms median "
+                  f"{statistics.median(v):.4f}  quartiles {q[0]:.4f}-"
+                  f"{q[2]:.4f}  min {min(v):.4f}  max {max(v):.4f}  n "
+                  f"{len(v)}", flush=True)
+        a, b = (busy[(m, route)] for route in routes)
+        wins = sum(x < y for x, y in zip(a, b))
+        print(f"topk path {m:9s} the cluster select lower in {wins} of "
+              f"{len(a)} pairs", flush=True)
+
+
+def main(json_path, only, cases, topk_lib=None, second_lib=False):
     import torch
     if not torch.cuda.is_available():
         raise smoke.SmokeFailure("chip_sweep needs a CUDA card")
     card = smoke.card_line()
     print(card, flush=True)
     from pqt_tpu_torch.ops.cuda import build
-    print(f"kernel build: nvcc {build.build_all():.2f} s", flush=True)
+    if topk_lib:
+        # kernel A alone, from a variant's library: no other is loaded
+        if only != "topk":
+            raise smoke.SmokeFailure("--topk-lib goes with --only topk")
+        use_topk_library(topk_lib)
+        print(f"kernel A from {topk_lib}", flush=True)
+    elif only != "topk_ptxas":
+        print(f"kernel build: nvcc {build.build_all():.2f} s", flush=True)
     smoke.device_ms(torch, lambda: torch.ones(8, device="cuda") + 1, reps=1)
     floor = smoke.device_ms(
         torch, lambda: torch.empty(1, device="cuda").fill_(0))
@@ -359,13 +550,18 @@ def main(json_path, only, cases):
 
     def emit(r):
         rows.append(r)
+        if r["kernel"] in ("ptxas", "topk_stress", "topk_path"):
+            print(" ".join(f"{k} {v}" for k, v in r.items()), flush=True)
+            return
         if "refused" in r:
             print(f"{r['kernel']:10s} {r['case']:32s} {r['variant']:28s} "
                   f"refused: {r['refused']}", flush=True)
             return
         if "topk_ms" in r:
-            extra = (f"reads {r['reads']:.2f}  torch.topk "
-                     f"{r['topk_ms']:.4f}  torch.sort {r['sort_ms']:.4f}")
+            extra = (f"torch.topk {r['topk_ms']:.4f}  torch.sort "
+                     f"{r['sort_ms']:.4f}")
+            if r["reads"] is not None:
+                extra += f"  reads {r['reads']:.2f} (modelled)"
         elif "cumsum_ms" in r:
             extra = f"cumsum {r['cumsum_ms']:.4f}  copy {r['copy_ms']:.4f}"
         elif "index_ms" in r:
@@ -392,6 +588,12 @@ def main(json_path, only, cases):
         sweep_rerank(torch, emit, cases)
     if only in (None, "topk"):
         sweep_topk(torch, emit, cases)
+    if only == "topk_ptxas":
+        sweep_topk_ptxas(torch, emit, cases)
+    if only == "topk_stress":
+        sweep_topk_stress(torch, emit, cases, second_lib)
+    if only == "topk_path":
+        sweep_topk_path(torch, emit, cases)
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
@@ -403,12 +605,20 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH")
     ap.add_argument("--only", choices=("scan", "lut", "gather", "rerank",
-                                       "topk"))
+                                       "topk", "topk_ptxas", "topk_stress",
+                                       "topk_path"))
     ap.add_argument("--cases", help="comma-separated case names to run")
+    ap.add_argument("--topk-lib", metavar="PATH",
+                    help="with --only topk: kernel A's library to time (a "
+                    "variant --only topk_ptxas built)")
+    ap.add_argument("--second-lib", action="store_true",
+                    help="with --only topk_stress: alternate the launches "
+                    "between two loaded copies of kernel A's library")
     args = ap.parse_args()
     try:
         main(args.json, args.only,
-             set(args.cases.split(",")) if args.cases else None)
+             set(args.cases.split(",")) if args.cases else None,
+             args.topk_lib, args.second_lib)
     except smoke.SmokeFailure as e:
         print(f"chip_sweep: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -510,8 +510,14 @@ merge_pass_kernel(const float* __restrict__ src_v,
 // (value bits, index) pair, then the stable radix passes between two
 // buffers of per_k pairs; a kBins counter row a warp follows them in
 // dynamic shared memory.
+// Registers: merge mode, and select mode with 32 keys a thread, may use
+// 128 (one block an SM); the 16-key select keeps to 64 (two blocks).  At
+// 64 the 32-key select spilled 356 bytes and ran 4-10% slower at SIFT1B's
+// pair selects; at 128 the 16-key one ran slower (chip_sweep.py --only
+// topk_ptxas, then --only topk --topk-lib on each build; PERF.md).
 template <int ITEMS, bool MERGE>
-__global__ void __launch_bounds__(kClusterThreads, MERGE ? 1 : 2)
+__global__ void __launch_bounds__(kClusterThreads,
+                                  MERGE || ITEMS == 32 ? 1 : 2)
 cluster_topk_kernel(const float* __restrict__ x, int n, int k, int slice,
                     int per_k, int sort_len, float* __restrict__ out_v,
                     int* __restrict__ out_i) {
