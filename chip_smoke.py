@@ -33,7 +33,10 @@ Phases (any failure exits non-zero before the last line is printed):
      for the one-block route, how many times its passes read the row
      (worked out from the input); top-k and prefix
      sums run in the mode and route their wrapper picks and in every other
-     mode and route that takes the shape (all held and timed), the segment
+     mode and route that takes the shape (all held and timed), the prefix
+     sums' onepass mode also captured in a CUDA graph and replayed on new
+     inputs (each replay held, the replay timed beside the eager launch),
+     the segment
      sums of the encode
      also over a rotating set of inputs larger than L2 (cold, beside the
      warm repeats), the lookups and row gathers with
@@ -103,6 +106,21 @@ Phases (any failure exits non-zero before the last line is printed):
      recall, with the range merge's seconds and the host peak RSS;
  10. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
+
+Every path of 4-7 and 9 serves through the public entry points, which on
+the card replay one CUDA graph a static key (pqt_tpu_torch/utils/
+graphs.py), and again through their eager bodies (`__wrapped__`) by the
+same protocol; both servings are printed (QPS, batch p50 / p90 / max, the
+idle share of one profiled batch), with each path's graphs' capture
+seconds and device memory.  The run fails unless, on every such path,
+every replayed result equals the eager one to the bit (ids, distances,
+n_candidates) over all the queries, one batch a mode replayed 200 times in
+alternation with the path's other graphs (and the pair path's line graph)
+equals its first replay every time, and the hand-written kernels in the
+profiler trace of one replay, counted by name, equal the launch counts the
+capture recorded for each wrapper.  Phase 4 also runs
+`brute_force_knn_fast` once over the 1M vectors: its ids must equal the
+oracle's wherever the distances are untied.
 
 Every kernel launch count is reset just before each path (4, 5, the slab
 variant of 5, each of 6, each serving of 7 and the command-line queries,
@@ -574,6 +592,34 @@ def scan_plans(prim, rows, n):
     return plans
 
 
+def scan_replays(torch, prim, x, excl, plans, gen, replays=4):
+    """Onepass mode under CUDA graph replay: the launch captured on a
+    static input (with its zeroing node, `_scan_status`), replayed on new
+    inputs drawn in turn, each result held against the plain version; the
+    replay's device time beside the eager launch's.  Returns {} for a
+    shape no onepass plan takes."""
+    plan = next((p for p in plans if p.mode == "onepass"), None)
+    if plan is None:
+        return {}
+    static = x.clone()
+    prim._scan_launch(static, excl, plan)            # built and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = prim._scan_launch(static, excl, plan)
+    for _ in range(replays):
+        static.copy_(torch.randint(0, 3, static.shape, generator=gen,
+                                   device="cuda", dtype=torch.int32))
+        graph.replay()
+        if not torch.equal(out, prim.block_scan_plain(static, excl)):
+            raise SmokeFailure(f"block_scan {tuple(x.shape)} onepass: a "
+                               "replay differs from the plain version")
+    ms = device_ms(torch, graph.replay)
+    eager_ms = device_ms(torch, lambda: prim._scan_launch(x, excl, plan))
+    del graph, out, static
+    return {"onepass_replay_ms": ms, "onepass_eager_ms": eager_ms}
+
+
 def radix_passes(torch, x, k, digit_bits):
     """Histogram passes kernel A's select mode makes over each row of x, as
     csrc/topk.cu makes them: digits of the order-preserving key, most
@@ -637,6 +683,11 @@ def scan_cases(torch, gen):
             torch.int32)[None, :].contiguous(), False), (1, 1 << 20)
     yield "sift1b_candidate_prefix", (capped(8192), False), (b, 8192)
     yield "sift1b_compaction", (flags(32768), True), (b, 32768)
+    # the BIG stage-2 compaction at the SIFT1B phase's batch of 64: fewer
+    # than SCAN_MANY_ROWS rows, so onepass mode
+    yield "sift1b_big_compaction_b64", (torch.randint(
+        0, 2, (64, 32768), generator=gen, device="cuda",
+        dtype=torch.int32), True), (64, 32768)
     # bin occupancy counts of mean 1 over 2^29 slots (2 GiB)
     yield "sift1b_csr_prefix", (torch.randint(
         0, 3, (1, 1 << 29), generator=gen, device="cuda",
@@ -1002,7 +1053,8 @@ def check_kernels(torch):
                b_ms, b_by, 0.0, mode=plan.mode,
                other_modes={p.mode: device_ms(
                    torch, lambda: prim._scan_launch(x, excl, p))
-                   for p in others})
+                   for p in others},
+               **scan_replays(torch, prim, x, excl, [plan] + others, gen))
         del x
         torch.cuda.empty_cache()
 
@@ -1200,6 +1252,22 @@ def check_kernels(torch):
     return results, floor
 
 
+# Throwaway kernels a traced call makes first, inside its profiler session.
+# Late in this script's process a session lost the records of its first few
+# kernels (a query's copy, first gemm and first kernel-D launch; on an H100,
+# NVIDIA H100 80GB HBM3, 700 W, in eager calls and replays alike, and
+# whatever time the call waited first), so those are these fills instead.
+TRACE_PAD = 32
+PAD_KERNEL = "FillFunctor<double>"      # no query launches a float64 fill
+
+
+def pad_trace(torch):
+    t = torch.empty(1, dtype=torch.float64, device="cuda")
+    for _ in range(TRACE_PAD):
+        t.fill_(1.0)
+    torch.cuda.synchronize()
+
+
 def profile_batch(torch, fn, x, reps=3):
     """Where one batch's time goes: device time by kernel (torch.profiler)
     against the host clock.  Returns a dict, or the reason it could not."""
@@ -1209,6 +1277,7 @@ def profile_batch(torch, fn, x, reps=3):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad_trace(torch)
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn(x)
@@ -1218,7 +1287,8 @@ def profile_batch(torch, fn, x, reps=3):
         # their first hundred characters whatever operation they run
         kernels = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    PAD_KERNEL not in e.name:
                 kernels[e.name] = kernels.get(e.name, 0.0) + (
                     e.device_time_total / 1e3 / reps)
     except (RuntimeError, AttributeError) as err:   # the profiler is a probe
@@ -1659,12 +1729,8 @@ def check_other_paths(torch):
 
 def counters():
     """Every kernel wrapper, each with its `launches` count."""
-    from pqt_tpu_torch.ops.cuda import gather as ga
-    from pqt_tpu_torch.ops.cuda import primitives as prim
-    from pqt_tpu_torch.ops.cuda import rerank as rr
-    return (prim.bitonic_topk, prim.block_scan, rr.rerank_fused,
-            prim.segmented_reduce, ga.lut_gather, ga.gather_rows,
-            prim.gather_sqdist)
+    from pqt_tpu_torch.utils.graphs import kernel_wrappers
+    return kernel_wrappers()
 
 
 def reset_launches(torch):
@@ -1677,17 +1743,23 @@ def reset_launches(torch):
     rerank.wide_launches = 0
 
 
-def read_launches(label, required, modes=()):
-    """The counts since the last reset, with kernel A's by mode and kernel
-    C's wide-layout ones; fails if a kernel of the path, or a mode in
-    `modes` ("bitonic_topk:merge", "bitonic_topk:cluster" -- kernel A's
-    launches on the cluster route --, "rerank_fused:wide"), has none."""
+def launch_counts():
+    """The counts since the last reset, with kernel A's by mode and route
+    and kernel C's wide-layout ones."""
     top, rerank = counters()[0], counters()[2]
     launches = {c.__name__: c.launches for c in counters()}
     launches.update({f"bitonic_topk:{m}": n
                      for m, n in top.mode_launches.items()})
     launches["rerank_fused:wide"] = rerank.wide_launches
     launches["bitonic_topk:cluster"] = top.cluster_launches
+    return launches
+
+
+def read_launches(label, required, modes=()):
+    """launch_counts(), printed; fails if a kernel of the path, or a mode
+    in `modes` ("bitonic_topk:merge", "bitonic_topk:cluster" -- kernel A's
+    launches on the cluster route --, "rerank_fused:wide"), has none."""
+    launches = launch_counts()
     print(f"launches on the {label}: " + json.dumps(launches), flush=True)
     for name in tuple(required) + tuple(modes):
         if launches[name] == 0:
@@ -1719,15 +1791,25 @@ def differs_from_reference(label, launches, recall=None):
     return diffs
 
 
-def query_modes(P, cfg, tree, db, names):
+def entry(fn, eager):
+    """An entry point as users call it (replays of its CUDA graphs), or
+    with `eager` its eager body."""
+    return fn.__wrapped__ if eager else fn
+
+
+def query_modes(P, cfg, tree, db, names, eager=False):
     modes = {
-        "exact": lambda x: P.query_knn(cfg, tree, db, x, K, True),
-        "line": lambda x: P.query_knn(cfg, tree, db, x, K),
-        "refine": lambda x: P.query_knn_refine(cfg, tree, db, x, K),
-        "candidates": lambda x: P.query_candidates(cfg, tree, db, x),
-        "big_line": lambda x: P.query_big_knn(cfg, tree, db, x, K, 256),
-        "big_perfect": lambda x: P.query_big_knn_perfect(cfg, tree, db, x,
-                                                         K, 8, 256),
+        "exact": lambda x: entry(P.query_knn, eager)(cfg, tree, db, x, K,
+                                                     True),
+        "line": lambda x: entry(P.query_knn, eager)(cfg, tree, db, x, K),
+        "refine": lambda x: entry(P.query_knn_refine, eager)(
+            cfg, tree, db, x, K),
+        "candidates": lambda x: entry(P.query_candidates, eager)(
+            cfg, tree, db, x),
+        "big_line": lambda x: entry(P.query_big_knn, eager)(
+            cfg, tree, db, x, K, 256),
+        "big_perfect": lambda x: entry(P.query_big_knn_perfect, eager)(
+            cfg, tree, db, x, K, 8, 256),
     }
     return {n: modes[n] for n in names}
 
@@ -1808,18 +1890,213 @@ def report(label, metrics, latency, reference, ref_name,
 
 
 def serve_path(torch, label, modes, qd, required, need=(), batch=BATCH,
-               **info):
+               eager=None, partner=None, **info):
     """Serve one path with the launch counts reset just before it and read
-    just after it."""
+    just after it.  With `eager` (the same modes through the entry points'
+    eager bodies), serve those too by the same protocol, and hold the
+    replays to them (`graph_checks`; `partner` is another path's replay to
+    alternate with)."""
+    before = {id(e) for e in graph_entries()}
     reset_launches(torch)
     out, lat = serve(torch, modes, qd, batch)
-    return dict(launches=read_launches(label, required, need),
-                serving=lat, outputs=out, **info)
+    path = dict(launches=read_launches(label, required, need),
+                serving=lat, outputs=out, modes=modes, **info)
+    if eager is None:
+        return path
+    reset_launches(torch)
+    eager_out, path["eager_serving"] = serve(torch, eager, qd, batch)
+    eager_launches = read_launches(f"{label} (eager bodies)", required, need)
+    if eager_launches != path["launches"]:
+        raise SmokeFailure(f"{label}: the eager bodies' launch counts differ "
+                           "from the replays'")
+    path.update(graph_checks(torch, label, modes, eager, out, eager_out,
+                             qd, batch, partner, before, lat,
+                             path["eager_serving"]))
+    return path
+
+
+# ---------------------------------------------------------------------------
+# the compiled query programs: every path of phases 4-7 and 9 serves through
+# the graphed entry points (a CUDA graph a static key, replayed) and through
+# their eager bodies by the same protocol
+# ---------------------------------------------------------------------------
+
+# replays of one batch a mode, in alternation with the path's other modes'
+# graphs (and a partner path's), each equal to the first
+ALTERNATIONS = 200
+# The hand-written kernels a profiler trace names, by the wrapper that
+# launches them: one kernel of these names a wrapper launch.  Kernel A's
+# merge mode adds merge passes and, when it keeps fewer than the whole
+# row, a select (radix_select_kernel<items, resident, true>), which
+# MERGE_EXTRA matches; they are not counted.
+TRACE_KERNELS = {
+    "bitonic_topk": ("bitonic_sort_kernel", "radix_select_kernel",
+                     "run_sort_kernel", "cluster_topk_kernel"),
+    "block_scan": ("scan_rows_kernel", "scan_onepass_kernel"),
+    "rerank_fused": ("gather_rerank_kernel",),
+    "segmented_reduce": ("reduce_vec4_kernel", "reduce_scalar_kernel"),
+    "lut_gather": ("lut_kernel",),
+    "gather_rows": ("gather_rows_kernel", "gather_long_kernel"),
+    "gather_sqdist": ("gather_sqdist_kernel",),
+}
+MERGE_EXTRA = r"merge_pass_kernel|radix_select_kernel<\d+, \w+, true>"
+
+
+GRAPHED = ("query_knn", "query_candidates", "query_knn_refine",
+           "query_big_knn", "query_big_knn_perfect", "query_knn_split",
+           "query_multi_knn")
+
+
+def graph_entries():
+    """Every captured graph of the package's graphed entry points."""
+    import pqt_tpu_torch as P
+    return [e for name in GRAPHED for e in getattr(P, name).graphs.values()]
+
+
+def clear_graphs():
+    """Drop every captured graph (and its pool), printing what they held."""
+    import pqt_tpu_torch as P
+    held = sum(e.bytes for e in graph_entries()) / 2 ** 20
+    for name in GRAPHED:
+        getattr(P, name).graphs.clear()
+    print(f"graph cache cleared: {held:.1f} MiB freed", flush=True)
+
+
+def same_output(torch, a, b):
+    """Whether two outputs of one entry point are equal to the bit: a
+    QueryResult's ids, distances and n_candidates, a candidate set, or one
+    tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def trace_counts(torch, fn, x, attempts=4):
+    """One call of fn(x) under the profiler: (its hand-written kernels
+    counted by wrapper from their names, TRACE_KERNELS; the wrappers'
+    launch counters over the same call; the hand-written kernels by
+    name), from the kernel records of the session's chrome trace.  The
+    call follows TRACE_PAD throwaway kernels in the session (see there).
+    A session that records no kernel is repeated, after a throwaway one, up
+    to `attempts` times."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn(x)
+    for _ in range(attempts):
+        reset_launches(torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad_trace(torch)
+            fn(x)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            prof.export_chrome_trace(os.path.join(d, "trace.json"))
+            with open(os.path.join(d, "trace.json")) as f:
+                names = [e["name"] for e in json.load(f)["traceEvents"]
+                         if e.get("cat") == "kernel"]
+        if names:
+            break
+        _profiled_us(torch, lambda: torch.ones(8, device="cuda") + 1, 1)
+    else:
+        raise SmokeFailure("no profiler session recorded a kernel")
+    counted, by_name = dict.fromkeys(TRACE_KERNELS, 0), {}
+    for name in names:
+        if re.search(MERGE_EXTRA, name):
+            continue
+        wrapper = next((w for w, firsts in TRACE_KERNELS.items()
+                        if any(f in name for f in firsts)), None)
+        if wrapper is not None:
+            counted[wrapper] += 1
+            by_name[name[:160]] = by_name.get(name[:160], 0) + 1
+    return counted, {c.__name__: c.launches for c in counters()}, by_name
+
+
+def graph_checks(torch, label, modes, eager, out, eager_out, qd, batch,
+                 partner, before, lat, eager_lat):
+    """Hold a path's replays to its eager bodies: every result of the
+    window equal to the bit; one batch a mode replayed ALTERNATIONS times in
+    alternation with the path's other graphs and `partner`'s, equal every
+    time; the hand-written kernels of one replay's trace equal to the
+    launch counts its capture recorded.  Prints the graphs' capture
+    seconds and memory, and both servings with one profiled batch each."""
+    entries = graph_entries()
+    # a path may capture nothing: a database loaded again where a freed one
+    # of the same shapes lay has its keys, so it replays that one's graphs
+    new = [e for e in entries if id(e) not in before]
+    held = sum(e.bytes for e in new) / 2 ** 20
+    print(f"graphs of the {label}: {len(new)} captured, capture seconds "
+          f"{json.dumps([round(e.capture_s, 4) for e in new])}, "
+          f"{held:.1f} MiB held; the cache holds "
+          f"{sum(e.bytes for e in entries) / 2 ** 20:.1f} MiB in all",
+          flush=True)
+    for mode in modes:
+        if len(out[mode]) != len(eager_out[mode]) or not all(
+                same_output(torch, a, b)
+                for a, b in zip(out[mode], eager_out[mode])):
+            raise SmokeFailure(f"{label} {mode}: a replayed result differs "
+                               "from the eager body's")
+    print(f"{label}: every replayed result equals the eager body's to the "
+          f"bit over all {qd.shape[0]} queries ({', '.join(modes)})",
+          flush=True)
+    x = qd[:batch]
+    runs = [(m, fn, x, out[m][0]) for m, fn in modes.items()]
+    runs += [partner] if partner else []
+    if len(runs) < 2:
+        raise SmokeFailure(f"{label}: no other graph to alternate with")
+    for _ in range(ALTERNATIONS):
+        for name, fn, xb, ref in runs:
+            if not same_output(torch, fn(xb), ref):
+                raise SmokeFailure(f"{label}: a replay of {name} differs "
+                                   "from its first in alternation")
+    print(f"{label}: {ALTERNATIONS} alternating replays of one batch of "
+          f"each of {', '.join(r[0] for r in runs)}: equal every time",
+          flush=True)
+    profiles, traced = {}, {}
+    for m, fn in modes.items():
+        replays = sum(e.replays for e in graph_entries())
+        counted, recorded, by_name = trace_counts(torch, fn, x)
+        if sum(e.replays for e in graph_entries()) < replays + 2:
+            raise SmokeFailure(f"{label} {m}: not served by a replay")
+        if counted != recorded:
+            raise SmokeFailure(f"{label} {m}: the kernels of one replay's "
+                               f"trace {counted} differ from the launch "
+                               f"counts its capture recorded {recorded}; "
+                               f"by name {json.dumps(by_name)}")
+        traced[m] = counted
+        profiles[m] = {"replay": profile_batch(torch, fn, x),
+                       "eager": profile_batch(torch, eager[m], x)}
+        r, e = lat[m], eager_lat[m]
+        idle = {k: profiles[m][k].get("idle_share") for k in profiles[m]}
+        print(f"{m:12s} replayed QPS {r['qps']:.0f} p50 {r['p50_ms']:.3f} "
+              f"p90 {r['p90_ms']:.3f} max {r['max_ms']:.3f} ms idle "
+              f"{idle['replay']}  |  eager QPS {e['qps']:.0f} p50 "
+              f"{e['p50_ms']:.3f} p90 {e['p90_ms']:.3f} max "
+              f"{e['max_ms']:.3f} ms idle {idle['eager']}", flush=True)
+        for k, pr in profiles[m].items():
+            print(f"profile {label} {m} {k}: " + json.dumps(pr), flush=True)
+    print(f"{label}: the hand-written kernels of one replay's trace equal "
+          f"the launch counts its capture recorded: {json.dumps(traced)}",
+          flush=True)
+    return {"profiles": profiles, "trace_kernels": traced,
+            "graphs": {"captured": len(new),
+                       "capture_s": [e.capture_s for e in new],
+                       "mib": held}}
+
+
+def graph_summary(path):
+    """A served path's numbers of its replays against its eager bodies."""
+    return {k: path[k] for k in ("eager_serving", "profiles",
+                                 "trace_kernels", "graphs")}
+
+
+def partner_of(path, mode, qd, batch=BATCH):
+    """One mode of a served path, for other paths to alternate with."""
+    return (mode, path["modes"][mode], qd[:batch],
+            path["outputs"][mode][0])
 
 
 def query_paths(torch, P):
-    from pqt_tpu_torch.ops.distance import brute_force_knn
-
     # the pair path's cfg leaves the pair filter off, as bench.py does
     cfg = P.SIFT1M_CONFIG.replace(
         kmeans_iters=8, train_subsample=100_000, hash_size=1 << 20,
@@ -1853,41 +2130,53 @@ def query_paths(torch, P):
           f"{tuple(db.pair_occ.shape)})", flush=True)
     qd = torch.as_tensor(queries, device="cuda")
     all_modes = ("exact", "line", "refine", "candidates")
-    paths = {}
-    out, lat = serve(torch, query_modes(P, cfg, tree, db, all_modes), qd)
-    paths["pair"] = {"launches": read_launches("pair path",
-                                               PAIR_KERNELS + EXACT_KERNELS),
-                     "serving": lat, "outputs": out, "cfg": cfg, "db": db,
-                     "reference": (ROUND5, "round 5")}
+
+    def modes_of(c, d, names):
+        return dict(modes=query_modes(P, c, tree, d, names),
+                    eager=query_modes(P, c, tree, d, names, eager=True))
+
+    built = launch_counts()            # the train's and the build's
+    paths = {"pair": serve_path(
+        torch, "pair path", qd=qd, required=PAIR_KERNELS + EXACT_KERNELS,
+        cfg=cfg, db=db, reference=(ROUND5, "round 5"),
+        **modes_of(cfg, db, all_modes))}
+    # the pair path's reference counts include its train and build
+    paths["pair"]["launches"] = {k: n + built[k] for k, n in
+                                 paths["pair"]["launches"].items()}
+    print("launches on the pair path with its train and build: "
+          + json.dumps(paths["pair"]["launches"]), flush=True)
+    partner = partner_of(paths["pair"], "line", qd)
 
     # phase 5: the parts path, then its slab-gather variant
     paths["parts"] = serve_path(
-        torch, "parts path", query_modes(P, parts_cfg, tree, db, all_modes),
-        qd, PARTS_KERNELS + EXACT_KERNELS, cfg=parts_cfg, db=db,
-        reference=(JAX_CPU_PARTS, "JAX on the CPU"))
+        torch, "parts path", qd=qd, required=PARTS_KERNELS + EXACT_KERNELS,
+        partner=partner, cfg=parts_cfg, db=db,
+        reference=(JAX_CPU_PARTS, "JAX on the CPU"),
+        **modes_of(parts_cfg, db, all_modes))
     paths["parts_slabs"] = serve_path(
-        torch, "parts path with slab gathers",
-        query_modes(P, slabs_cfg, tree, db, ("exact", "line", "candidates")),
-        qd, PARTS_KERNELS + EXACT_KERNELS, cfg=slabs_cfg, db=db,
-        reference=(JAX_CPU_SLABS, "JAX on the CPU"))
+        torch, "parts path with slab gathers", qd=qd,
+        required=PARTS_KERNELS + EXACT_KERNELS, partner=partner,
+        cfg=slabs_cfg, db=db, reference=(JAX_CPU_SLABS, "JAX on the CPU"),
+        **modes_of(slabs_cfg, db, ("exact", "line", "candidates")))
 
     # phase 6: the BIG two-stage path, line and perfect, on the same
     # database; then the pair path's line mode over the wide payload
     for name in ("big_line", "big_perfect"):
         paths[name] = serve_path(
-            torch, f"BIG path ({name[4:]})",
-            query_modes(P, cfg, tree, db, (name,)), qd,
-            BIG_KERNELS + (EXACT_KERNELS if name == "big_perfect" else ()),
-            cfg=cfg, db=db, reference=(JAX_CPU_BIG, "JAX on the CPU"))
+            torch, f"BIG path ({name[4:]})", qd=qd,
+            required=BIG_KERNELS + (EXACT_KERNELS if name == "big_perfect"
+                                    else ()),
+            partner=partner, cfg=cfg, db=db,
+            reference=(JAX_CPU_BIG, "JAX on the CPU"),
+            **modes_of(cfg, db, (name,)))
     wide_db = P.build_database(wide_cfg, tree, data, device="cuda")
     paths["pair_wide"] = serve_path(
-        torch, "pair path over the wide payload",
-        query_modes(P, wide_cfg, tree, wide_db, ("line",)), qd,
-        PAIR_KERNELS, ("rerank_fused:wide",), cfg=wide_cfg, db=wide_db,
-        reference=({}, "compact payload"))
+        torch, "pair path over the wide payload", qd=qd,
+        required=PAIR_KERNELS, need=("rerank_fused:wide",), partner=partner,
+        cfg=wide_cfg, db=wide_db, reference=({}, "compact payload"),
+        **modes_of(wide_cfg, wide_db, ("line",)))
 
-    _, gt = brute_force_knn(qd, torch.as_tensor(data, device="cuda"), K)
-    gt = gt.cpu().numpy()
+    gt = brute_force_phase(torch, data, qd)
     failed, changed = [], []
     summary = {"train_s": train_s, "build_s": build_s, "paths": {}}
     for label, path in paths.items():
@@ -1903,26 +2192,56 @@ def query_paths(torch, P):
                          thresholds)
         changed += differs_from_reference(label, path["launches"], metrics)
         path["recall"] = metrics
-        profiles = {m: profile_batch(
-            torch, query_modes(P, c, tree, path["db"], (m,))[m], qd[:BATCH])
-            for m in path["serving"] if m in ("exact", "line", "big_line",
-                                              "big_perfect")}
-        for m, pr in profiles.items():
-            print(f"profile {label} {m}: " + json.dumps(pr), flush=True)
         summary["paths"][label] = {
             "pipeline": c.pipeline, "pair_filter": c.pair_filter,
             "gather_mode": c.gather_mode,
             "payload_compact": c.payload_compact,
             "launches": path["launches"],
             "serving": path["serving"], "recall": metrics,
-            "profiles": profiles}
+            **graph_summary(path)}
     if failed:
         raise SmokeFailure(f"recall below threshold: {failed}")
     if changed:
         raise SmokeFailure(f"launch counts or recall differ from the "
                            f"reference run's: {changed}")
     return summary, dict(cfg=cfg, tree=tree, data=data, queries=queries,
-                         qd=qd, gt=gt, db=db)
+                         qd=qd, gt=gt, db=db, partner=partner)
+
+
+def brute_force_phase(torch, data, qd):
+    """The exact neighbours of the queries (the float64 oracle), and
+    `brute_force_knn_fast` held to the oracle's K + 1 (to see ties at the
+    edge): its ids equal the oracle's wherever the distances are untied
+    with their neighbours in the ranking (integer-valued vectors, so its
+    float32 distances are exact).  Returns the oracle's top-K ids (numpy)."""
+    from pqt_tpu_torch.ops.distance import (brute_force_knn,
+                                            brute_force_knn_fast)
+    db = torch.as_tensor(data, device="cuda")
+    gt_k = brute_force_knn(qd, db, K)[1].cpu().numpy()
+    d64, gt = brute_force_knn(qd, db, K + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast_d, fast_i = brute_force_knn_fast(qd, db, K)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = device_ms(torch, lambda: brute_force_knn_fast(qd, db, K),
+                        reps=3, warmup=1)
+    untied = (d64[:, :K] != d64[:, 1:]) & torch.cat(
+        [torch.ones_like(d64[:, :1], dtype=torch.bool),
+         d64[:, 1:K] != d64[:, :K - 1]], dim=1)
+    bad = int((fast_i.to(torch.int64) != gt[:, :K])[untied].sum())
+    err = float((fast_d.to(torch.float64) - d64[:, :K]).abs().max())
+    print(f"brute_force_knn_fast ({qd.shape[0]} queries over {db.shape[0]} "
+          f"vectors, k {K}): {wall_ms:.2f} ms wall (first call), "
+          f"{busy_ms:.3f} ms device; ids equal the float64 oracle's at "
+          f"{int(untied.sum())} untied ranks, {bad} differ; max distance "
+          f"error {err}", flush=True)
+    if bad:
+        raise SmokeFailure(f"brute_force_knn_fast: {bad} ids at untied ranks "
+                           "differ from the float64 oracle's")
+    del db, d64, gt, fast_d, fast_i
+    torch.cuda.empty_cache()
+    return gt_k
 
 
 def host_rss_gib():
@@ -2057,15 +2376,22 @@ def sift1b_phase(torch, P, workdir):
     loaded_gib = torch.cuda.memory_allocated() / 2 ** 30
     load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    modes = query_modes(P, cfg, tree, db, ("exact", "line", "refine",
-                                           "candidates", "big_line"))
     # BIG perfect re-ranks by id: the vectors by id, attached on the card
     by_id = db._replace(vectors=data)
-    modes.update(query_modes(P, cfg, tree, by_id, ("big_perfect",)))
+
+    def modes_of(eager):
+        modes = query_modes(P, cfg, tree, db, ("exact", "line", "refine",
+                                               "candidates", "big_line"),
+                            eager)
+        modes.update(query_modes(P, cfg, tree, by_id, ("big_perfect",),
+                                 eager))
+        return modes
+
+    modes = modes_of(False)
     path = serve_path(torch, "SIFT1B phase", modes, qd,
                       ALL_KERNELS + EXACT_KERNELS,
                       ("bitonic_topk:merge", "bitonic_topk:cluster"),
-                      batch=BATCH_1B)
+                      batch=BATCH_1B, eager=modes_of(True))
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"sift1b: device memory held after the load {loaded_gib:.2f} GiB "
           f"(tables, payload, vectors_csr, the data by id, the tree), "
@@ -2082,15 +2408,13 @@ def sift1b_phase(torch, P, workdir):
                     floors)
     changed = (differs_from_reference("sift1b_build", build_launches)
                + differs_from_reference("sift1b", path["launches"], metrics))
-    profiles = {m: profile_batch(torch, modes[m], qd[:BATCH_1B])
-                for m in ("exact", "big_line")}
-    for m, pr in profiles.items():
-        print(f"profile sift1b {m}: " + json.dumps(pr), flush=True)
     peak = max(load_peak, serve_peak,
                torch.cuda.max_memory_allocated() / 2 ** 30)
     # phase 8 at SIFT1B width: the single-device database freed, the same
     # chunk files served over N_SHARDS shards
-    del db, by_id, modes, data
+    # the modes' closures hold the database, the graphs their pools
+    del db, by_id, modes, data, path["modes"], path["outputs"]
+    clear_graphs()
     torch.cuda.empty_cache()
     sharded, f, c = sift1b_sharded(torch, cfg, tree, paths, qd,
                                    gt.cpu().numpy(), metrics)
@@ -2114,8 +2438,8 @@ def sift1b_phase(torch, P, workdir):
             "serving_peak_device_gib": serve_peak, "host_rss_gib": rss[0],
             "host_peak_rss_gib": rss[1], "build_launches": build_launches,
             "launches": path["launches"], "serving": path["serving"],
-            "recall": metrics, "floors": floors, "profiles": profiles,
-            "sharded": sharded}
+            "recall": metrics, "floors": floors, "sharded": sharded,
+            **graph_summary(path)}
 
 
 # ---------------------------------------------------------------------------
@@ -2137,9 +2461,8 @@ def phase_checks(label, metrics, serving, jax_cpu, launches, base=None):
 
 def same_results(torch, a, b):
     """Whether two runs' outputs (lists of QueryResult by mode) are equal to
-    the bit."""
-    return all(torch.equal(x.indices, y.indices) and
-               torch.equal(x.dists, y.dists)
+    the bit (`same_output`)."""
+    return all(same_output(torch, x, y)
                for mode in a for x, y in zip(a[mode], b[mode]))
 
 
@@ -2164,13 +2487,14 @@ def split_phase(torch, P, fx, workdir):
           f"{share:.4f} ({sdb.dense_ids.shape[0]} of {N_DB}); occupancy "
           f"{json.dumps(occupancy)}", flush=True)
 
-    def modes(s):
-        return {"line": lambda x: S.query_knn_split(cfg, s, x, K),
-                "exact": lambda x: S.query_knn_split(cfg, s, x, K, True),
-                "refine": lambda x: S.query_knn_split(cfg, s, x, K, False,
-                                                      True)}
+    def modes(s, eager=False):
+        query = entry(S.query_knn_split, eager)
+        return {"line": lambda x: query(cfg, s, x, K),
+                "exact": lambda x: query(cfg, s, x, K, True),
+                "refine": lambda x: query(cfg, s, x, K, False, True)}
 
-    path = serve_path(torch, "split path", modes(sdb), qd, SPLIT_KERNELS)
+    path = serve_path(torch, "split path", modes(sdb), qd, SPLIT_KERNELS,
+                      eager=modes(sdb, True), partner=fx["partner"])
     t_save = time.perf_counter()
     base = os.path.join(workdir, "split")
     S.save_split_database(base, cfg, sdb)
@@ -2194,22 +2518,18 @@ def split_phase(torch, P, fx, workdir):
                                    THRESHOLDS)
     if not reload_equal:
         failed.append("split: the loaded split's results differ")
-    profiles = {m: profile_batch(torch, fn, qd[:BATCH])
-                for m, fn in modes(sdb).items()}
-    for m, pr in profiles.items():
-        print(f"profile split {m}: " + json.dumps(pr), flush=True)
     return dict(build_s=build_s, dense_share=share, occupancy=occupancy,
                 save_load_s=save_load_s, reload_equal=reload_equal,
                 launches=path["launches"], serving=path["serving"],
-                recall=metrics, profiles=profiles), failed, changed
+                recall=metrics, **graph_summary(path)), failed, changed
 
 
-def multidb_modes(M, cfg, tree, mdb):
-    return {"occurrence": lambda x: M.query_multi_knn(cfg, tree, mdb, x, K),
-            "distance": lambda x: M.query_multi_knn(
+def multidb_modes(M, cfg, tree, mdb, eager=False):
+    query = entry(M.query_multi_knn, eager)
+    return {"occurrence": lambda x: query(cfg, tree, mdb, x, K),
+            "distance": lambda x: query(
                 cfg.replace(multidb_rank="distance"), tree, mdb, x, K),
-            "exact": lambda x: M.query_multi_knn(cfg, tree, mdb, x, K,
-                                                 True)}
+            "exact": lambda x: query(cfg, tree, mdb, x, K, True)}
 
 
 def occurrence_top_plain(torch, dists, occ, cand_ids, k):
@@ -2250,29 +2570,27 @@ def multidb_phase(torch, P, fx, workdir):
     print(f"multidb: build {build_s:.2f} s, {mdb.n_groups} groups, "
           f"occupancy {json.dumps(occupancy)}", flush=True)
     path = serve_path(torch, "multi-DB path",
-                      multidb_modes(M, cfg, tree, mdb), qd, MULTIDB_KERNELS)
+                      multidb_modes(M, cfg, tree, mdb), qd, MULTIDB_KERNELS,
+                      eager=multidb_modes(M, cfg, tree, mdb, True),
+                      partner=fx["partner"])
     metrics = path_recall(torch, "multidb", path["outputs"], fx["gt"])
     failed, changed = phase_checks("multidb", metrics, path["serving"],
                                    JAX_CPU_MULTIDB, path["launches"])
-    profiles = {m: profile_batch(torch, fn, qd[:BATCH])
-                for m, fn in multidb_modes(M, cfg, tree, mdb).items()
-                if m in ("occurrence", "exact")}
-    for m, pr in profiles.items():
-        print(f"profile multidb {m}: " + json.dumps(pr), flush=True)
-    # the dedup's and the occurrence ranking's inputs, caught on one batch:
-    # the dedup's share of the batch, and the ranking (kernel A twice)
-    # against the JAX package's lexicographic sort by torch.sort
+    # the dedup's and the occurrence ranking's inputs, caught on one batch
+    # of the eager body: the dedup's share of the batch, and the ranking
+    # (kernel A twice) against the JAX package's lexicographic sort by
+    # torch.sort
     caught = {}
     dup_stats, occ_top = M._duplicate_stats, M._occurrence_top
     M._duplicate_stats = lambda c, v: caught.update(c=c, v=v) or \
         dup_stats(c, v)
     M._occurrence_top = lambda *a: caught.update(occ=a) or occ_top(*a)
     try:
-        M.query_multi_knn(cfg, tree, mdb, qd[:BATCH], K)
+        M.query_multi_knn.__wrapped__(cfg, tree, mdb, qd[:BATCH], K)
     finally:
         M._duplicate_stats, M._occurrence_top = dup_stats, occ_top
     dup_ms = device_ms(torch, lambda: dup_stats(caught["c"], caught["v"]))
-    busy = profiles["occurrence"].get("device_busy_ms")
+    busy = path["profiles"]["occurrence"]["replay"].get("device_busy_ms")
     print(f"multidb: _duplicate_stats on a batch's {tuple(caught['c'].shape)}"
           f" candidates {dup_ms:.4f} ms of the occurrence batch's "
           f"{busy if busy is None else f'{busy:.4f}'} ms device busy",
@@ -2305,7 +2623,9 @@ def multidb_phase(torch, P, fx, workdir):
     before = D.to_device.bytes_copied
     spilled = serve_path(torch, "spilled multi-DB path",
                          multidb_modes(M, cfg, tree, placed), qd,
-                         MULTIDB_KERNELS)
+                         MULTIDB_KERNELS,
+                         eager=multidb_modes(M, cfg, tree, placed, True),
+                         partner=fx["partner"])
     copied = D.to_device.bytes_copied - before
     equal = same_results(torch, path["outputs"], spilled["outputs"])
     print(f"multidb_spill: build {spill_s:.2f} s, {payload_bytes} payload "
@@ -2325,11 +2645,12 @@ def multidb_phase(torch, P, fx, workdir):
                                                   fx["gt"]))
     return (dict(build_s=build_s, occupancy=occupancy,
                  launches=path["launches"], serving=path["serving"],
-                 recall=metrics, profiles=profiles,
-                 duplicate_stats_ms=dup_ms),
+                 recall=metrics, duplicate_stats_ms=dup_ms,
+                 **graph_summary(path)),
             dict(build_s=spill_s, payload_bytes=payload_bytes,
                  uploaded_bytes=uploaded, serving_copied_bytes=copied,
-                 launches=spilled["launches"], serving=spilled["serving"]),
+                 launches=spilled["launches"], serving=spilled["serving"],
+                 **graph_summary(spilled)),
             failed, changed)
 
 
@@ -2382,11 +2703,26 @@ def cli_recall(text):
             float(re.search(r"-> (\d+) QPS", text).group(1)))
 
 
+def cli_runner(query, args, eager):
+    """The query tool's batch function (`load_runner`), or with `eager` the
+    same over the entry points' eager bodies."""
+    import torch
+    from pqt_tpu_torch.models import query as Q
+    graphed = Q.query_knn, Q.query_knn_refine
+    if eager:
+        Q.query_knn, Q.query_knn_refine = (f.__wrapped__ for f in graphed)
+    try:
+        return query.load_runner(args, torch.device("cuda"))[1]
+    finally:
+        Q.query_knn, Q.query_knn_refine = graphed
+
+
 def cli_phase(torch, P, fx, workdir):
     """The command lines on the fixture (`cli_args`): `convert` to .umem,
     `create_db --mode full`, and `query --exact-rerank --groundtruth`, all
-    in this process; its printed recall is parsed.  One batch is profiled
-    through the query tool's own batch function."""
+    in this process; its printed recall is parsed.  Then the query tool's
+    own batch function is served by the window protocol, replayed and over
+    the eager bodies (`cli_runner`), and held to `graph_checks`."""
     from pqt_tpu_torch.io import texmex
     from pqt_tpu_torch.tools import convert, create_db, query
     d = os.path.join(workdir, "cli")
@@ -2414,11 +2750,14 @@ def cli_phase(torch, P, fx, workdir):
           flush=True)
     failed, changed = phase_checks("cli", metrics, {}, JAX_CPU_CLI,
                                    launches, THRESHOLDS)
-    _, run = query.load_runner(query.parse_args(serve_args + on_card),
-                               torch.device("cuda"))
-    profile = profile_batch(torch, run, fx["qd"][:BATCH])
-    print("profile cli exact (the query tool's batch function): "
-          + json.dumps(profile), flush=True)
+    # the query tool's batch function, served by the window protocol as it
+    # runs (replays) and with the entry points' eager bodies in its place
+    args = query.parse_args(serve_args + on_card)
+    runs = {eager: {"exact": cli_runner(query, args, eager)}
+            for eager in (False, True)}
+    path = serve_path(torch, "command-line query's batch function",
+                      runs[False], fx["qd"], CLI_KERNELS, eager=runs[True],
+                      partner=fx["partner"])
     # phase 8's command line: the same query over one hash-range shard,
     # loaded on the host and placed on the card; the same recall printed
     sharded = serve_args + ["--sharded", "1"] + on_card
@@ -2444,7 +2783,7 @@ def cli_phase(torch, P, fx, workdir):
     print("profile cli_sharded exact (the query tool's batch function): "
           + json.dumps(sh_profile), flush=True)
     return (dict(times=times, qps=qps, launches=launches, recall=metrics,
-                 profiles={"exact": profile},
+                 **graph_summary(path),
                  sharded={"qps": sh_qps, "launches": sh_launches,
                           "recall": sh_metrics,
                           "profiles": {"exact": sh_profile}}),
@@ -2808,6 +3147,10 @@ def main(json_path=None):
                     other += f" (reads {c['other_reads'][label]:.2f})"
             for mode, ms in c.get("other_modes", {}).items():
                 other += f"  {mode} mode {ms:.4f}"
+            if "onepass_replay_ms" in c:
+                other += (f"  onepass replayed {c['onepass_replay_ms']:.4f}"
+                          f" (eager {c['onepass_eager_ms']:.4f}, the "
+                          "replays equal to the plain version)")
             print(f"    {c['case']:64s} ms {c['ms']:.4f}  plain "
                   f"{c['plain_ms']:.4f}  library {c['library_ms']}  bound "
                   f"{c['bound_ms']:.4f}{other}", flush=True)
@@ -2830,6 +3173,7 @@ def main(json_path=None):
         summary["sharded"], failed8, changed8 = sharded_phase(
             torch, P, fixture, summary["paths"], workdir)
     del fixture
+    clear_graphs()
     peak_before = torch.cuda.max_memory_allocated()
     with tempfile.TemporaryDirectory(prefix="pqt_sift1b_") as workdir:
         summary["sift1b"] = sift1b_phase(torch, P, workdir)

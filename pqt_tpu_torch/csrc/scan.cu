@@ -32,7 +32,10 @@
 // The tile counter resets itself: atomicInc wraps it to 0 when the last
 // block of the grid takes its id.  Zeroing the buffer before each launch
 // instead cost more than the launch floor at every shape up to 2^20
-// elements on the H100 (PERF.md).
+// elements on the H100 (PERF.md).  A launch captured into a CUDA graph is
+// the exception: its epoch would replay unchanged, so the wrapper gives it
+// status words of the graph's own, zeroed by the node before it on every
+// replay, and epoch 1 (_scan_status in ops/cuda/primitives.py).
 //
 // Both modes hold a chunk in registers: lane l of warp w of a group holds
 // the 16-byte vectors (w * J + j) * 32 + l, j < J, of the chunk -- every

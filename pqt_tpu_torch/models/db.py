@@ -39,7 +39,7 @@ from pqt_tpu_torch.config import PQTConfig
 from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
                                        line_tables)
 from pqt_tpu_torch.ops import binning, linecodes
-from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk, block_scan
+from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk
 from pqt_tpu_torch.utils.device import resolve_device
 
 
@@ -158,6 +158,12 @@ def pack_payload_device(cfg: PQTConfig, ids: torch.Tensor,
                      dim=1)
 
 
+def unpack_payload(rows: torch.Tensor):
+    """WIDE (..., 2 + lp) int32 payload rows -> (ids (...,), codes (...,
+    lp) uint32 values held in int64, t3 (...,) float32)."""
+    return linecodes.payload_columns(rows)
+
+
 def unpack_payload_cfg(cfg: PQTConfig, rows: torch.Tensor):
     """Payload rows -> (ids, a_idx, b_idx (..., lp) int32, lam (..., lp)
     float32, t3) under either layout."""
@@ -216,13 +222,12 @@ def _encode_chunk(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor,
 
 def _assemble_device(cfg: PQTConfig, bins: torch.Tensor,
                      packed: torch.Tensor):
-    """CSR assembly: histogram, prefix (kernel B over one long row), stable
-    sort by bin, row gather.  Returns (prefix, counts, prefix2, payload)."""
-    counts = torch.bincount(bins, minlength=cfg.hash_size).to(torch.int32)
-    ends = block_scan(counts[None, :])[0]
-    prefix = ends - counts
-    order = torch.sort(bins, stable=True).indices
-    return prefix, counts, torch.stack([prefix, ends], dim=1), packed[order]
+    """CSR assembly (`binning.build_csr`), then the payload rows in CSR
+    order.  Returns (prefix, counts, prefix2, payload)."""
+    inv = binning.build_csr(bins, cfg.hash_size)
+    return (inv.prefix, inv.counts,
+            torch.stack([inv.prefix, inv.prefix + inv.counts], dim=1),
+            packed[inv.order.to(torch.int64)])
 
 
 def _pair_occ_device(cfg: PQTConfig, part_codes: torch.Tensor,

@@ -29,7 +29,10 @@ Per query batch, on the kernels of the single-database paths:
 A spilled build keeps each group's payload in a host memmap
 (`<spill_path>.g<i>`, the JAX package's bytes); `place_multi_database`
 uploads every host leaf to the card once, and `query_multi_knn` refuses a
-host leaf rather than copy it on every call.
+host leaf rather than copy it on every call.  `query_multi_knn` is
+`graphed` with the JAX package's static arguments (utils/graphs.py): the
+refusal runs in a key's eager first call, as JAX's checks run at trace
+time.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from pqt_tpu_torch.ops import binning
 from pqt_tpu_torch.ops.cuda.gather import lut_gather
 from pqt_tpu_torch.ops.cuda.rerank import gather_rerank
 from pqt_tpu_torch.utils.device import resolve_device
+from pqt_tpu_torch.utils.graphs import graphed
 
 _INF = float("inf")
 # payload rows copied from the card to a spill file per step
@@ -253,6 +257,7 @@ def _require_placed(mdb: MultiDatabase, dev: torch.device,
                 "upload the database once with place_multi_database")
 
 
+@graphed(static_argnums=(0, 4, 5))
 def query_multi_knn(cfg: PQTConfig, tree: PQTree, mdb: MultiDatabase,
                     queries: torch.Tensor, k: int,
                     exact_rerank: bool = False) -> QueryResult:

@@ -39,6 +39,11 @@ package's bit for bit given the same distance tables.  Duplicate
 masking sorts the candidate ids with `torch.sort` (ROADMAP.md queue 2).
 Queries run on the device of the tree and database tensors.  Bin-hash terms
 are uint32 values held in int64.
+
+The entry points `query_knn`, `query_candidates` and `query_knn_refine`
+are `graphed` with the JAX package's static arguments: on the card each
+key is captured once as a CUDA graph and replayed (utils/graphs.py);
+`__wrapped__` is the eager body.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
 from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk, block_scan,
                                                gather_sqdist)
 from pqt_tpu_torch.ops.cuda.rerank import gather_rerank
+from pqt_tpu_torch.utils.graphs import graphed
 
 _INF = float("inf")
 
@@ -176,10 +182,12 @@ def _pair_stage(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
     return d, h, exact
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _pair_sequence_on(m: int, length: int, device: torch.device):
     """distseq.pair_sequence as an int64 tensor on `device`, uploaded once
-    (a host-to-device copy per batch would stall the host on the card)."""
+    (a host-to-device copy per batch would stall the host on the card) and
+    kept for the life of the process: a captured query graph reads it
+    (utils/graphs.py), so no key may evict it."""
     return torch.tensor(distseq.pair_sequence(m, length), dtype=torch.int64,
                         device=device)
 
@@ -239,11 +247,12 @@ def _sorted_part_lists(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor):
     return sorted_d2, torch.gather(codes, 2, order)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _parts_sequence_on(base: int, p: int, n_enum: int, device: torch.device):
-    """The parts traversal on `device`, uploaded once: (ranks (p, E) int64,
-    the per-part rank of every enumeration slot, and cells (p/2, E) int64,
-    the (rank 2j, rank 2j+1) cell rank_a * base + rank_b of every slot)."""
+    """The parts traversal on `device`, uploaded once and kept, as
+    `_pair_sequence_on`: (ranks (p, E) int64, the per-part rank of every
+    enumeration slot, and cells (p/2, E) int64, the (rank 2j, rank 2j+1)
+    cell rank_a * base + rank_b of every slot)."""
     seq = distseq.static_sequence(base, p)[:n_enum].astype("int64")
     n2 = 2 * (p // 2)
     cells = seq[:, 0:n2:2] * base + seq[:, 1:n2:2]
@@ -502,6 +511,7 @@ def _require_vectors(db: PQTDatabase, what: str) -> None:
                          "keep_vectors=True (in RAM or spilled)")
 
 
+@graphed(static_argnums=(0, 4, 5))
 def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
               queries: torch.Tensor, k: int,
               exact_rerank: bool = False) -> QueryResult:
@@ -544,6 +554,7 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     return QueryResult(indices=ids, dists=dists, n_candidates=n_cand)
 
 
+@graphed(static_argnums=(0,))
 def query_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                      queries: torch.Tensor):
     """The gathered candidate set before any re-rank: (cand_ids (B, K)
@@ -560,6 +571,7 @@ def query_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     return cand_ids, torch.isfinite(line_d)
 
 
+@graphed(static_argnums=(0, 4, 5, 6))
 def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                      queries: torch.Tensor, k: int, refine_factor: int = 8,
                      k_line: Optional[int] = None) -> QueryResult:
@@ -571,7 +583,7 @@ def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     queries = queries.to(torch.float32)
     k1 = k_line or k * refine_factor
     if db.vectors is not None:
-        stage1 = query_knn(cfg, tree, db, queries, k1)
+        stage1 = query_knn.__wrapped__(cfg, tree, db, queries, k1)
         ids1, n_cand = stage1.indices, stage1.n_candidates
         table, rows_at = db.vectors, torch.where(ids1 >= 0, ids1, 0)
     else:

@@ -19,7 +19,8 @@ variant reads the survivors' raw vectors and sums their squared distances
 in one kernel (`gather_sqdist`).  As in the JAX package, the BIG path
 uses no pair_occ.
 Stage 2 needs p = 4 (two part-pairs); an odd p, or the perfect variant
-without db.vectors, raises ValueError.
+without db.vectors, raises ValueError.  Both entry points are `graphed`
+with the JAX package's static arguments (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from pqt_tpu_torch.models.query import (QueryResult, _INF, _line_candidates,
 from pqt_tpu_torch.models.tree import PQTree
 from pqt_tpu_torch.ops import binning
 from pqt_tpu_torch.ops.cuda.gather import lut_gather
+from pqt_tpu_torch.utils.graphs import graphed
 
 
 def _pair_merge(cfg: PQTConfig, sorted_d2: torch.Tensor,
@@ -111,6 +113,7 @@ def query_big_core(cfg: PQTConfig, tree: PQTree, prefix, counts, payload,
         torch.sum(valid, dim=-1),)
 
 
+@graphed(static_argnums=(0, 4, 5))
 def query_big_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                   queries: torch.Tensor, k: int,
                   n_intermediate: int = 256) -> QueryResult:
@@ -123,6 +126,7 @@ def query_big_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     return QueryResult(indices=ids, dists=dists, n_candidates=n_cand)
 
 
+@graphed(static_argnums=(0, 4, 5, 6))
 def query_big_knn_perfect(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                           queries: torch.Tensor, k: int,
                           refine_factor: int = 8,
@@ -134,7 +138,8 @@ def query_big_knn_perfect(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
                          "vectors by id)")
     queries = queries.to(torch.float32)
     k1 = min(k * refine_factor, cfg.max_candidates)
-    stage1 = query_big_knn(cfg, tree, db, queries, k1, n_intermediate)
+    stage1 = query_big_knn.__wrapped__(cfg, tree, db, queries, k1,
+                                       n_intermediate)
     live = stage1.indices >= 0
     exact = torch.where(live, _row_sqdist(
         queries, db.vectors, torch.where(live, stage1.indices, 0)), _INF)

@@ -32,6 +32,7 @@ from pqt_tpu_torch.models.tree import (PQTree, mark_dense_vectors_for,
                                        train_tree_split)
 from pqt_tpu_torch.ops.cuda.gather import lut_gather
 from pqt_tpu_torch.utils.device import resolve_device
+from pqt_tpu_torch.utils.graphs import graphed
 
 
 class SplitDatabase(NamedTuple):
@@ -92,20 +93,23 @@ def build_split_database(cfg: PQTConfig, data, percent: float = 0.3,
     return SplitDatabase(dense_tree, sparse_tree, *members, *ids)
 
 
+@graphed(static_argnums=(0, 3, 4, 5))
 def query_knn_split(cfg: PQTConfig, sdb: SplitDatabase,
                     queries: torch.Tensor, k: int,
                     exact_rerank: bool = False,
                     refine: bool = False) -> QueryResult:
     """Union query over both members with global ids: `query_knn` (line
-    or exact) or `query_knn_refine` against each, ids mapped through the
-    id maps, then one top-k of the concatenated (B, 2k) lists."""
+    or exact) or `query_knn_refine` against each (their eager bodies: on
+    the card the whole union is one graph), ids mapped through the id
+    maps, then one top-k of the concatenated (B, 2k) lists."""
     queries = queries.to(torch.float32)
 
     def one(tree, db, ids_map):
         if refine:
-            r = query_knn_refine(cfg, tree, db, queries, k)
+            r = query_knn_refine.__wrapped__(cfg, tree, db, queries, k)
         else:
-            r = query_knn(cfg, tree, db, queries, k, exact_rerank)
+            r = query_knn.__wrapped__(cfg, tree, db, queries, k,
+                                      exact_rerank)
         live = r.indices >= 0
         local = torch.where(live, r.indices, 0).contiguous()
         return (torch.where(live, lut_gather(ids_map, local), -1), r.dists,

@@ -1,7 +1,9 @@
 """Bin ids, compaction of probed bins, and candidate positions.
 
-Port of pqt_tpu/ops/binning.py (the parts this slice runs).
+Port of pqt_tpu/ops/binning.py.
 
+  * inverted file: `build_csr`, the counts, their prefix (kernel B) and
+    the stable sort of the vectors by bin;
   * bin id: per-part codes combined mixed-radix, part 0 most significant,
     when (c1*c2)^p fits the table; otherwise each part's code is mixed with
     an odd multiplier and the sum is Fibonacci-hashed down to log2(hash_size)
@@ -18,6 +20,8 @@ Port of pqt_tpu/ops/binning.py (the parts this slice runs).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -74,6 +78,34 @@ def hashed_bin_ids(codes: torch.Tensor, part_radix: int,
         acc = (acc + u[..., j] * MIX_MULTIPLIERS[j % len(MIX_MULTIPLIERS)]) \
             & _U32
     return finalize_hash(acc, hash_size)
+
+
+class InvertedFile(NamedTuple):
+    """CSR inverted file over `hash_size` bins (the reference's .prefix,
+    .count and .dbIdx, tool_createdb.cpp:116-138)."""
+    prefix: torch.Tensor      # (hash_size,) int32, exclusive prefix of counts
+    counts: torch.Tensor      # (hash_size,) int32
+    ids: torch.Tensor         # (n,) int32: original vector id at CSR position
+    order: torch.Tensor       # (n,) int32 alias of ids (CSR permutation)
+
+    @property
+    def n_vectors(self) -> int:
+        return self.ids.shape[0]
+
+
+def build_csr(bin_ids: torch.Tensor, hash_size: int) -> InvertedFile:
+    """The inverted file of per-vector bin ids (n,) int32 in [0,
+    hash_size): counts (an id outside the table is dropped from them, as
+    the JAX package's scatter drops it), their exclusive prefix (kernel B
+    over one row of hash_size) and the stable sort by bin id, so vectors
+    within a bin keep ascending original id."""
+    inside = (bin_ids >= 0) & (bin_ids < hash_size)
+    counts = torch.zeros(hash_size, dtype=torch.int32, device=bin_ids.device)
+    counts.index_add_(0, torch.where(inside, bin_ids, 0).to(torch.int64),
+                      inside.to(torch.int32))
+    prefix = block_scan(counts[None, :], exclusive=True)[0]
+    order = torch.sort(bin_ids, stable=True).indices.to(torch.int32)
+    return InvertedFile(prefix=prefix, counts=counts, ids=order, order=order)
 
 
 def compact_nonempty_bins(bin_ids: torch.Tensor, counts: torch.Tensor,

@@ -371,8 +371,10 @@ def _scan_plan(rows: int, n: int, mode: Optional[str] = None) -> ScanPlan:
                     SCAN_TILE_WARPS, tiles, rows * tiles)
 
 
-# Onepass mode's status words, kept from call to call: (device, stream) ->
-# [int64 tensor (the tile counter, then one word a tile), last epoch].
+# Onepass mode's status words, kept from call to call by eager launches:
+# (device, stream) -> [int64 tensor (the tile counter, then one word a
+# tile), last epoch].  A launch captured into a CUDA graph never uses them
+# (`_scan_status`).
 _scan_states: dict = {}
 
 
@@ -390,10 +392,26 @@ def _scan_state(x: torch.Tensor, words: int):
     return state[0], state[1]
 
 
+def _scan_status(x: torch.Tensor, words: int):
+    """Onepass mode's status words and epoch for a launch on x's device and
+    current stream.
+
+    Eager: the persistent buffer and its next epoch (`_scan_state`).  Under
+    CUDA graph capture the epoch would be baked into the graph, and a
+    replay would read the words the previous replay left as current; so a
+    captured launch gets words of its own, zeroed by a node of the same
+    graph before every replay, and epoch 1.  They come from the graph's
+    private pool, which the graph keeps, and the persistent buffer is
+    neither read nor replaced by a capture."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(words, dtype=torch.int64, device=x.device), 1
+    return _scan_state(x, words)
+
+
 def _scan_launch(x: torch.Tensor, exclusive: bool,
                  plan: ScanPlan) -> torch.Tensor:
     """Launch kernel B on a contiguous (B, N) int32 CUDA tensor.  In onepass
-    mode the status words are the persistent buffer with a new epoch."""
+    mode the status words and epoch come from `_scan_status`."""
     B, N = x.shape
     out = torch.empty((B, N), dtype=torch.int32, device=x.device)
     lib = build.load("scan")
@@ -403,7 +421,7 @@ def _scan_launch(x: torch.Tensor, exclusive: bool,
                                           plan.warps, plan.group, plan.vecs,
                                           _ptr(out), _stream(x))
         else:
-            state, epoch = _scan_state(x, 1 + B * plan.tiles)
+            state, epoch = _scan_status(x, 1 + B * plan.tiles)
             err = lib.pqt_block_scan_onepass(
                 _ptr(x), B, N, int(exclusive), plan.tiles, _ptr(state),
                 epoch, _ptr(out), _stream(x))

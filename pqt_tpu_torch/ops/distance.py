@@ -1,4 +1,5 @@
-"""Batched squared L2 distance tables, and the exact brute-force oracle.
+"""Batched squared L2 distance tables, the exact brute-force oracle, and
+the brute-force baseline.
 
 Port of pqt_tpu/ops/distance.py.  Every table is one matrix product plus
 norms, ||x - c||^2 = ||x||^2 + ||c||^2 - 2 <x, c>, in full float32: the
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from pqt_tpu_torch.ops.cuda.primitives import segmented_reduce
+from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk, segmented_reduce
 
 
 def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -101,3 +102,17 @@ def brute_force_knn(queries: torch.Tensor, db: torch.Tensor, k: int,
         out_d.append(best_d)
         out_i.append(best_i)
     return torch.cat(out_d), torch.cat(out_i)
+
+
+def brute_force_knn_fast(queries: torch.Tensor, db: torch.Tensor, k: int):
+    """Throughput-oriented brute force, the same-card baseline of a serving
+    path: every distance in full float32 (`pairwise_sqdist`; the package
+    keeps TF32 off), then kernel A's top-k of each row.
+
+    The JAX package's version selects with `lax.approx_max_k` at a recall
+    target; on the CPU that is exact, and so is kernel A, so the port
+    takes no recall target: its k are the k smallest float32 distances,
+    ties lowest index first.  Returns (dists (q, k) float32 ascending,
+    indices (q, k) int32).
+    """
+    return bitonic_topk(pairwise_sqdist(queries, db), k)

@@ -78,6 +78,27 @@ def build_line_codes(part_dists: torch.Tensor, pair_dists: torch.Tensor,
     return packed, t3
 
 
+def line_code_t3(packed: torch.Tensor,
+                 pair_dists: torch.Tensor) -> torch.Tensor:
+    """The query-independent term sum_lp (lambda^2 - lambda) * pair[lp, A,
+    B] recomputed from packed codes (n, lp), for codes stored without it;
+    pair_dists (lp, c1, c1).  Returns (n,) float32."""
+    n, lp = packed.shape
+    c1 = pair_dists.shape[-1]
+    a, b, lam = unpack_codes(packed)
+    lp_idx = torch.arange(lp, device=packed.device)[None, :]
+    c2 = pair_dists.reshape(-1)[(lp_idx * c1 + a) * c1 + b]
+    return torch.sum((lam * lam - lam) * c2, dim=-1)
+
+
+def payload_columns(rows: torch.Tensor):
+    """Payload rows (..., W) int32 -> (ids (...,) int32, words (..., W - 2)
+    int64 holding the code columns' uint32 values, t3 (...,) float32)."""
+    ids = rows[..., 0]
+    t3 = rows[..., 1].contiguous().view(torch.float32)
+    return ids, rows[..., 2:].to(torch.int64) & 0xFFFFFFFF, t3
+
+
 def unpack_payload_rows(rows: torch.Tensor, line_parts: int, compact: bool):
     """Payload rows (..., W) int32 -> (ids, A, B (..., lp) int32,
     lambda (..., lp) float32, t3 (...,) float32).
@@ -86,9 +107,7 @@ def unpack_payload_rows(rows: torch.Tensor, line_parts: int, compact: bool):
     either one wide code per line part, or (compact) two 16-bit parts per
     column, A | B << 4 | lambda_u8 << 8, low half first.
     """
-    ids = rows[..., 0]
-    t3 = rows[..., 1].contiguous().view(torch.float32)
-    words = rows[..., 2:].to(torch.int64) & 0xFFFFFFFF
+    ids, words, t3 = payload_columns(rows)
     if not compact:
         a, b, lam = unpack_codes(words)
         return ids, a, b, lam, t3
@@ -98,6 +117,14 @@ def unpack_payload_rows(rows: torch.Tensor, line_parts: int, compact: bool):
     b = ((part16 >> 4) & 0xF).to(torch.int32)
     lam = triangle.u8_to_lambda((part16 >> 8) & 0xFF)
     return ids, a, b, lam, t3
+
+
+def reconstruct_dists(codes: torch.Tensor, query_part_dists: torch.Tensor,
+                      t3: torch.Tensor) -> torch.Tensor:
+    """Approximate squared distances (B, K) from the candidates' packed
+    codes (B, K, lp), the queries' line tables (B, lp, c1) and the
+    candidates' t3 (B, K): `reconstruct_dists_idx` on unpacked codes."""
+    return reconstruct_dists_idx(*unpack_codes(codes), query_part_dists, t3)
 
 
 def reconstruct_dists_idx(a_idx, b_idx, lam, query_part_dists, t3):

@@ -165,3 +165,101 @@ def test_gather_candidates_equal(K, cap):
 def test_pair_sequence_equal(m, length):
     np.testing.assert_array_equal(TS.pair_sequence(m, length),
                                   JS.pair_sequence(m, length))
+
+
+def _line_codes(seed, n=300, lp=8, c1=16, dim=64):
+    """(packed codes (n, lp) uint32, t3, pair tables, x's line tables) of
+    the JAX package on the same numpy inputs."""
+    rng = np.random.default_rng(seed)
+    centroids = rng.uniform(0, 140, (c1, dim)).astype(np.float32)
+    x = rng.uniform(0, 140, (n, dim)).astype(np.float32)
+    pair = JD.centroid_pair_sqdist(jnp.asarray(centroids), lp)
+    codes, t3 = JL.build_line_codes(
+        JD.subpart_sqdist_tables(jnp.asarray(x), jnp.asarray(centroids), lp),
+        pair)
+    return np.asarray(codes), np.asarray(t3), np.asarray(pair), centroids
+
+
+def test_line_code_t3_equal():
+    """t3 recomputed from packed codes: within float32 rounding of the JAX
+    function's (the sum over line parts runs in another order) and of the
+    stored t3, on both packages' codes alike."""
+    codes, t3, pair, _ = _line_codes(21)
+    want = np.asarray(JL.line_code_t3(jnp.asarray(codes), jnp.asarray(pair)))
+    got = TL.line_code_t3(_t(codes.astype(np.int64)), _t(pair))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (300,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-2)
+    np.testing.assert_allclose(got.numpy(), t3, rtol=1e-4, atol=1e-2)
+
+
+def test_reconstruct_dists_equal():
+    """Distances from packed codes: the JAX function's within float32
+    rounding (the one-hot accumulation against a gather)."""
+    rng = np.random.default_rng(22)
+    codes, t3, _, centroids = _line_codes(22)
+    q = rng.uniform(0, 140, (5, 64)).astype(np.float32)
+    q_tab = np.asarray(JD.subpart_sqdist_tables(jnp.asarray(q),
+                                                jnp.asarray(centroids), 8))
+    pick = rng.integers(0, 300, (5, 40))
+    want = np.asarray(JL.reconstruct_dists(
+        jnp.asarray(codes[pick]), jnp.asarray(q_tab), jnp.asarray(t3[pick])))
+    got = TL.reconstruct_dists(_t(codes[pick].astype(np.int64)), _t(q_tab),
+                               _t(t3[pick]))
+    assert tuple(got.shape) == (5, 40)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-1)
+
+
+def test_unpack_payload_equal():
+    """Wide payload rows -> ids, codes and t3 to the bit."""
+    from pqt_tpu.models import db as JDB
+    from pqt_tpu_torch.models import db as TDB
+    codes, t3, _, _ = _line_codes(23)
+    ids = np.arange(300, dtype=np.int32)[::-1].copy()
+    rows = JDB.pack_payload(ids, codes, t3)
+    w_ids, w_codes, w_t3 = JDB.unpack_payload(jnp.asarray(rows))
+    g_ids, g_codes, g_t3 = TDB.unpack_payload(_t(rows))
+    np.testing.assert_array_equal(g_ids.numpy(), np.asarray(w_ids))
+    np.testing.assert_array_equal(g_codes.numpy(),
+                                  np.asarray(w_codes).astype(np.int64))
+    np.testing.assert_array_equal(g_t3.numpy().view(np.int32),
+                                  np.asarray(w_t3).view(np.int32))
+
+
+@pytest.mark.parametrize("n,hash_size", [(5000, 1 << 12), (7, 64), (0, 16)])
+def test_build_csr_equal(n, hash_size):
+    """The inverted file to the bit: counts (ids outside the table dropped,
+    as the JAX package's scatter drops them), exclusive prefix, and the
+    stable order by bin."""
+    rng = np.random.default_rng(n)
+    bins = rng.integers(0, hash_size, n).astype(np.int32)
+    if n > 10:
+        bins[:3] = [hash_size, hash_size + 5, hash_size - 1]
+    want = JB.build_csr(jnp.asarray(bins), hash_size)
+    got = TB.build_csr(_t(bins), hash_size)
+    assert isinstance(got, TB.InvertedFile) and got.n_vectors == n
+    for name in ("prefix", "counts", "ids", "order"):
+        g = getattr(got, name)
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(getattr(want, name)), name)
+
+
+def test_brute_force_knn_fast_equal():
+    """Integer-valued vectors, so every float32 distance is exact: the
+    port's selection (kernel A's plain version here) gives the JAX
+    function's distances to the bit and its ids wherever the distances are
+    untied with their neighbours in the ranking."""
+    rng = np.random.default_rng(24)
+    db = rng.integers(0, 256, (4000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, (16, 32)).astype(np.float32)
+    want_d, want_i = JD.brute_force_knn_fast(jnp.asarray(q), jnp.asarray(db),
+                                             10)
+    got_d, got_i = TD.brute_force_knn_fast(_t(q), _t(db), 10)
+    assert got_i.dtype == torch.int32
+    want_d, want_i = np.asarray(want_d), np.asarray(want_i)
+    np.testing.assert_array_equal(got_d.numpy(), want_d)
+    full = np.sort(((q[:, None, :] - db[None]) ** 2).sum(-1), axis=1)[:, :11]
+    untied = (full[:, :10] != full[:, 1:11]) & np.concatenate(
+        [np.ones((16, 1), bool), full[:, 1:10] != full[:, :9]], axis=1)
+    assert untied.mean() > 0.5
+    np.testing.assert_array_equal(got_i.numpy()[untied], want_i[untied])

@@ -168,6 +168,56 @@ def test_onepass_model_back_to_back_calls():
         np.testing.assert_array_equal(got, _want(x, epoch % 2 == 1))
 
 
+def test_onepass_model_replays_of_one_captured_launch():
+    """A CUDA graph replays a launch with the arguments it was captured
+    with.  With the eager scheme (the persistent words, a new epoch a call)
+    the epoch is frozen in the graph: the second replay reads the words of
+    the first as current and sums stale aggregates into its prefixes.  The
+    scheme captured launches take (`_scan_status`: words of the graph's
+    own, zeroed by the node before the launch on every replay, epoch 1)
+    gives the prefix sums on every replay."""
+    rows, n = 2, 30001
+    plan = _small_plan(rows, n)
+    rng = np.random.default_rng(12)
+    inputs = [rng.integers(0, 9, (rows, n)).astype(np.int32)
+              for _ in range(3)]
+    frozen = _stale_state(rng, plan.blocks, 7)
+    outs = [_onepass_model(x, False, plan, frozen, 7, rng) for x in inputs]
+    np.testing.assert_array_equal(outs[0], _want(inputs[0], False))
+    assert not all(np.array_equal(o, _want(x, False))
+                   for o, x in zip(outs[1:], inputs[1:]))
+    words = np.zeros(1 + plan.blocks, dtype=object)
+    for x in inputs:
+        words[:] = 0                            # the zeroing node
+        np.testing.assert_array_equal(
+            _onepass_model(x, False, plan, words, 1, rng), _want(x, False))
+
+
+def test_scan_status_under_capture(monkeypatch):
+    """The wrapper's bookkeeping: a captured launch gets zeroed words of
+    its own and epoch 1, and neither reads nor replaces the persistent
+    buffer; an eager launch takes the buffer of its (device, stream) with
+    the next epoch, as before."""
+    x = torch.zeros((2, 3), dtype=torch.int32)
+    monkeypatch.setattr(prim, "_scan_states", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7}))
+    buf, e1 = prim._scan_status(x, 10)
+    buf2, e2 = prim._scan_status(x, 10)
+    assert buf2 is buf and (e1, e2) == (1, 2) and len(prim._scan_states) == 1
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    a, ea = prim._scan_status(x, 40)
+    b, eb = prim._scan_status(x, 40)
+    assert (ea, eb) == (1, 1) and a is not b
+    assert a.dtype == torch.int64 and a.numel() == 40 and not a.any()
+    # the persistent buffer, too short for 40 words, was not replaced
+    assert prim._scan_states[(None, 7)][0] is buf and buf.numel() == 10
+    assert prim._scan_states[(None, 7)][1] == 2
+
+
 def test_onepass_model_row_sum_at_int32_max():
     """A row summing to exactly 2^31 - 1, and all-zero rows."""
     n = 4096
