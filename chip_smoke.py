@@ -76,7 +76,8 @@ Phases (any failure exits non-zero before the last line is printed):
      .umem, `create_db --mode full` at SIFT1M widths (hash 2^20) in chunks
      of 250k with raw vectors, and `query --exact-rerank --groundtruth`,
      its printed recall parsed, then `query --sharded 1`, whose printed
-     recall must equal it to the last digit;
+     recall must equal it to the last digit and whose batches must be
+     served by replays of the sharded step's graphs;
   8. the sharded layer on the same fixture (parallel/): the pair path's
      database in 4 hash-range shards on the one card, line, exact and big
      at batch 256, each held 0.002 below the same mode on one device and
@@ -87,8 +88,10 @@ Phases (any failure exits non-zero before the last line is printed):
      data-parallel k-means step, within 1e-4 of the one-device step; and
      the multi-process chain in a world of one NCCL rank (4 chunk files,
      merge_chunk_files_range, build_local_shards, place_host_sharded_db,
-     peer_barrier, the exact query through the group), equal to the
-     in-process result to the bit;
+     peer_barrier, the exact query through the group, its all_gather and
+     all_reduce captured in the merge's graph), equal to the in-process
+     result to the bit; the sharded steps' graphs are dropped before the
+     group is destroyed;
   9. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
      forced by the run time; the fixture scales its clusters with n as
      benchmarks/rehearsal_50m.py does): train on 200k, encode 2M-vector
@@ -107,16 +110,17 @@ Phases (any failure exits non-zero before the last line is printed):
  10. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
 
-Every path of 4-7 and 9 serves through the public entry points, which on
-the card replay one CUDA graph a static key (pqt_tpu_torch/utils/
-graphs.py), and again through their eager bodies (`__wrapped__`) by the
-same protocol; both servings are printed (QPS, batch p50 / p90 / max, the
+Every path of 4-9 serves through the public entry points, which on the
+card replay one CUDA graph a static key (pqt_tpu_torch/utils/graphs.py;
+the sharded step of 8 and 9 one graph a device of its grid and one for
+the merge, each key's stages printed), and again through their eager
+bodies (`__wrapped__`) by the same protocol; both servings are printed (QPS, batch p50 / p90 / max, the
 idle share of one profiled batch), with each path's graphs' capture
 seconds and device memory.  The run fails unless, on every such path,
 every replayed result equals the eager one to the bit (ids, distances,
 n_candidates) over all the queries, one batch a mode replayed 200 times in
-alternation with the path's other graphs (and the pair path's line graph)
-equals its first replay every time, and the hand-written kernels in the
+alternation with the path's other graphs (and, but at SIFT1B, the pair
+path's line graph) equals its first replay every time, and the hand-written kernels in the
 profiler trace of one replay, counted by name, equal the launch counts the
 capture recorded for each wrapper.  Phase 4 also runs
 `brute_force_knn_fast` once over the 1M vectors: its ids must equal the
@@ -135,7 +139,8 @@ thresholds (the BIG, split, multi-DB and command-line paths 0.03 below
 the JAX package's recall on the CPU, the split and the command line never
 below the pair path's thresholds, the wide payload's line top-10 at most
 0.01 below the compact one's), the SIFT1B phase against its floors.  Each
-path of 7 and 8 is profiled for one batch (device busy ms, idle share).
+path of 4-9 is profiled for one batch a mode, replayed and eager (device
+busy ms, idle share).
 
 Timings are the card's, with its name and power limit printed beside them.
 """
@@ -1947,15 +1952,35 @@ GRAPHED = ("query_knn", "query_candidates", "query_knn_refine",
            "query_multi_knn")
 
 
+# the graphed sharded query steps made so far (`sharded_modes`): each keeps
+# its graphs in its own cache, as the JAX package's mapped_cache
+SHARDED_STEPS = []
+
+
 def graph_entries():
-    """Every captured graph of the package's graphed entry points."""
+    """Every captured entry of the package's graphed entry points and of
+    the sharded steps."""
     import pqt_tpu_torch as P
-    return [e for name in GRAPHED for e in getattr(P, name).graphs.values()]
+    return [e for name in GRAPHED for e in getattr(P, name).graphs.values()
+            ] + [e for fn in SHARDED_STEPS for e in fn.graphs.values()]
+
+
+def clear_sharded_graphs():
+    """Drop the sharded steps and their graphs (before their process group
+    is destroyed: a graph that captured its collectives must not outlive
+    it), printing what they held."""
+    held = sum(e.bytes for fn in SHARDED_STEPS
+               for e in fn.graphs.values()) / 2 ** 20
+    for fn in SHARDED_STEPS:
+        fn.graphs.clear()
+    SHARDED_STEPS.clear()
+    print(f"sharded steps' graphs cleared: {held:.1f} MiB freed", flush=True)
 
 
 def clear_graphs():
     """Drop every captured graph (and its pool), printing what they held."""
     import pqt_tpu_torch as P
+    clear_sharded_graphs()
     held = sum(e.bytes for e in graph_entries()) / 2 ** 20
     for name in GRAPHED:
         getattr(P, name).graphs.clear()
@@ -2025,7 +2050,8 @@ def graph_checks(torch, label, modes, eager, out, eager_out, qd, batch,
     # of the same shapes lay has its keys, so it replays that one's graphs
     new = [e for e in entries if id(e) not in before]
     held = sum(e.bytes for e in new) / 2 ** 20
-    print(f"graphs of the {label}: {len(new)} captured, capture seconds "
+    print(f"graphs of the {label}: {len(new)} captured (stages "
+          f"{json.dumps([len(e.stages) for e in new])}), capture seconds "
           f"{json.dumps([round(e.capture_s, 4) for e in new])}, "
           f"{held:.1f} MiB held; the cache holds "
           f"{sum(e.bytes for e in entries) / 2 ** 20:.1f} MiB in all",
@@ -2080,6 +2106,7 @@ def graph_checks(torch, label, modes, eager, out, eager_out, qd, batch,
           flush=True)
     return {"profiles": profiles, "trace_kernels": traced,
             "graphs": {"captured": len(new),
+                       "stages": [len(e.stages) for e in new],
                        "capture_s": [e.capture_s for e in new],
                        "mib": held}}
 
@@ -2761,10 +2788,27 @@ def cli_phase(torch, P, fx, workdir):
     # phase 8's command line: the same query over one hash-range shard,
     # loaded on the host and placed on the card; the same recall printed
     sharded = serve_args + ["--sharded", "1"] + on_card
+    from pqt_tpu_torch.parallel import sharded as S
+    made, make = [], S.make_sharded_query_fn
+    S.make_sharded_query_fn = lambda *a, **kw: made.append(
+        make(*a, **kw)) or made[-1]
     reset_launches(torch)
     t0 = time.perf_counter()
-    out = run_main(query.main, sharded)
+    try:
+        out = run_main(query.main, sharded)
+    finally:
+        S.make_sharded_query_fn = make
     times["query_sharded_s"] = time.perf_counter() - t0
+    tool_graphs = [e for fn in made for e in fn.graphs.values()]
+    replays = sum(e.replays for e in tool_graphs)
+    print(f"cli: query --sharded 1 served {replays} batches by replays of "
+          f"{len(tool_graphs)} graphed sharded step entries (stages "
+          f"{[len(e.stages) for e in tool_graphs]})", flush=True)
+    if not replays:
+        failed.append("cli_sharded: no batch replayed the sharded step's "
+                      "graphs")
+    for fn in made:
+        fn.graphs.clear()
     sh_launches = read_launches("command-line query with --sharded 1",
                                 SHARDED_EXACT_KERNELS)
     sh_metrics, sh_qps = cli_recall(out)
@@ -2825,13 +2869,17 @@ def free_port():
 
 def sharded_modes(S, cfg, tree, sdb, devices, modes, batch_split=1,
                   group=None):
-    """The sharded query of each mode in `modes` over `sdb` on `devices`,
-    as one-argument functions of a batch."""
+    """The sharded query step of each mode in `modes` over `sdb` on
+    `devices`, as one-argument functions of a batch: (the steps as users
+    call them, replaying their graphs; their eager bodies).  The steps
+    join SHARDED_STEPS."""
     fns = {m: S.make_sharded_query_fn(cfg, devices, K, mode=m,
                                       n_intermediate=256,
                                       batch_split=batch_split, group=group)
            for m in modes}
-    return {m: (lambda x, fn=fn: fn(tree, sdb, x)) for m, fn in fns.items()}
+    SHARDED_STEPS.extend(fns.values())
+    return tuple({m: (lambda x, fn=entry(fn, eager): fn(tree, sdb, x))
+                  for m, fn in fns.items()} for eager in (False, True))
 
 
 def world_of_one(D):
@@ -2886,16 +2934,17 @@ def sharded_phase(torch, P, fx, single, workdir):
     for mode, required in (("line", PAIR_KERNELS),
                            ("exact", SHARDED_EXACT_KERNELS),
                            ("big", BIG_KERNELS)):
-        modes = sharded_modes(S, cfg, tree, sdb, grid, (mode,))
-        paths[f"sharded_{mode}"] = dict(serve_path(
-            torch, f"sharded path ({mode})", modes, qd, required),
-            modes=modes)
+        modes, eager = sharded_modes(S, cfg, tree, sdb, grid, (mode,))
+        paths[f"sharded_{mode}"] = serve_path(
+            torch, f"sharded path ({mode})", modes, qd, required,
+            eager=eager, partner=fx["partner"])
     grid2 = ["cuda"] * (2 * N_SHARDS)
-    modes = sharded_modes(S, cfg, tree, S.place_sharded_db(shards, grid2),
-                          grid2, ("exact",), batch_split=2)
-    paths["sharded_exact_split"] = dict(serve_path(
+    modes, eager = sharded_modes(
+        S, cfg, tree, S.place_sharded_db(shards, grid2), grid2, ("exact",),
+        batch_split=2)
+    paths["sharded_exact_split"] = serve_path(
         torch, "sharded path (exact, the batch split over a 4x2 grid)",
-        modes, qd, SHARDED_EXACT_KERNELS), modes=modes)
+        modes, qd, SHARDED_EXACT_KERNELS, eager=eager, partner=fx["partner"])
     split_equal = same_results(torch, paths["sharded_exact"]["outputs"],
                                paths["sharded_exact_split"]["outputs"])
     print(f"sharded: the batch split's results "
@@ -2973,16 +3022,22 @@ def sharded_phase(torch, P, fx, single, workdir):
                                           getattr(shards, f))
                            for f in ("prefix", "counts", "prefix2",
                                      "payload", "n_per_shard", "vectors"))
-        modes = sharded_modes(S, cfg, tree, placed, mesh, ("exact",),
-                              group=dist.group.WORLD)
-        paths["sharded_nccl"] = dict(serve_path(
+        modes, eager = sharded_modes(S, cfg, tree, placed, mesh,
+                                     ("exact",), group=dist.group.WORLD)
+        # the all_gather and all_reduce are nodes of the merge's graph:
+        # its replays of every batch must equal the eager results
+        paths["sharded_nccl"] = serve_path(
             torch, f"sharded path (exact, a world of one "
-            f"{out['backend']} rank)", modes, qd, SHARDED_EXACT_KERNELS),
-            modes=modes)
-        paths["sharded_nccl"]["profile"] = profile_batch(
-            torch, modes["exact"], qd[:BATCH])
+            f"{out['backend']} rank, its collectives captured)", modes, qd,
+            SHARDED_EXACT_KERNELS, eager=eager, partner=fx["partner"])
+        nccl_graphs = [e.group is dist.group.WORLD for e in graph_entries()
+                       if e.group is not None]
     finally:
+        clear_sharded_graphs()
         dist.destroy_process_group()
+    if nccl_graphs != [True]:
+        failed.append(f"sharded_nccl: {len(nccl_graphs)} graphs hold the "
+                      "group's collectives, not 1")
     nccl_equal = same_results(torch, paths["sharded_exact"]["outputs"],
                               paths["sharded_nccl"]["outputs"])
     print(f"sharded: {out['backend']} world of one: {len(chunk_paths)} chunk "
@@ -3011,12 +3066,9 @@ def sharded_phase(torch, P, fx, single, workdir):
                          {key: ref[key] for key in metrics},
                          "single device", floors)
         changed += differs_from_reference(label, path["launches"], metrics)
-        profile = path.get("profile") or profile_batch(
-            torch, next(iter(path["modes"].values())), qd[:BATCH])
-        print(f"profile {label}: " + json.dumps(profile), flush=True)
         out["paths"][label] = {"launches": path["launches"],
                                "serving": path["serving"], "recall": metrics,
-                               "floors": floors, "profile": profile}
+                               "floors": floors, **graph_summary(path)}
     out.update(split_equal=split_equal, nccl_equal=nccl_equal,
                nccl_leaves_equal=leaves_equal, dp_encode_equal=enc_equal)
     return out, failed, changed
@@ -3057,17 +3109,16 @@ def sift1b_sharded(torch, cfg, tree, chunk_paths, qd, gt, single):
         del local
         D.peer_barrier(timeout_s=120)
         out["held_device_gib"] = torch.cuda.memory_allocated() / 2 ** 30
-        modes = sharded_modes(S, cfg, tree, placed, mesh, ("exact", "line"),
-                              group=dist.group.WORLD)
+        modes, eager = sharded_modes(S, cfg, tree, placed, mesh,
+                                     ("exact", "line"),
+                                     group=dist.group.WORLD)
         path = serve_path(torch, "SIFT1B sharded path", modes, qd,
                           SHARDED_EXACT_KERNELS + ("rerank_fused",),
-                          ("bitonic_topk:cluster",), batch=BATCH_1B)
-        profiles = {m: profile_batch(torch, fn, qd[:BATCH_1B])
-                    for m, fn in modes.items()}
+                          ("bitonic_topk:cluster",), batch=BATCH_1B,
+                          eager=eager)
     finally:
+        clear_sharded_graphs()
         dist.destroy_process_group()
-    for m, pr in profiles.items():
-        print(f"profile sift1b_sharded {m}: " + json.dumps(pr), flush=True)
     rss = host_rss_gib()
     out.update(peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                host_rss_gib=rss[0], host_peak_rss_gib=rss[1])
@@ -3088,7 +3139,7 @@ def sift1b_sharded(torch, cfg, tree, chunk_paths, qd, gt, single):
     changed = differs_from_reference("sift1b_sharded", path["launches"],
                                      metrics)
     out.update(launches=path["launches"], serving=path["serving"],
-               recall=metrics, floors=floors, profiles=profiles)
+               recall=metrics, floors=floors, **graph_summary(path))
     return out, failed, changed
 
 

@@ -38,6 +38,8 @@ The data-parallel building blocks split rows over devices: the encode
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 from collections.abc import Mapping
 from typing import NamedTuple, Optional
 
@@ -51,6 +53,7 @@ from pqt_tpu_torch.models.query import (QueryResult, _top_ids, query_core,
                                         query_core_exact, query_core_pair)
 from pqt_tpu_torch.models.query_big import query_big_core
 from pqt_tpu_torch.ops import binning
+from pqt_tpu_torch.utils import graphs
 from pqt_tpu_torch.utils.device import resolve_device
 
 MODES = ("line", "exact", "big")
@@ -257,6 +260,15 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(out)
 
 
+def _cell_groups(cell_devs) -> dict:
+    """{device: its cells}, devices in the order of their first cell: one
+    graph each in the graphed step."""
+    groups = {}
+    for c, d in enumerate(cell_devs):
+        groups.setdefault(d, []).append(c)
+    return groups
+
+
 def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
                           mode: str = "line", n_intermediate: int = 256,
                           batch_split: int = 1, group=None):
@@ -273,6 +285,23 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
     cfg), "exact" (every gathered candidate ranked by its true distance
     from the shard's raw vectors in CSR order; needs sdb.vectors) or "big"
     (the BIG two-stage enumeration with line re-rank, n_intermediate).
+
+    On CUDA queries the step is served as CUDA graphs (utils/graphs.py),
+    the counterpart of the JAX package's jax.jit over shard_map: the first
+    call of a key runs the eager body and captures one graph for each
+    distinct device of this process's cells, holding the cores of the
+    cells there, and one for the merge on the first cell's device (with
+    `group`, the all_gather and all_reduce inside it); later calls copy
+    the queries in, replay and return fresh tensors.  The key is the
+    step's fixed values with the queries' shape, dtype and device (of each
+    replica) and every tensor of `tree` and `sdb` by address (a mapping by
+    its items); the cache lives in the step, as the JAX package's
+    `mapped_cache`.  The host checks (exact without vectors, the grid, the
+    batch split) and, with `group`, the refusal of a poisoned runtime run
+    on every call, before any replay.  `step.__wrapped__` is the eager
+    body, `step.graphs` the entries by key (clearing it frees their pools;
+    clear it before destroying `group`) and `step.graph_key(tree, sdb,
+    queries)` a call's key.  CPU queries run the eager body.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -286,8 +315,14 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
         raise ValueError(f"hash_size {cfg.hash_size} does not divide into "
                          f"{n_shards} shards")
     span = cfg.hash_size // n_shards
+    fixed = ("sharded", cfg, mode, k, n_intermediate, J, tuple(devices),
+             group)
 
-    def query_fn(tree, sdb: ShardedDatabase, queries) -> QueryResult:
+    def check(tree, sdb: ShardedDatabase, queries):
+        """The host checks: (this process's shards, its cells' devices)."""
+        if group is not None and not graphs._group_alive(group):
+            raise RuntimeError("the sharded step's process group has been "
+                               "destroyed")
         if mode == "exact" and sdb.vectors is None:
             raise ValueError("mode='exact' needs a ShardedDatabase built "
                              "from a db with keep_vectors=True")
@@ -304,34 +339,39 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
         B = _replica(queries, cell_devs[0], "queries").shape[0]
         if B % J:
             raise ValueError(f"batch {B} does not divide into {J} slices")
-        bs = B // J
+        return shards, cell_devs
+
+    def serve_cells(dev, tree, sdb, queries, shards, cells):
+        """The cores of `cells`, all on `dev`: [(ids, dists, n_cand)]."""
+        bs = queries.shape[0] // J
         lists = []
-        for c, d in enumerate(cell_devs):   # launch every cell, wait for none
-            s, j = shards[c // J], c % J
-            with _on(d):
-                q = _replica(queries, d, "queries")[j * bs:(j + 1) * bs]
-                ids, dists, nc = _serve_cell(
-                    cfg, mode, k, n_intermediate,
-                    _replica(tree, d, "tree"), sdb, c, q, s * span)
-            lists.append((ids, dists, nc))
-        merge_dev = cell_devs[0]
+        with _on(dev):
+            for c in cells:
+                s, j = shards[c // J], c % J
+                lists.append(_serve_cell(
+                    cfg, mode, k, n_intermediate, tree, sdb, c,
+                    queries[j * bs:(j + 1) * bs], s * span))
+        return lists
+
+    def merge(merge_dev, n_local, lists) -> QueryResult:
+        """The cells' lists (cell order) merged on `merge_dev`."""
         with _on(merge_dev):
             local = torch.stack([
                 torch.stack([ids, dists.contiguous().view(torch.int32)])
                 .to(merge_dev, non_blocking=True)
                 for ids, dists, _ in lists])          # (L*J, 2, bs, k')
-            kk = local.shape[-1]
-            local = local.view(len(shards), J, 2, bs, kk)
-            n_local = torch.stack([nc.to(merge_dev, non_blocking=True)
-                                   for _, _, nc in lists]).view(
-                len(shards), J, bs).sum(0)
+            bs, kk = local.shape[-2:]
+            local = local.view(n_local, J, 2, bs, kk)
+            n_cand = torch.stack([nc.to(merge_dev, non_blocking=True)
+                                  for _, _, nc in lists]).view(
+                n_local, J, bs).sum(0)
             if group is not None:
                 import torch.distributed as dist
                 from pqt_tpu_torch.parallel import distributed
                 distributed.refuse_if_poisoned("the sharded query's "
                                                "all_gather")
                 local = _all_gather(local, group)     # (S, J, 2, bs, k')
-                dist.all_reduce(n_local, group=group)
+                dist.all_reduce(n_cand, group=group)
             out_ids, out_d = [], []
             for j in range(J):
                 flat_ids = local[:, j, 0].permute(1, 0, 2).reshape(
@@ -343,9 +383,65 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
                 out_d.append(dists)
             return QueryResult(indices=torch.cat(out_ids),
                                dists=torch.cat(out_d),
-                               n_candidates=n_local.reshape(B))
+                               n_candidates=n_cand.reshape(J * bs))
 
-    return query_fn
+    def in_cell_order(groups: dict, per_device) -> list:
+        lists = [None] * sum(len(cells) for cells in groups.values())
+        for cells, got in zip(groups.values(), per_device):
+            for c, x in zip(cells, got):
+                lists[c] = x
+        return lists
+
+    def run(tree, sdb, queries, shards, cell_devs) -> QueryResult:
+        groups = _cell_groups(cell_devs)
+        per_device = [            # launch on every device, wait for none
+            serve_cells(d, _replica(tree, d, "tree"), sdb,
+                        _replica(queries, d, "queries"), shards, cells)
+            for d, cells in groups.items()]
+        return merge(cell_devs[0], len(shards),
+                     in_cell_order(groups, per_device))
+
+    def stages(tree, sdb, shards, cell_devs) -> list:
+        """One stage a device of the cells, then the merge."""
+        groups = _cell_groups(cell_devs)
+        return [graphs.Stage(d, serve_cells, lambda q, _, d=d, cells=cells: (
+                    d, _replica(tree, d, "tree"), sdb, q[d], shards, cells))
+                for d, cells in groups.items()] + [
+            graphs.Stage(cell_devs[0], merge, lambda q, outs: (
+                cell_devs[0], len(shards), in_cell_order(groups, outs)))]
+
+    def key_of(tree, sdb, queries, cell_devs) -> tuple:
+        replicas = ((d, _replica(queries, d, "queries"))
+                    for d in _cell_groups(cell_devs))
+        return (fixed, ("queries",) + tuple(
+                    (d, tuple(q.shape), q.dtype) for d, q in replicas),
+                graphs._leaves(tree), graphs._leaves(sdb))
+
+    def query_fn(tree, sdb: ShardedDatabase, queries) -> QueryResult:
+        return run(tree, sdb, queries, *check(tree, sdb, queries))
+
+    cache, lock = {}, threading.Lock()
+
+    @functools.wraps(query_fn)
+    def step(tree, sdb: ShardedDatabase, queries) -> QueryResult:
+        shards, cell_devs = check(tree, sdb, queries)
+        if not graphs._on_card(_replica(queries, cell_devs[0], "queries")) \
+                or torch.cuda.is_current_stream_capturing():
+            return run(tree, sdb, queries, shards, cell_devs)
+        if group is not None:
+            from pqt_tpu_torch.parallel import distributed
+            distributed.refuse_if_poisoned("the sharded query's all_gather")
+        return graphs.replay_or_capture(
+            cache, lock, key_of(tree, sdb, queries, cell_devs),
+            {d: _replica(queries, d, "queries")
+             for d in _cell_groups(cell_devs)},
+            lambda: run(tree, sdb, queries, shards, cell_devs),
+            lambda: stages(tree, sdb, shards, cell_devs), group)
+
+    step.graphs = cache
+    step.graph_key = lambda tree, sdb, queries: key_of(
+        tree, sdb, queries, check(tree, sdb, queries)[1])
+    return step
 
 
 # ---------------------------------------------------------------------------

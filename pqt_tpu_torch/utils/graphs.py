@@ -48,15 +48,32 @@ seconds, bytes held, replays); clearing it frees them.
 Kernel launch counters (`<wrapper>.launches` and the counts by mode): the
 capture adds nothing to them, and each replay adds what the capture
 recorded, so the counts stay the launches that ran on the card.
+
+An entry is a list of stages, each one graph on one device
+(`CapturedQuery`).  An entry point is one stage.  The sharded query step
+(parallel/sharded.py, the counterpart of jax.jit over shard_map) is one
+stage a distinct device of its grid, serving the cells there, and a last
+stage, the merge, on the first cell's device, which reads the other
+stages' outputs.  A replay replays the stages in order, each on its
+device's current stream; where the merge lies on another device than a
+stage, the merge's stream waits on an event recorded after that stage,
+and the stage, before its next replay, on an event recorded after the
+merge, so no host sync is made.  The merge is captured with every other
+device's current stream set to a capture stream of its own, so the copies
+of the lists onto the merge's device join the capture as peer copies.
+An entry whose merge runs collectives of a process group records the
+group, and a replay raises once that group is destroyed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import threading
 import time
-from typing import Callable, Sequence
+from collections.abc import Mapping
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -105,8 +122,12 @@ def _leaves(x):
     if isinstance(x, torch.Tensor):
         return ("tensor", x.data_ptr(), tuple(x.shape), x.stride(), x.dtype,
                 x.device)
-    if x is None or isinstance(x, (bool, int, float, str)):
+    if x is None or isinstance(x, (bool, int, float, str, torch.device)):
         return x
+    if isinstance(x, Mapping):      # e.g. {device: replica}: by its items
+        return ("mapping",) + tuple(sorted(
+            ((_leaves(k), _leaves(v)) for k, v in x.items()),
+            key=lambda item: repr(item[0])))
     if isinstance(x, torch.nn.Module):
         return (type(x).__name__,) + tuple(
             (name, _leaves(t)) for name, t in
@@ -132,6 +153,13 @@ def _on_card(queries) -> bool:
     return isinstance(queries, torch.Tensor) and queries.device.type == "cuda"
 
 
+@functools.cache
+def _capture_stream(device: torch.device):
+    """The side stream captures on `device` run on (torch.cuda.graph's own
+    default is one stream, on the device that first captured)."""
+    return torch.cuda.Stream(device)
+
+
 def _record(fn: Callable, args: tuple, device: torch.device):
     """Capture fn(*args) on `device` into a CUDA graph with a private pool:
     (graph, outputs, device bytes the pool reserved)."""
@@ -140,38 +168,145 @@ def _record(fn: Callable, args: tuple, device: torch.device):
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.device(device), torch.cuda.graph(
-            graph, capture_error_mode=CAPTURE_ERROR_MODE):
+            graph, stream=_capture_stream(device),
+            capture_error_mode=CAPTURE_ERROR_MODE):
         out = fn(*args)
     return graph, out, torch.cuda.memory_reserved(device) - reserved
 
 
-class CapturedQuery:
-    """One key's graph, with the buffer its queries are read from, its
-    outputs, and the kernel launches one replay makes."""
+def _joinable(devices) -> contextlib.ExitStack:
+    """Each device's current stream set to its capture stream, so work that
+    a capture hands to it (a peer copy) joins the capture: the legacy
+    default stream cannot."""
+    stack = contextlib.ExitStack()
+    for d in devices:
+        stack.enter_context(torch.cuda.stream(_capture_stream(d)))
+    return stack
 
-    def __init__(self, fn: Callable, args: tuple, queries_at: int):
-        queries = args[queries_at]
-        self.queries = torch.empty_like(
-            queries, memory_format=torch.contiguous_format).copy_(queries)
-        args = args[:queries_at] + (self.queries,) + args[queries_at + 1:]
+
+def _stream(device: torch.device):
+    return torch.cuda.current_stream(device)
+
+
+def _event():
+    return torch.cuda.Event()
+
+
+def _group_alive(group) -> bool:
+    """Whether a torch.distributed process group still exists."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return False
+    try:
+        dist.get_rank(group)
+    except ValueError:              # destroyed, or from an earlier world
+        return False
+    return True
+
+
+def _buffer(queries):
+    """A contiguous copy of the queries, or of each replica of a mapping."""
+    if isinstance(queries, Mapping):
+        return {d: _buffer(q) for d, q in queries.items()}
+    return torch.empty_like(
+        queries, memory_format=torch.contiguous_format).copy_(queries)
+
+
+def _copy_in(buffer, queries) -> None:
+    if isinstance(buffer, dict):
+        for d, b in buffer.items():
+            b.copy_(queries[d])
+    else:
+        buffer.copy_(queries)
+
+
+class Stage(NamedTuple):
+    """One graph of an entry: fn(*args(query buffer, earlier stages'
+    outputs)) captured on `device`."""
+    device: torch.device
+    fn: Callable
+    args: Callable
+
+
+class CapturedQuery:
+    """One key's graphs, one a stage, with the buffer its queries are read
+    from (a tensor, or one a device), the last stage's outputs, and the
+    kernel launches one replay makes, summed over the stages.  Every stage
+    but the last reads only the queries; the last reads the others'
+    outputs (the module docstring).  `group`: the process group whose
+    collectives the stages captured, or None."""
+
+    def __init__(self, stages: Sequence[Stage], queries, group=None):
+        self.queries = _buffer(queries)
+        self.group = group
+        last = stages[-1].device
+        others = {st.device for st in stages[:-1]} - {last}
         before = _counts()
         t0 = time.perf_counter()
+        outs, self.stages, pool_bytes = [], [], 0
         try:
-            self.graph, self.outputs, pool_bytes = _record(
-                fn, args, queries.device)
+            for st in stages:
+                with _joinable(others if st is stages[-1] else ()):
+                    graph, out, nbytes = _record(
+                        st.fn, st.args(self.queries, outs), st.device)
+                outs.append(out)
+                self.stages.append((st.device, graph))
+                pool_bytes += nbytes
         finally:
             self.launches = _difference(_counts(), before)
             _restore(before)
         self.capture_s = time.perf_counter() - t0
-        self.bytes = pool_bytes + self.queries.nbytes
+        self.outputs = outs[-1]
+        self.held = outs[:-1]           # read by the last stage's graph
+        buffers = self.queries.values() if isinstance(self.queries, dict) \
+            else [self.queries]
+        self.bytes = pool_bytes + sum(b.nbytes for b in buffers)
         self.replays = 0
+        # cross-device order: one event a device the last stage waits on,
+        # and one after the last stage that those devices wait on
+        self.ready = {d: _event() for d, _ in self.stages[:-1] if d != last}
+        self.done = _event() if self.ready else None
 
-    def replay(self, queries: torch.Tensor):
-        self.queries.copy_(queries)
-        self.graph.replay()
+    @property
+    def graph(self):
+        """The last stage's graph (an entry point's only one)."""
+        return self.stages[-1][1]
+
+    def replay(self, queries):
+        if self.group is not None and not _group_alive(self.group):
+            raise RuntimeError("this graph runs collectives of a process "
+                               "group that has been destroyed; clear the "
+                               "graphs before destroying their group")
+        _copy_in(self.queries, queries)
+        *firsts, (last, graph) = self.stages
+        for d, g in firsts:
+            if d in self.ready:
+                _stream(d).wait_event(self.done)
+            g.replay()
+            if d in self.ready:
+                self.ready[d].record(_stream(d))
+        for ev in self.ready.values():
+            _stream(last).wait_event(ev)
+        graph.replay()
+        if self.done is not None:
+            self.done.record(_stream(last))
         _add(self.launches)
         self.replays += 1
         return _clone(self.outputs)
+
+
+def replay_or_capture(graphs: dict, lock: threading.Lock, key, queries,
+                      eager: Callable, stages: Callable, group=None):
+    """A call on the card: replay the entry of `key`, or run `eager()`,
+    capture `stages()` under `key` and return the eager result."""
+    entry = graphs.get(key)
+    if entry is not None:
+        return entry.replay(queries)
+    with lock:
+        out = eager()
+        if key not in graphs:
+            graphs[key] = CapturedQuery(stages(), queries, group)
+    return out
 
 
 def graphed(static_argnums: Sequence[int]):
@@ -213,15 +348,10 @@ def graphed(static_argnums: Sequence[int]):
             if not _on_card(queries) or \
                     torch.cuda.is_current_stream_capturing():
                 return fn(*args)
-            key = key_of(args)
-            entry = graphs.get(key)
-            if entry is not None:
-                return entry.replay(queries)
-            with lock:
-                out = fn(*args)
-                if key not in graphs:
-                    graphs[key] = CapturedQuery(fn, args, queries_at)
-            return out
+            return replay_or_capture(
+                graphs, lock, key_of(args), queries, lambda: fn(*args),
+                lambda: [Stage(queries.device, fn, lambda q, _: args[
+                    :queries_at] + (q,) + args[queries_at + 1:])])
 
         wrapper.graphs = graphs
         wrapper.graph_key = lambda *a, **kw: key_of(positional(a, kw))
