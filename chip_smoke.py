@@ -51,7 +51,12 @@ Phases (any failure exits non-zero before the last line is printed):
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
      and serve 1024 held-out queries in batches of 256 through exact, line
-     and refine query_knn and query_candidates;
+     and refine query_knn and query_candidates; the train and the build
+     run again through their eager bodies and must equal the replayed
+     ones to the bit (trees, every database leaf, pair_occ included), and
+     a train at the configuration's own kmeans_iters (30) on the 200k rows
+     runs replayed and eager, and replayed again with each block of Lloyd
+     steps between two reads of `done` (LLOYD_BLOCKS), every tree equal;
   5. the parts path on the same tree and database: the parts pipeline with
      the pair filter through the same four entry points, then exact, line
      and query_candidates again with slab gathers (32 rows a slab);
@@ -85,17 +90,24 @@ Phases (any failure exits non-zero before the last line is printed):
      batch in 2 slices over a (4, 2) grid of the card, equal to the bit;
      the data-parallel encode of the 1M vectors over 4 entries of the
      card, equal to the build's payload and counts to the bit; one
-     data-parallel k-means step, within 1e-4 of the one-device step; and
+     data-parallel k-means step, within 1e-4 of the one-device step; both
+     replayed (first call and again) and eager, equal to the bit; and
      the multi-process chain in a world of one NCCL rank (4 chunk files,
      merge_chunk_files_range, build_local_shards, place_host_sharded_db,
      peer_barrier, the exact query through the group, its all_gather and
      all_reduce captured in the merge's graph), equal to the in-process
-     result to the bit; the sharded steps' graphs are dropped before the
+     result to the bit, with the data-parallel k-means step through the
+     group (its all_reduces in the merge's graph) equal to the step
+     without one; the sharded steps' graphs are dropped before the
      group is destroyed;
   9. SIFT1B_CONFIG at full width over 10M vectors (a cut of SIFT1B's 10^9
      forced by the run time; the fixture scales its clusters with n as
      benchmarks/rehearsal_50m.py does): train on 200k, encode 2M-vector
-     chunk files, merge them on the host into a spilled CSR database,
+     chunk files (the train and every chunk file again through the eager
+     bodies, equal to the bit; encode_s split into its stages -- upload,
+     device encode, the copies back, np.savez -- with rows a second and a
+     65536-row chunk's p50, replayed and eager, one chunk of each
+     profiled), merge them on the host into a spilled CSR database,
      save it with raw sidecars (adopting the spill files), load it onto
      the card, and serve 1024 queries in batches of 64 through exact and
      refine over vectors_csr, line, query_candidates, BIG line and BIG
@@ -109,6 +121,12 @@ Phases (any failure exits non-zero before the last line is printed):
      recall, with the range merge's seconds and the host peak RSS;
  10. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}.
+
+The train and build side runs through its compiled programs
+(models/db.py `chunk_encoder` and `chunk_codes`, models/kmeans.py's Lloyd
+step and k-means++ pick, the data-parallel k-means step), one CUDA graph
+a key; each key's capture seconds and pool are printed, and the graphs
+are freed before the next serving.
 
 Every path of 4-9 serves through the public entry points, which on the
 card replay one CUDA graph a static key (pqt_tpu_torch/utils/graphs.py;
@@ -1900,7 +1918,9 @@ def serve_path(torch, label, modes, qd, required, need=(), batch=BATCH,
     just after it.  With `eager` (the same modes through the entry points'
     eager bodies), serve those too by the same protocol, and hold the
     replays to them (`graph_checks`; `partner` is another path's replay to
-    alternate with)."""
+    alternate with).  The train and build graphs captured before are freed
+    first: serving needs none of their pools."""
+    clear_build_graphs()
     before = {id(e) for e in graph_entries()}
     reset_launches(torch)
     out, lat = serve(torch, modes, qd, batch)
@@ -1985,6 +2005,192 @@ def clear_graphs():
     for name in GRAPHED:
         getattr(P, name).graphs.clear()
     print(f"graph cache cleared: {held:.1f} MiB freed", flush=True)
+    clear_build_graphs()
+
+
+# ---------------------------------------------------------------------------
+# the train and build side's compiled programs: the chunk encoder, the
+# data-parallel encode and k-means step, the Lloyd steps and the k-means++
+# picks, each replayed from its CUDA graphs and held to its eager body
+# (graphs.eager()) to the bit
+# ---------------------------------------------------------------------------
+
+# the data-parallel k-means steps made so far: each keeps its graphs
+DP_STEPS = []
+TREE_LEAVES = ("cb1", "cb2", "centroids_full", "pair_dists")
+DB_LEAVES = ("prefix", "counts", "payload", "pair_occ", "vectors", "prefix2")
+# the Lloyd steps replayed between two reads of `done`, swept on the
+# configuration's own 30-iteration train (models/kmeans.py LLOYD_BLOCK)
+LLOYD_BLOCKS = (1, 2, 4, 8)
+ENCODE_CHUNK = 65536            # the builds' default encode chunk
+CHUNK_REPS = 20
+
+
+def build_caches():
+    """{program: its graph cache} of the train and build side."""
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.models import kmeans as KM
+    return {"chunk_encoder": DB.chunk_encoder.graphs,
+            "chunk_codes": DB.chunk_codes.graphs,
+            "lloyd_step": KM._lloyd_converge.graphs,
+            "kmeanspp_pick": KM._kmeanspp_init.graphs,
+            **{f"dp_kmeans_step{i}": step.graphs
+               for i, step in enumerate(DP_STEPS)}}
+
+
+def key_shapes(key):
+    """The shapes a train or build graph's key holds."""
+    if key[0] in ("lloyd", "pick"):
+        return f"data {list(key[1])}, centres {list(key[2])}"
+    named = [f"{p[0]} {list(p[1])}" for p in key if isinstance(p, tuple)
+             and len(p) == 4 and p[0] in ("chunk", "id_offset")]
+    return ", ".join(named) or f"rows over {len(key[0][1])} entries"
+
+
+def build_graphs_report(label):
+    """Each train and build graph key captured so far, printed with its
+    capture seconds, pool MiB and replays."""
+    rows = [{"program": name, "key": key_shapes(key),
+             "capture_s": e.capture_s, "mib": e.bytes / 2 ** 20,
+             "replays": e.replays}
+            for name, cache in build_caches().items()
+            for key, e in cache.items()]
+    for r in rows:
+        print(f"  graph of {label}: {r['program']} ({r['key']}): capture "
+              f"{r['capture_s']:.4f} s, {r['mib']:.1f} MiB, {r['replays']} "
+              "replays", flush=True)
+    return rows
+
+
+def clear_build_graphs():
+    """Drop the train and build side's graphs (and their pools)."""
+    held = sum(e.bytes for c in build_caches().values()
+               for e in c.values()) / 2 ** 20
+    for cache in build_caches().values():
+        cache.clear()
+    DP_STEPS.clear()
+    if held:
+        print(f"train and build graphs cleared: {held:.1f} MiB freed",
+              flush=True)
+
+
+def same_leaves(torch, a, b, fields):
+    """Whether two trees or databases hold equal tensors in `fields`."""
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return x.dtype == y.dtype and torch.equal(x, y)
+    return all(same(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def same_npz(a, b):
+    """Whether two chunk files hold the same arrays, to the bit."""
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x.files)
+
+
+def timed(torch, fn):
+    """(fn(), its seconds to a synchronisation of the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def trained(torch, P, cfg, rows):
+    """(tree, seconds, Lloyd steps run)."""
+    from pqt_tpu_torch.models import kmeans as KM
+    before = KM.lloyd_steps["run"]
+    tree, seconds = timed(torch, lambda: P.train_tree(cfg, rows,
+                                                      device="cuda"))
+    return tree, seconds, KM.lloyd_steps["run"] - before
+
+
+def p50_ms(torch, fn, x, reps=CHUNK_REPS):
+    """The median of `reps` calls of fn(x), each to a synchronisation."""
+    fn(x)
+    times = []
+    for _ in range(reps):
+        times.append(timed(torch, lambda: fn(x))[1] * 1e3)
+    return float(np.median(times))
+
+
+def train_build_phase(torch, P, cfg, data, tree, db, times):
+    """Phase 4's train and build again through their eager bodies, held to
+    the replayed ones to the bit (the same tree builds both databases);
+    then the configuration's own kmeans_iters (30) on all N_TRAIN rows:
+    replayed (its first call capturing), eager, and replayed with each
+    LLOYD_BLOCK of LLOYD_BLOCKS, every tree equal to the bit.  Prints the
+    times and Lloyd steps beside the card's name and power limit, and
+    each graph key's capture seconds and pool."""
+    from pqt_tpu_torch.models import kmeans as KM
+    from pqt_tpu_torch.utils import graphs as G
+    card = card_line()
+    out = dict(times, graphs=build_graphs_report("phase 4's train and build"))
+    bcfg = cfg.replace(pair_filter=True)
+    with G.eager():
+        etree, out["train_eager_s"], out["train_eager_steps"] = trained(
+            torch, P, cfg, data[:N_TRAIN])
+        edb, out["build_eager_s"] = timed(torch, lambda: P.build_database(
+            bcfg, tree, data, keep_vectors=True, device="cuda"))
+    tree_eq = same_leaves(torch, tree, etree, TREE_LEAVES)
+    db_eq = same_leaves(torch, db, edb, DB_LEAVES)
+    del edb, etree
+    print(f"phase 4 train (kmeans_iters {cfg.kmeans_iters}, "
+          f"{cfg.train_subsample} of {N_TRAIN} rows): replayed "
+          f"{out['train_s']:.4f} s ({out['train_steps']} Lloyd steps), "
+          f"eager {out['train_eager_s']:.4f} s ({out['train_eager_steps']} "
+          f"steps); build of {N_DB} rows: replayed {out['build_s']:.4f} s, "
+          f"eager {out['build_eager_s']:.4f} s; the trees "
+          f"{'equal' if tree_eq else 'DIFFER'}, the databases (every leaf, "
+          f"pair_occ included) {'equal' if db_eq else 'DIFFER'} to the bit "
+          f"[{card}]", flush=True)
+    if not (tree_eq and db_eq):
+        raise SmokeFailure("phase 4: a replayed train or build differs from "
+                           "its eager body's")
+    clear_build_graphs()
+
+    own = cfg.replace(kmeans_iters=P.SIFT1M_CONFIG.kmeans_iters,
+                      train_subsample=P.SIFT1M_CONFIG.train_subsample)
+    rows = data[:N_TRAIN]
+    t30 = {"kmeans_iters": own.kmeans_iters, "rows": N_TRAIN,
+           "default_block": KM.LLOYD_BLOCK}
+    first, t30["first_s"], t30["first_steps"] = trained(torch, P, own, rows)
+    with G.eager():
+        want, t30["eager_s"], t30["eager_steps"] = trained(torch, P, own,
+                                                           rows)
+    equal = same_leaves(torch, first, want, TREE_LEAVES)
+    t30["blocks"] = {}
+    try:
+        for m in LLOYD_BLOCKS:
+            KM.LLOYD_BLOCK = m
+            got, seconds, steps = trained(torch, P, own, rows)
+            same = same_leaves(torch, got, want, TREE_LEAVES)
+            equal = equal and same
+            t30["blocks"][m] = {"s": seconds, "steps": steps,
+                                "wasted": steps - t30["eager_steps"],
+                                "equal": same}
+    finally:
+        KM.LLOYD_BLOCK = t30["default_block"]
+    sweep = "; ".join(f"block {m}: {b['s']:.4f} s, {b['steps']} steps "
+                      f"({b['wasted']} past the eager loop's)"
+                      for m, b in t30["blocks"].items())
+    print(f"train at the configuration's own kmeans_iters "
+          f"{own.kmeans_iters} on {N_TRAIN} rows: eager {t30['eager_s']:.4f}"
+          f" s ({t30['eager_steps']} Lloyd steps); replayed, first call with "
+          f"its captures {t30['first_s']:.4f} s ({t30['first_steps']} "
+          f"steps); {sweep}; every tree {'equal' if equal else 'NOT equal'} "
+          f"to the eager tree to the bit [{card}]", flush=True)
+    t30["graphs"] = build_graphs_report("the 30-iteration train")
+    clear_build_graphs()
+    if not equal:
+        raise SmokeFailure("the 30-iteration train: a replayed tree differs "
+                           "from the eager one")
+    out["own_iters"] = t30
+    return out
 
 
 def same_output(torch, a, b):
@@ -2003,8 +2209,11 @@ def trace_counts(torch, fn, x, attempts=4):
     launch counters over the same call; the hand-written kernels by
     name), from the kernel records of the session's chrome trace.  The
     call follows TRACE_PAD throwaway kernels in the session (see there).
-    A session that records no kernel is repeated, after a throwaway one, up
-    to `attempts` times."""
+    A session loses a prefix of its kernel records (one pad record in
+    most sessions; in one run of PR 14 all the pads and the call's first
+    kernels): one whose records hold none of the pads may have lost the
+    call's, and is repeated, after a throwaway one, up to `attempts`
+    times."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn(x)
@@ -2020,11 +2229,13 @@ def trace_counts(torch, fn, x, attempts=4):
             with open(os.path.join(d, "trace.json")) as f:
                 names = [e["name"] for e in json.load(f)["traceEvents"]
                          if e.get("cat") == "kernel"]
-        if names:
+        if any(PAD_KERNEL in name for name in names):
             break
+        print(f"a profiler session kept none of its {TRACE_PAD} pad records "
+              f"({len(names)} kernel records): repeated", flush=True)
         _profiled_us(torch, lambda: torch.ones(8, device="cuda") + 1, 1)
     else:
-        raise SmokeFailure("no profiler session recorded a kernel")
+        raise SmokeFailure("every profiler session lost its pad records")
     counted, by_name = dict.fromkeys(TRACE_KERNELS, 0), {}
     for name in names:
         if re.search(MERGE_EXTRA, name):
@@ -2140,11 +2351,14 @@ def query_paths(torch, P):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # phase 4: the pair path, train and build included
+    from pqt_tpu_torch.models import kmeans as KM
     reset_launches(torch)
+    steps = KM.lloyd_steps["run"]
     t0 = time.perf_counter()
     tree = P.train_tree(cfg, data[:N_TRAIN], device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    train_steps = KM.lloyd_steps["run"] - steps
     t0 = time.perf_counter()
     # the build with the pair filter on also makes pair_occ; every other
     # array equals the build without it
@@ -2163,6 +2377,9 @@ def query_paths(torch, P):
                     eager=query_modes(P, c, tree, d, names, eager=True))
 
     built = launch_counts()            # the train's and the build's
+    train_build = train_build_phase(
+        torch, P, cfg, data, tree, db,
+        dict(train_s=train_s, build_s=build_s, train_steps=train_steps))
     paths = {"pair": serve_path(
         torch, "pair path", qd=qd, required=PAIR_KERNELS + EXACT_KERNELS,
         cfg=cfg, db=db, reference=(ROUND5, "round 5"),
@@ -2205,7 +2422,8 @@ def query_paths(torch, P):
 
     gt = brute_force_phase(torch, data, qd)
     failed, changed = [], []
-    summary = {"train_s": train_s, "build_s": build_s, "paths": {}}
+    summary = {"train_s": train_s, "build_s": build_s, "paths": {},
+               "train_build": train_build}
     for label, path in paths.items():
         c = path["cfg"]
         metrics = path_recall(torch, label, path["outputs"], gt)
@@ -2338,21 +2556,16 @@ def sift1b_database(torch, P, workdir):
     times["fixture_s"] = time.perf_counter() - t0
 
     reset_launches(torch)
-    t0 = time.perf_counter()
-    tree = P.train_tree(cfg, data[:N_1B_TRAIN], device="cuda")
-    torch.cuda.synchronize()
-    times["train_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    paths = []
-    for i, s in enumerate(range(0, N_1B, N_1B_CHUNK)):
-        paths.append(os.path.join(workdir, f"chunk{i}.npz"))
-        P.encode_chunk_to_file(cfg, tree, data[s:s + N_1B_CHUNK].cpu().numpy(),
-                               s, paths[-1], keep_vectors=True,
-                               device="cuda")
-    times["encode_s"] = time.perf_counter() - t0
+    tree, times["train_s"], times["train_steps"] = trained(
+        torch, P, cfg, data[:N_1B_TRAIN])
+    paths = [os.path.join(workdir, f"chunk{i}.npz")
+             for i in range(-(-N_1B // N_1B_CHUNK))]
+    times["encode_s"], spans = encode_files(P, cfg, tree, data, paths)
     # the encode's per-part norms (kernel D); k1_build = c1 asks for no top-k
     build_launches = read_launches("SIFT1B train and encode",
                                    ("segmented_reduce",))
+    build = sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir,
+                                times, spans)
     t0 = time.perf_counter()
     host_db = P.merge_chunk_files(cfg, tree, paths, keep_vectors=True,
                                   spill_path=os.path.join(workdir, "spill"),
@@ -2381,7 +2594,116 @@ def sift1b_database(torch, P, workdir):
           f"{rss[1]:.2f})", flush=True)
     return {"cfg": cfg, "tree": tree, "db": db, "data": data, "qd": qd,
             "paths": paths, "times": times, "build_launches": build_launches,
-            "nonempty": nonempty, "largest": largest}
+            "nonempty": nonempty, "largest": largest, "build": build}
+
+
+def encode_file(P, cfg, tree, data, s, path):
+    """The SIFT1B fixture's (on the card) N_1B_CHUNK rows from row s
+    brought to the host and encoded into the chunk file `path`: (seconds,
+    the encode's stages in seconds, models/db.py encode_spans, with the
+    copy to the host as "fixture_download")."""
+    from pqt_tpu_torch.models import db as DB
+    DB.encode_spans = spans = {}
+    try:
+        t0 = time.perf_counter()
+        rows = data[s:s + N_1B_CHUNK].cpu().numpy()
+        spans["fixture_download"] = time.perf_counter() - t0
+        P.encode_chunk_to_file(cfg, tree, rows, s, path, keep_vectors=True,
+                               device="cuda")
+        return time.perf_counter() - t0, spans
+    finally:
+        DB.encode_spans = None
+
+
+def add_spans(total, spans):
+    for k, v in spans.items():
+        total[k] = total.get(k, 0.0) + v
+
+
+def encode_files(P, cfg, tree, data, paths):
+    """encode_file over the whole fixture: (seconds, stages)."""
+    seconds, spans = 0.0, {}
+    for path, s in zip(paths, range(0, N_1B, N_1B_CHUNK)):
+        t, got = encode_file(P, cfg, tree, data, s, path)
+        seconds += t
+        add_spans(spans, got)
+    return seconds, spans
+
+
+def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
+                        spans):
+    """The SIFT1B train and encode again through their eager bodies: the
+    tree and every chunk file (bins, payload rows, raw vectors, pair_occ)
+    equal to the replayed ones to the bit; one 65536-row chunk's p50,
+    replayed and eager, each with one profiled chunk; rows a second, the
+    host share of encode_s and the Lloyd steps, printed beside the card's
+    name and power limit; the graphs' keys, then freed."""
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.utils import graphs as G
+    card = card_line()
+    out = {"graphs": build_graphs_report("the SIFT1B train and encode"),
+           "replayed": {"train_s": times["train_s"],
+                        "train_steps": times["train_steps"],
+                        "encode_s": times["encode_s"], "spans": spans}}
+    x = data[:ENCODE_CHUNK]
+    # the chunk files' occupancy map: the files' graph serves the chunk
+    occ = DB._file_pair_occ((cfg.p // 2, cfg.part_radix ** 2), x.device)
+    offset = DB._offset(0, x.device)
+    out["chunk"] = {}
+    for name, fn in (("replayed", DB.chunk_encoder),
+                     ("eager", DB.chunk_encoder.__wrapped__)):
+        def call(xb, fn=fn):
+            return fn(cfg, tree, xb, offset, occ)
+        out["chunk"][name] = {"p50_ms": p50_ms(torch, call, x),
+                              "profile": profile_batch(torch, call, x)}
+    with G.eager():
+        etree, train_s, steps = trained(torch, P, cfg, data[:N_1B_TRAIN])
+        tree_eq = same_leaves(torch, tree, etree, TREE_LEAVES)
+        del etree
+        eager_path = os.path.join(workdir, "eager_chunk.npz")
+        files_eq, encode_s, espans = True, 0.0, {}
+        for path, s in zip(paths, range(0, N_1B, N_1B_CHUNK)):
+            seconds, got = encode_file(P, cfg, tree, data, s, eager_path)
+            encode_s += seconds
+            add_spans(espans, got)
+            files_eq = files_eq and same_npz(path, eager_path)
+            os.remove(eager_path)
+    out["eager"] = {"train_s": train_s, "train_steps": steps,
+                    "encode_s": encode_s, "spans": espans}
+    for side in ("replayed", "eager"):
+        o = out[side]
+        host = sum(v for k, v in o["spans"].items() if k != "encode")
+        o["rows_per_s"] = N_1B / o["encode_s"]
+        o["host_s"] = host
+        o["host_share"] = host / o["encode_s"]
+    r, e, c = out["replayed"], out["eager"], out["chunk"]
+    idle = {k: (v["profile"].get("device_busy_ms"),
+                v["profile"].get("idle_share")) for k, v in c.items()}
+    print(f"sift1b train (kmeans_iters {cfg.kmeans_iters}): replayed "
+          f"{r['train_s']:.4f} s ({r['train_steps']} Lloyd steps), eager "
+          f"{e['train_s']:.4f} s ({e['train_steps']} steps); encode_s of "
+          f"{N_1B} rows: replayed {r['encode_s']:.3f} s ({r['rows_per_s']:.0f}"
+          f" rows/s, host share {r['host_share']:.3f}: "
+          f"{json.dumps({k: round(v, 4) for k, v in r['spans'].items()})}), "
+          f"eager {e['encode_s']:.3f} s ({e['rows_per_s']:.0f} rows/s, host "
+          f"share {e['host_share']:.3f}: "
+          f"{json.dumps({k: round(v, 4) for k, v in e['spans'].items()})}); "
+          f"a {ENCODE_CHUNK}-row chunk p50 replayed "
+          f"{c['replayed']['p50_ms']:.3f} ms, eager {c['eager']['p50_ms']:.3f}"
+          f" ms (device busy ms, idle share of one profiled chunk: replayed "
+          f"{idle['replayed']}, eager {idle['eager']}); the trees "
+          f"{'equal' if tree_eq else 'DIFFER'} and the {len(paths)} chunk "
+          f"files {'equal' if files_eq else 'DIFFER'} to the bit [{card}]",
+          flush=True)
+    for k, v in c.items():
+        print(f"profile sift1b chunk encode {k}: " + json.dumps(v["profile"]),
+              flush=True)
+    clear_build_graphs()
+    if not (tree_eq and files_eq):
+        raise SmokeFailure("sift1b: a replayed train or chunk file differs "
+                           "from its eager body's")
+    out.update(trees_equal=tree_eq, files_equal=files_eq)
+    return out
 
 
 def sift1b_phase(torch, P, workdir):
@@ -2396,7 +2718,7 @@ def sift1b_phase(torch, P, workdir):
     cfg, tree, db, data, qd, paths, times = (
         built[k] for k in ("cfg", "tree", "db", "data", "qd", "paths",
                            "times"))
-    build_launches = built["build_launches"]
+    build_launches, build = built["build_launches"], built["build"]
     nonempty, largest = built["nonempty"], built["largest"]
     del built              # the database is freed before the sharded chain
 
@@ -2464,6 +2786,7 @@ def sift1b_phase(torch, P, workdir):
             "peak_device_gib": peak, "loaded_device_gib": loaded_gib,
             "serving_peak_device_gib": serve_peak, "host_rss_gib": rss[0],
             "host_peak_rss_gib": rss[1], "build_launches": build_launches,
+            "build": build,
             "launches": path["launches"], "serving": path["serving"],
             "recall": metrics, "floors": floors, "sharded": sharded,
             **graph_summary(path)}
@@ -2898,6 +3221,96 @@ def aligned_bounds(n, parts, step=65536):
     return list(range(0, n, per)) + [n]
 
 
+def dp_programs(torch, S, cfg, tree, db, grid, out):
+    """Phase 8's data-parallel programs on the pair path's database: the
+    encode over the grid's entries of the card, against the build's
+    payload and counts; one k-means step (256 centroids), within 1e-4 of
+    the one-device step; each replayed (the first call capturing, a second
+    all replays) and eager, equal to the bit.  Adds its numbers to `out`;
+    returns the failures."""
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.utils import graphs as G
+    failed = []
+    encode = S.make_dp_encode_fn(cfg, grid)
+    reset_launches(torch)
+    (bins, codes, t3), out["dp_encode_s"] = timed(
+        torch, lambda: encode(tree, db.vectors))
+    out["dp_encode_launches"] = read_launches("data-parallel encode",
+                                              ("segmented_reduce",))
+    again, out["dp_encode_replayed_s"] = timed(
+        torch, lambda: encode(tree, db.vectors))
+    with G.eager():
+        eager_enc, out["dp_encode_eager_s"] = timed(
+            torch, lambda: encode(tree, db.vectors))
+    dp_same = all(same_output(torch, a, b) for a, b in zip(
+        (bins, codes, t3), eager_enc)) and all(
+        same_output(torch, a, b) for a, b in zip(again, eager_enc))
+    del again, eager_enc
+    ids = torch.arange(N_DB, dtype=torch.int32, device="cuda")
+    packed = DB.pack_payload_device(cfg, ids, codes, t3)[
+        torch.sort(bins, stable=True).indices]
+    enc_equal = torch.equal(packed, db.payload) and torch.equal(
+        torch.bincount(bins, minlength=cfg.hash_size).to(torch.int32),
+        db.counts)
+    del bins, codes, t3, packed, ids
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cents = db.vectors[torch.randint(0, N_DB, (256,), generator=gen,
+                                     device="cuda")].to(torch.float32)
+    step = S.make_dp_kmeans_step(grid)
+    DP_STEPS.append(step)
+    got, out["dp_kmeans_s"] = timed(torch, lambda: step(db.vectors, cents))
+    replayed, out["dp_kmeans_replayed_s"] = timed(
+        torch, lambda: step(db.vectors, cents))
+    with G.eager():
+        eager_km, out["dp_kmeans_eager_s"] = timed(
+            torch, lambda: step(db.vectors, cents))
+    dp_same = dp_same and same_output(torch, got, eager_km) and \
+        same_output(torch, replayed, eager_km)
+    want = S.make_dp_kmeans_step(["cuda"]).__wrapped__(db.vectors, cents)
+    out["dp_kmeans_max_abs_err"] = float((got - want).abs().max())
+    km_ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    out["dp_graphs"] = build_graphs_report("the data-parallel programs")
+    del got, want, replayed, eager_km
+    verdict = "equal" if dp_same else "DIFFER from"
+    print(f"sharded: data-parallel encode of {N_DB} rows over "
+          f"{len(grid)} entries of the card {out['dp_encode_s']:.3f} s "
+          f"(first call, capturing), {out['dp_encode_replayed_s']:.3f} s "
+          f"replayed, {out['dp_encode_eager_s']:.3f} s eager, "
+          f"{'equal' if enc_equal else 'NOT equal'} to the build's payload "
+          f"and counts to the bit; one data-parallel k-means step (256 "
+          f"centroids) {out['dp_kmeans_s']:.4f} s (first call), "
+          f"{out['dp_kmeans_replayed_s']:.4f} s replayed, "
+          f"{out['dp_kmeans_eager_s']:.4f} s eager, max abs difference "
+          f"{out['dp_kmeans_max_abs_err']:.3g} from the one-device step "
+          f"({'within' if km_ok else 'NOT within'} rtol = atol = 1e-4); "
+          f"the replayed encode and step {verdict} the eager bodies' to the "
+          f"bit [{card_line()}]", flush=True)
+    if not enc_equal:
+        failed.append("dp_encode: differs from the build's encode")
+    if not km_ok:
+        failed.append("dp_kmeans: differs from the one-device step")
+    if not dp_same:
+        failed.append("dp programs: a replayed result differs from the "
+                      "eager body's")
+    out.update(dp_encode_equal=enc_equal, dp_replays_equal=dp_same)
+    return failed
+
+
+def dp_kmeans_through(torch, S, grid, vectors, group):
+    """The data-parallel k-means step through `group` (its all_reduces in
+    the merge's graph), served three times: whether every result equals
+    the step without a group to the bit, from one graph of that group
+    replayed twice."""
+    km = S.make_dp_kmeans_step(grid, group=group)
+    DP_STEPS.append(km)
+    cents = vectors[:256].to(torch.float32)
+    want = S.make_dp_kmeans_step(grid).__wrapped__(vectors, cents)
+    got = [km(vectors, cents) for _ in range(3)]
+    (entry,) = km.graphs.values()
+    return entry.group is group and entry.replays == 2 and all(
+        same_output(torch, g, want) for g in got)
+
+
 def sharded_phase(torch, P, fx, single, workdir):
     """Phase 8 on the SIFT1M fixture: the pair path's database in N_SHARDS
     hash-range shards on the card (shard_database over its leaves brought
@@ -2953,45 +3366,7 @@ def sharded_phase(torch, P, fx, single, workdir):
     if not split_equal:
         failed.append("sharded: the batch split changes the results")
 
-    # the data-parallel encode over 4 entries of the card, against the
-    # build's payload and counts; one data-parallel k-means step
-    reset_launches(torch)
-    t0 = time.perf_counter()
-    bins, codes, t3 = S.make_dp_encode_fn(cfg, grid)(tree, db.vectors)
-    torch.cuda.synchronize()
-    out["dp_encode_s"] = time.perf_counter() - t0
-    out["dp_encode_launches"] = read_launches("data-parallel encode",
-                                              ("segmented_reduce",))
-    ids = torch.arange(N_DB, dtype=torch.int32, device="cuda")
-    packed = DB.pack_payload_device(cfg, ids, codes, t3)[
-        torch.sort(bins, stable=True).indices]
-    enc_equal = torch.equal(packed, db.payload) and torch.equal(
-        torch.bincount(bins, minlength=cfg.hash_size).to(torch.int32),
-        db.counts)
-    del bins, codes, t3, packed, ids
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cents = db.vectors[torch.randint(0, N_DB, (256,), generator=gen,
-                                     device="cuda")].to(torch.float32)
-    t0 = time.perf_counter()
-    got = S.make_dp_kmeans_step(grid)(db.vectors, cents)
-    torch.cuda.synchronize()
-    out["dp_kmeans_s"] = time.perf_counter() - t0
-    want = S.make_dp_kmeans_step(["cuda"])(db.vectors, cents)
-    out["dp_kmeans_max_abs_err"] = float((got - want).abs().max())
-    km_ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
-    del got, want, cents
-    print(f"sharded: data-parallel encode of {N_DB} rows over "
-          f"{len(grid)} entries of the card {out['dp_encode_s']:.2f} s, "
-          f"{'equal' if enc_equal else 'NOT equal'} to the build's payload "
-          f"and counts to the bit; one data-parallel k-means step (256 "
-          f"centroids) {out['dp_kmeans_s']:.3f} s, max abs difference "
-          f"{out['dp_kmeans_max_abs_err']:.3g} from the one-device step "
-          f"({'within' if km_ok else 'NOT within'} rtol = atol = 1e-4)",
-          flush=True)
-    if not enc_equal:
-        failed.append("dp_encode: differs from the build's encode")
-    if not km_ok:
-        failed.append("dp_kmeans: differs from the one-device step")
+    failed += dp_programs(torch, S, cfg, tree, db, grid, out)
 
     # the multi-process chain, in a world of one NCCL rank
     bcfg = cfg.replace(pair_filter=True)      # as the database was built
@@ -3032,9 +3407,20 @@ def sharded_phase(torch, P, fx, single, workdir):
             SHARDED_EXACT_KERNELS, eager=eager, partner=fx["partner"])
         nccl_graphs = [e.group is dist.group.WORLD for e in graph_entries()
                        if e.group is not None]
+        km_group_equal = dp_kmeans_through(torch, S, grid, db.vectors,
+                                           dist.group.WORLD)
     finally:
         clear_sharded_graphs()
+        clear_build_graphs()
         dist.destroy_process_group()
+    verdict = "equal" if km_group_equal else "NOT equal"
+    print(f"sharded: the data-parallel k-means step through the "
+          f"{out['backend']} group, its all_reduces captured in the merge's "
+          f"graph, replayed twice: {verdict} to the step without a group to "
+          "the bit", flush=True)
+    if not km_group_equal:
+        failed.append("dp_kmeans through the group: differs from the step "
+                      "without one")
     if nccl_graphs != [True]:
         failed.append(f"sharded_nccl: {len(nccl_graphs)} graphs hold the "
                       "group's collectives, not 1")
@@ -3070,7 +3456,8 @@ def sharded_phase(torch, P, fx, single, workdir):
                                "serving": path["serving"], "recall": metrics,
                                "floors": floors, **graph_summary(path)}
     out.update(split_equal=split_equal, nccl_equal=nccl_equal,
-               nccl_leaves_equal=leaves_equal, dp_encode_equal=enc_equal)
+               nccl_leaves_equal=leaves_equal,
+               dp_kmeans_group_equal=km_group_equal)
     return out, failed, changed
 
 

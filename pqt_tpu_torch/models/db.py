@@ -24,11 +24,28 @@ against per-bin cursors (io/native.py), so ids stay ascending inside every
 bin and the merged payload equals `build_database`'s for the same bins.  A
 spilled build keeps the raw vectors in CSR order (`vectors_csr`), which the
 queries read by CSR position.
+
+Every build encodes through `chunk_encoder`, the counterpart of the JAX
+package's jitted `_encode_chunk` with `_pair_occ_device` (and, nested in
+it, `encode_part_codes`, `encode_bins`, `encode_line_codes` and
+`pack_payload_device`): on the card one CUDA graph a key
+(utils/graphs.py), the key being cfg, the chunk's shape and dtype, the
+tree's tensors and the occupancy map by address, and never the id offset,
+which is copied in as a 0-d int32 tensor.  A build of n rows in chunks of
+C captures at most two graphs, C rows and the last, shorter chunk, and
+replays the rest.  `chunk_codes` is the data-parallel encode's program
+(parallel/sharded.py) over the same core.  `_assemble_device` stays eager
+by design: a build calls it once, so its graph would be captured and never
+replayed, and its pool would hold the sorted payload (n x 72 B at SIFT1B
+width) for nothing.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
+import time
 import warnings
 from typing import NamedTuple, Optional
 
@@ -41,6 +58,7 @@ from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
 from pqt_tpu_torch.ops import binning, linecodes
 from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk
 from pqt_tpu_torch.utils.device import resolve_device
+from pqt_tpu_torch.utils.graphs import graphed
 
 
 class ChunkFormatError(RuntimeError):
@@ -207,14 +225,23 @@ def encode_line_codes(cfg: PQTConfig, tree: PQTree, x: torch.Tensor):
                                       lambda_bits=cfg.effective_lambda_bits)
 
 
-def _encode_chunk(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor,
-                  id_offset: int):
-    """Encode one chunk: (bins (C,) int32, part codes (C, p), payload rows
-    (C, payload_width))."""
+def _encode_core(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor):
+    """One chunk's rows, cast to float32 on their device, encoded: (part
+    codes (C, p) int64, bins (C,) int32, wide line codes (C, lp), t3 (C,)
+    float32)."""
     chunk = chunk.to(torch.float32)
     pc = encode_part_codes(cfg, tree, chunk)
     bins = binning.hashed_bin_ids(pc, cfg.part_radix, cfg.hash_size)
     codes, t3 = encode_line_codes(cfg, tree, chunk)
+    return pc, bins, codes, t3
+
+
+def _encode_chunk(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor,
+                  id_offset):
+    """Encode one chunk: (bins (C,) int32, part codes (C, p), payload rows
+    (C, payload_width)); id_offset an int or a 0-d int32 tensor on the
+    chunk's device."""
+    pc, bins, codes, t3 = _encode_core(cfg, tree, chunk)
     ids = id_offset + torch.arange(chunk.shape[0], dtype=torch.int32,
                                    device=chunk.device)
     return bins, pc, pack_payload_device(cfg, ids, codes, t3)
@@ -236,8 +263,64 @@ def _pair_occ_device(cfg: PQTConfig, part_codes: torch.Tensor,
     (in place)."""
     r = cfg.part_radix
     for j in range(cfg.p // 2):
-        pair_occ[j, part_codes[:, 2 * j] * r + part_codes[:, 2 * j + 1]] = 1
+        pair_occ[j].index_fill_(
+            0, part_codes[:, 2 * j] * r + part_codes[:, 2 * j + 1], 1)
     return pair_occ
+
+
+@graphed(static_argnums=(0,), inputs=("chunk", "id_offset"))
+def chunk_encoder(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor,
+                  id_offset: torch.Tensor,
+                  pair_occ: Optional[torch.Tensor] = None):
+    """`_encode_chunk`, then, with pair_occ, the chunk's code pairs marked
+    in it (in place): one program, a CUDA graph a key on the card (the
+    module docstring).  id_offset: 0-d int32 tensor on the chunk's device
+    (`_offset`)."""
+    bins, pc, rows = _encode_chunk(cfg, tree, chunk, id_offset)
+    if pair_occ is not None:
+        _pair_occ_device(cfg, pc, pair_occ)
+    return bins, pc, rows
+
+
+@graphed(static_argnums=(0,), inputs=("chunk",))
+def chunk_codes(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor):
+    """(bins (C,) int32, wide line codes (C, lp), t3 (C,) float32) of one
+    chunk: the data-parallel encode's program, a CUDA graph a key on the
+    card as `chunk_encoder`."""
+    _, bins, codes, t3 = _encode_core(cfg, tree, chunk)
+    return bins, codes, t3
+
+
+def _offset(id_offset: int, dev: torch.device) -> torch.Tensor:
+    """A chunk's id offset as the 0-d int32 tensor `chunk_encoder` copies
+    in (a fill on the device, no host copy)."""
+    return torch.full((), id_offset, dtype=torch.int32, device=dev)
+
+
+# Seconds of the host encode's stages (`_encode_host` and the chunk files),
+# summed over calls while a caller holds a dict here: "upload", "encode"
+# (to the end of the chunk's device work), "download" (the `.cpu()`
+# copies) and "save" (np.savez).  Each stage ends with a device
+# synchronisation.  None: nothing is timed and no synchronisation added.
+encode_spans: Optional[dict] = None
+
+
+class _Spans:
+    """Adds the seconds since the last mark to encode_spans[name]; a no-op
+    while encode_spans is None."""
+
+    def __init__(self, dev: torch.device):
+        self.spans, self.dev = encode_spans, dev
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.spans is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.spans[name] = self.spans.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 def build_database(cfg: PQTConfig, tree: PQTree, data,
@@ -268,9 +351,8 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
     for s in range(0, n, encode_chunk):
         chunk = (vectors[s:s + encode_chunk] if vectors is not None else
                  torch.as_tensor(data[s:s + encode_chunk], device=dev))
-        bins_c, pc_c, packed_c = _encode_chunk(cfg, tree, chunk, s)
-        if pair_occ is not None:
-            _pair_occ_device(cfg, pc_c, pair_occ)
+        bins_c, _, packed_c = chunk_encoder(cfg, tree, chunk, _offset(s, dev),
+                                            pair_occ)
         bins_l.append(bins_c)
         packed_l.append(packed_c)
     prefix, counts, prefix2, payload = _assemble_device(
@@ -367,14 +449,17 @@ def _encode_host(cfg: PQTConfig, tree: PQTree, data: np.ndarray,
     n = data.shape[0]
     bins = np.empty((n,), np.int32)
     packed = np.empty((n, payload_width(cfg)), np.int32)
+    spans = _Spans(dev)
     for s in range(0, n, encode_chunk):
         chunk = torch.as_tensor(data[s:s + encode_chunk], device=dev)
-        bins_c, pc_c, packed_c = _encode_chunk(cfg, tree, chunk,
-                                               id_offset + s)
-        if pair_occ is not None:
-            _pair_occ_device(cfg, pc_c, pair_occ)
+        spans.mark("upload")
+        bins_c, _, packed_c = chunk_encoder(cfg, tree, chunk,
+                                            _offset(id_offset + s, dev),
+                                            pair_occ)
+        spans.mark("encode")
         bins[s:s + encode_chunk] = bins_c.cpu().numpy()
         packed[s:s + encode_chunk] = packed_c.cpu().numpy()
+        spans.mark("download")
     return bins, packed
 
 
@@ -437,7 +522,9 @@ class ChunkedDBBuilder:
             arrays = dict(bins=bins, packed=packed)
             if self.keep_vectors:
                 arrays["vecs"] = data
+            spans = _Spans(self.device)
             np.savez(path, **arrays)
+            spans.mark("save")
             self._chunks.append(path)
         else:
             self._chunks.append((bins, packed))
@@ -508,6 +595,18 @@ def _streaming_merge(cfg: PQTConfig, chunks, hist: np.ndarray, n: int,
                          to_device_, dev)
 
 
+_FILE_OCC_LOCK = threading.Lock()
+
+
+@functools.cache
+def _file_pair_occ(shape: tuple, dev: torch.device) -> torch.Tensor:
+    """The occupancy map `encode_chunk_to_file` marks on `dev` (zeroed for
+    each file, one file at a time): one tensor for the life of the
+    process, so the encoder's graphs, which hold its address, serve every
+    chunk file."""
+    return torch.zeros(shape, dtype=torch.uint8, device=dev)
+
+
 def encode_chunk_to_file(cfg: PQTConfig, tree: PQTree, data, id_offset: int,
                          path: str, encode_chunk: int = 65536,
                          keep_vectors: bool = False, device="cuda") -> int:
@@ -517,17 +616,20 @@ def encode_chunk_to_file(cfg: PQTConfig, tree: PQTree, data, id_offset: int,
     JAX package's chunk format.  Returns the row count."""
     _check_tree_device(tree, device)
     data = _host_rows(data)
-    pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
-                            dtype=torch.uint8, device=tree.cb1.device)
-                if cfg.pair_filter_enabled else None)
-    bins, packed = _encode_host(cfg, tree, data, id_offset, encode_chunk,
-                                pair_occ)
-    arrays = dict(bins=bins, packed=packed)
-    if keep_vectors:
-        arrays["vecs"] = data
-    if pair_occ is not None:
-        arrays["pair_occ"] = pair_occ.cpu().numpy()
+    with _FILE_OCC_LOCK:
+        pair_occ = (_file_pair_occ((cfg.p // 2, cfg.part_radix ** 2),
+                                   tree.cb1.device).zero_()
+                    if cfg.pair_filter_enabled else None)
+        bins, packed = _encode_host(cfg, tree, data, id_offset, encode_chunk,
+                                    pair_occ)
+        arrays = dict(bins=bins, packed=packed)
+        if keep_vectors:
+            arrays["vecs"] = data
+        if pair_occ is not None:
+            arrays["pair_occ"] = pair_occ.cpu().numpy()
+    spans = _Spans(tree.cb1.device)
     np.savez(path, **arrays)
+    spans.mark("save")
     return data.shape[0]
 
 

@@ -4,8 +4,22 @@ Port of pqt_tpu/models/kmeans.py.  The JAX package vmaps one masked k-means
 over the (part, cell) problems of a tree level; here the batch is written
 out: data is (P, n, d) -- one population per part -- and masks (P, C, n)
 select C sub-populations of each, so a whole level is one batched program.
-`lax.while_loop` becomes a Python loop that stops once every problem has
+`lax.while_loop` becomes a loop that stops once every problem has
 converged; a converged problem's state is frozen, as under vmap.
+
+On a card the loops run as CUDA graphs (utils/graphs.py, the loop form):
+one Lloyd step with the freeze (`_lloyd_step`) captured once a key (the
+shapes -- so one a centroid count of the LBG ladder -- and the
+tolerances), replayed LLOYD_BLOCK times between two reads of `done`, the
+one host synchronisation a block where the eager loop makes one a step.
+A finished problem is frozen, so the steps a block runs past the last
+problem's convergence change nothing: the result equals the eager loop's
+to the bit.  The k-means++ picks after the first are one graph a shape
+(`_pick_step`: draw, write the centre at a device index, update the
+distances) replayed k - 1 times, the generator registered with the
+capture; its draws are the eager `torch.multinomial` draws.  CUDA's
+conditional WHILE node would remove the read a block too, but this torch
+exposes no capture into a conditional body.
 
 E and M steps are matrix products (distances by the norm identity, M-step
 as one-hot^T @ x), chunked over n to bound memory.  Random draws come from
@@ -15,9 +29,25 @@ bits.
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Optional
 
 import torch
+
+from pqt_tpu_torch.utils import graphs
+
+# Lloyd steps replayed between two reads of `done` on the card: at the
+# 30-iteration SIFT1M train (chip_smoke.py's block sweep, PERF.md) blocks
+# of 1, 2 and 4 took the same time within 2.3% and 2 was the fastest in
+# both runs, 8 ran 4 steps more and 9% longer.
+LLOYD_BLOCK = 2
+# {"run": Lloyd steps run, "replayed": those of them replayed from a
+# graph}, summed over calls (the eager loop stops at the step after which
+# every problem has converged; a replayed loop may run up to LLOYD_BLOCK - 1
+# frozen steps past it).
+lloyd_steps = {"run": 0, "replayed": 0}
+_LOCK = threading.Lock()
 
 
 def _sqdist_to(data, centers):
@@ -54,6 +84,21 @@ def _e_m_step(data, fmask, centroids, prev_assign, chunk):
     return new, assign, churn
 
 
+def _lloyd_step(centroids, assign, done, data, fmask, n_active, *,
+                churn_tol, move_tol, chunk):
+    """One Lloyd iteration of every problem not yet done, the others
+    frozen: the new (centroids, assign, done)."""
+    new, new_assign, churn = _e_m_step(data, fmask, centroids, assign, chunk)
+    move = torch.mean(torch.sum((new - centroids) ** 2, dim=-1), dim=-1)
+    scale = torch.mean(torch.sum(new ** 2, dim=-1), dim=-1) + 1e-12
+    now_done = ((churn / n_active < churn_tol)
+                | (move / scale < move_tol * move_tol))
+    active = ~done
+    centroids = torch.where(active[..., None, None], new, centroids)
+    assign = torch.where(active[..., None], new_assign, assign)
+    return centroids, assign, done | now_done
+
+
 def _lloyd_converge(data, mask, centroids, *, iters, churn_tol, move_tol,
                     chunk):
     """Lloyd iterations until every problem converges or `iters` runs out.
@@ -61,7 +106,9 @@ def _lloyd_converge(data, mask, centroids, *, iters, churn_tol, move_tol,
     data (P, n, d); mask (P, C, n) bool; centroids (P, C, k, d).  A problem
     stops when under churn_tol of its population changes assignment, or
     its centroids move less than move_tol relative to their scale.
-    Returns (centroids, assignments (P, C, n) int64).
+    Returns (centroids, assignments (P, C, n) int64).  On a card the steps
+    are replays of one graph a key, `done` read once a LLOYD_BLOCK of them
+    (the module docstring); `_lloyd_converge.graphs` holds the entries.
     """
     P, n, _ = data.shape
     C = centroids.shape[1]
@@ -69,20 +116,35 @@ def _lloyd_converge(data, mask, centroids, *, iters, churn_tol, move_tol,
     n_active = torch.clamp_min(torch.sum(fmask, dim=-1), 1.0)
     assign = torch.full((P, C, n), -1, dtype=torch.int64, device=data.device)
     done = torch.zeros((P, C), dtype=torch.bool, device=data.device)
-    for _ in range(iters):
-        if bool(done.all()):
-            break
-        new, new_assign, churn = _e_m_step(data, fmask, centroids, assign,
-                                           chunk)
-        move = torch.mean(torch.sum((new - centroids) ** 2, dim=-1), dim=-1)
-        scale = torch.mean(torch.sum(new ** 2, dim=-1), dim=-1) + 1e-12
-        now_done = ((churn / n_active < churn_tol)
-                    | (move / scale < move_tol * move_tol))
-        active = ~done
-        centroids = torch.where(active[..., None, None], new, centroids)
-        assign = torch.where(active[..., None], new_assign, assign)
-        done = done | now_done
+    step = functools.partial(_lloyd_step, churn_tol=churn_tol,
+                             move_tol=move_tol, chunk=chunk)
+    consts = (data, fmask, n_active)
+    if not graphs._served(data):
+        for _ in range(iters):
+            if bool(done.all()):
+                break
+            centroids, assign, done = step(centroids, assign, done, *consts)
+            lloyd_steps["run"] += 1
+        return centroids, assign
+    key = ("lloyd", tuple(data.shape), tuple(centroids.shape), data.device,
+           churn_tol, move_tol, chunk)
+    with _LOCK:
+        made = 0
+        if iters > 0 and done.numel():
+            entry, made = graphs.loop_or_capture(
+                _lloyd_converge.graphs, key, step,
+                (centroids, assign, done) + consts, 3, data.device)
+            while made < iters and not bool(entry.state[2].all()):
+                steps = min(LLOYD_BLOCK, iters - made)
+                entry.replay(steps)
+                made += steps
+                lloyd_steps["replayed"] += steps
+            centroids, assign = (x.clone() for x in entry.state[:2])
+        lloyd_steps["run"] += made
     return centroids, assign
+
+
+_lloyd_converge.graphs = {}
 
 
 def _cluster_variances(data, mask, centroids, assign, chunk):
@@ -106,33 +168,75 @@ def _cluster_variances(data, mask, centroids, assign, chunk):
     return torch.clamp_min(sq, 0.0) / torch.clamp_min(c, 1.0)
 
 
+def _pick(data, fmask, dmin, gen):
+    """One k-means++ draw a problem, an index proportional to the masked
+    dmin (uniform over the mask when all are 0, uniform over all for an
+    empty population): its row (P, C, d)."""
+    P, n, _ = data.shape
+    C = fmask.shape[1]
+    w = dmin * fmask
+    w = torch.where(torch.sum(w, -1, keepdim=True) > 0, w, fmask)
+    w = torch.where(torch.sum(w, -1, keepdim=True) > 0, w, 1.0)
+    idx = torch.multinomial(w.reshape(P * C, n), 1, generator=gen)
+    rows = torch.arange(P, device=data.device)[:, None]
+    return data[rows, idx.reshape(P, C)]
+
+
+def _pick_step(centers, dmin, at, data, fmask, *, gen):
+    """Pick the next centre, write it at index `at` (a 0-d int64 tensor)
+    of centers (P, C, k, d) and update dmin: the new (centers, dmin,
+    at + 1)."""
+    c = _pick(data, fmask, dmin, gen)
+    centers = centers.index_copy(2, at.view(1), c[:, :, None, :])
+    dmin = torch.minimum(dmin, _sqdist_to(data, c[:, :, None, :])[..., 0])
+    return centers, dmin, at + 1
+
+
 def _kmeanspp_init(data, mask, k, gen):
     """k-means++ (D^2 sampling) seeds of every masked population:
-    data (P, n, d), mask (P, C, n) -> (P, C, k, d)."""
+    data (P, n, d), mask (P, C, n) -> (P, C, k, d).  On a card the k - 1
+    picks after the first replay one graph a shape
+    (`_kmeanspp_init.graphs`), drawing from a generator of the graphs'
+    own that takes `gen`'s state before the replays and gives it back
+    after, so `gen` moves on as the eager picks move it."""
     P, n, d = data.shape
     C = mask.shape[1]
     fmask = mask.to(torch.float32)
-    rows = torch.arange(P, device=data.device)[:, None]
-
-    def pick(dmin):
-        # draw an index proportional to the masked dmin; uniform over the
-        # mask when all are 0, uniform over all for an empty population
-        w = dmin * fmask
-        w = torch.where(torch.sum(w, -1, keepdim=True) > 0, w, fmask)
-        w = torch.where(torch.sum(w, -1, keepdim=True) > 0, w, 1.0)
-        idx = torch.multinomial(w.reshape(P * C, n), 1, generator=gen)
-        return data[rows, idx.reshape(P, C)]                  # (P, C, d)
-
     mean0 = (torch.einsum("pcn,pnd->pcd", fmask, data)
              / torch.clamp_min(torch.sum(fmask, -1), 1.0)[..., None])
-    first = pick(_sqdist_to(data, mean0[:, :, None, :])[..., 0])
-    centers = [first]
+    first = _pick(data, fmask, _sqdist_to(data, mean0[:, :, None, :])[..., 0],
+                  gen)
     dmin = _sqdist_to(data, first[:, :, None, :])[..., 0]     # (P, C, n)
-    for _ in range(1, k):
-        c = pick(dmin)
-        centers.append(c)
-        dmin = torch.minimum(dmin, _sqdist_to(data, c[:, :, None, :])[..., 0])
-    return torch.stack(centers, dim=2)
+    centers = torch.zeros((P, C, k, d), dtype=data.dtype, device=data.device)
+    centers[:, :, 0] = first
+    at = torch.ones((), dtype=torch.int64, device=data.device)
+    if k == 1:
+        return centers
+    if not graphs._served(data):
+        for _ in range(1, k):
+            centers, dmin, at = _pick_step(centers, dmin, at, data, fmask,
+                                           gen=gen)
+        return centers
+    own = _graph_generator(data.device)
+    key = ("pick", tuple(data.shape), tuple(centers.shape), data.device)
+    with _LOCK:
+        own.set_state(gen.get_state())
+        entry, made = graphs.loop_or_capture(
+            _kmeanspp_init.graphs, key,
+            functools.partial(_pick_step, gen=own),
+            (centers, dmin, at, data, fmask), 3, data.device, (own,))
+        entry.replay(k - 1 - made)
+        gen.set_state(own.get_state())
+        return entry.state[0].clone()
+
+
+_kmeanspp_init.graphs = {}
+
+
+@functools.cache
+def _graph_generator(device: torch.device) -> torch.Generator:
+    """The generator the pick graphs on `device` are captured with."""
+    return torch.Generator(device=device)
 
 
 def kmeans_batched(data: torch.Tensor, masks: torch.Tensor, k: int, *,

@@ -44,7 +44,8 @@ import torch
 
 from pqt_tpu_torch.config import PQTConfig
 from pqt_tpu_torch.models.db import (PQTDatabase, _assemble_device,
-                                     _check_tree_device, _encode_chunk,
+                                     _check_tree_device, _offset,
+                                     chunk_encoder,
                                      to_device)
 from pqt_tpu_torch.models.query import (QueryResult, _duplicate_stats,
                                         _pad_k, _parts_sequence_on,
@@ -175,7 +176,7 @@ def build_multi_database(cfg: PQTConfig, tree: PQTree, data,
     for s in range(0, n, encode_chunk):
         chunk = (vectors[s:s + encode_chunk] if vectors is not None else
                  torch.as_tensor(data[s:s + encode_chunk], device=dev))
-        _, pc, rows = _encode_chunk(cfg, tree, chunk, s)
+        _, pc, rows = chunk_encoder(cfg, tree, chunk, _offset(s, dev))
         codes_l.append(pc)
         packed_l.append(rows)
     dbs, pair_occ = assemble_multi_database(

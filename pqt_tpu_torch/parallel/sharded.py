@@ -32,7 +32,10 @@ tensor (tree) on the cell's device, or a mapping from device to replica
 caller's back.
 
 The data-parallel building blocks split rows over devices: the encode
-(`make_dp_encode_fn`) and one Lloyd step (`make_dp_kmeans_step`).
+(`make_dp_encode_fn`, each chunk a replay of the graphed `chunk_codes` on
+its device) and one Lloyd step (`make_dp_kmeans_step`, served as the
+sharded step is: one graph a distinct device, then the merge with the
+all-reduces).
 """
 
 from __future__ import annotations
@@ -47,12 +50,10 @@ import numpy as np
 import torch
 
 from pqt_tpu_torch.config import PQTConfig
-from pqt_tpu_torch.models.db import (PQTDatabase, encode_line_codes,
-                                     encode_part_codes, to_device)
+from pqt_tpu_torch.models.db import PQTDatabase, chunk_codes, to_device
 from pqt_tpu_torch.models.query import (QueryResult, _top_ids, query_core,
                                         query_core_exact, query_core_pair)
 from pqt_tpu_torch.models.query_big import query_big_core
-from pqt_tpu_torch.ops import binning
 from pqt_tpu_torch.utils import graphs
 from pqt_tpu_torch.utils.device import resolve_device
 
@@ -269,6 +270,16 @@ def _cell_groups(cell_devs) -> dict:
     return groups
 
 
+def _in_cell_order(groups: dict, per_device) -> list:
+    """The results of each device's cells (per_device, in `groups`' order)
+    laid out by cell."""
+    out = [None] * sum(len(cells) for cells in groups.values())
+    for cells, got in zip(groups.values(), per_device):
+        for c, x in zip(cells, got):
+            out[c] = x
+    return out
+
+
 def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
                           mode: str = "line", n_intermediate: int = 256,
                           batch_split: int = 1, group=None):
@@ -385,13 +396,6 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
                                dists=torch.cat(out_d),
                                n_candidates=n_cand.reshape(J * bs))
 
-    def in_cell_order(groups: dict, per_device) -> list:
-        lists = [None] * sum(len(cells) for cells in groups.values())
-        for cells, got in zip(groups.values(), per_device):
-            for c, x in zip(cells, got):
-                lists[c] = x
-        return lists
-
     def run(tree, sdb, queries, shards, cell_devs) -> QueryResult:
         groups = _cell_groups(cell_devs)
         per_device = [            # launch on every device, wait for none
@@ -399,7 +403,7 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
                         _replica(queries, d, "queries"), shards, cells)
             for d, cells in groups.items()]
         return merge(cell_devs[0], len(shards),
-                     in_cell_order(groups, per_device))
+                     _in_cell_order(groups, per_device))
 
     def stages(tree, sdb, shards, cell_devs) -> list:
         """One stage a device of the cells, then the merge."""
@@ -408,7 +412,7 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
                     d, _replica(tree, d, "tree"), sdb, q[d], shards, cells))
                 for d, cells in groups.items()] + [
             graphs.Stage(cell_devs[0], merge, lambda q, outs: (
-                cell_devs[0], len(shards), in_cell_order(groups, outs)))]
+                cell_devs[0], len(shards), _in_cell_order(groups, outs)))]
 
     def key_of(tree, sdb, queries, cell_devs) -> tuple:
         replicas = ((d, _replica(queries, d, "queries"))
@@ -425,8 +429,7 @@ def make_sharded_query_fn(cfg: PQTConfig, devices, k: int,
     @functools.wraps(query_fn)
     def step(tree, sdb: ShardedDatabase, queries) -> QueryResult:
         shards, cell_devs = check(tree, sdb, queries)
-        if not graphs._on_card(_replica(queries, cell_devs[0], "queries")) \
-                or torch.cuda.is_current_stream_capturing():
+        if not graphs._served(_replica(queries, cell_devs[0], "queries")):
             return run(tree, sdb, queries, shards, cell_devs)
         if group is not None:
             from pqt_tpu_torch.parallel import distributed
@@ -464,11 +467,21 @@ def make_dp_encode_fn(cfg: PQTConfig, devices, encode_chunk: int = 65536):
     The rows go to the devices in contiguous runs of whole encode chunks
     (`encode_chunk` rows, build_database's default), each encoded as
     build_database encodes that chunk, so bins, codes and t3 equal the
-    build's encode to the bit; the tree is copied to each device.  data:
-    (n, dim) host array or tensor; uint8 rows go up raw and are cast on
-    the device.
+    build's encode to the bit.  data: (n, dim) host array or tensor;
+    uint8 rows go up raw and are cast on the device.  Each chunk is one
+    call of `models.db.chunk_codes`, on a card a replay of its graph for
+    the chunk's shape on that device.  The tree is copied to each other
+    device once and kept while the same tree is given, so the copies'
+    addresses, which those graphs read, stay put.
     """
     devices = _devices(devices)
+    replicas = {}       # device: (the tree copied, its copy there)
+
+    def tree_on(tree, d):
+        got = replicas.get(d)
+        if got is None or got[0] is not tree:
+            got = replicas[d] = (tree, _tree_on(tree, d))
+        return got[1]
 
     def encode_fn(tree, data):
         n = data.shape[0]
@@ -477,15 +490,10 @@ def make_dp_encode_fn(cfg: PQTConfig, devices, encode_chunk: int = 65536):
         parts = []
         for i, d in enumerate(devices):      # launch on every device first
             with _on(d):
-                t = _tree_on(tree, d)
+                t = tree_on(tree, d)
                 for s in starts[i * per:(i + 1) * per]:
                     x = torch.as_tensor(data[s:s + encode_chunk]).to(d)
-                    x = x.to(torch.float32)
-                    codes, t3 = encode_line_codes(cfg, t, x)
-                    bins = binning.hashed_bin_ids(
-                        encode_part_codes(cfg, t, x), cfg.part_radix,
-                        cfg.hash_size)
-                    parts.append((bins, codes, t3))
+                    parts.append(chunk_codes(cfg, t, x))
         first = devices[0]
         return tuple(torch.cat([p[i].to(first, non_blocking=True)
                                 for p in parts]) for i in range(3))
@@ -501,37 +509,108 @@ def make_dp_kmeans_step(devices, group=None):
     sums (one-hot^T @ x, as the JAX package) and counts, which are summed
     over the devices and, with `group`, over the processes by an
     all-reduce.  A cluster left empty keeps its centroid.
+
+    On a card the step is served as the sharded query step is (utils/
+    graphs.py): one graph a distinct device, holding the partials of its
+    entries, and one for the merge on the first device (with `group`, the
+    all-reduces inside it).  The centroids are copied in on every call;
+    rows of a `data` tensor that lies on an entry's device are read where
+    they lie (the key holds data's address), other rows (a host array, or
+    rows on another device) are copied to the device first and then into
+    the stage's buffer.  `step.__wrapped__` is the eager body,
+    `step.graphs` the entries by key (clear it before destroying
+    `group`).  On the CPU the step runs its eager body.
     """
     from pqt_tpu_torch.ops.distance import pairwise_sqdist
     devices = _devices(devices)
+    first = devices[0]
 
-    def step(data, centroids):
-        first = devices[0]
-        rows = np.array_split(np.arange(data.shape[0]), len(devices))
-        partial = []
-        for d, r in zip(devices, rows):
-            if not len(r):
-                continue
-            with _on(d):
-                x = torch.as_tensor(data[r[0]:r[-1] + 1]).to(d).to(
-                    torch.float32)
-                c = torch.as_tensor(centroids).to(d).to(torch.float32)
+    def spans(n) -> list:
+        """(device, first row, end) of each entry with rows, in order."""
+        rows = np.array_split(np.arange(n), len(devices))
+        return [(d, int(r[0]), int(r[-1]) + 1)
+                for d, r in zip(devices, rows) if len(r)]
+
+    def lies_on(data, d) -> bool:
+        return isinstance(data, torch.Tensor) and data.device == d
+
+    def partials(dev, centroids, xs) -> list:
+        """(sums, counts) of each row block of xs, on `dev`."""
+        out = []
+        with _on(dev):
+            c = centroids.to(dev).to(torch.float32)
+            for x in xs:
+                x = x.to(dev).to(torch.float32)
                 a = torch.argmin(pairwise_sqdist(x, c), dim=-1)
                 onehot = (a[:, None] == torch.arange(
-                    c.shape[0], device=d)).to(torch.float32)
-                partial.append((onehot.T @ x, onehot.sum(0)))
+                    c.shape[0], device=dev)).to(torch.float32)
+                out.append((onehot.T @ x, onehot.sum(0)))
+        return out
+
+    def merge(parts, centroids):
         with _on(first):
-            sums = sum(p[0].to(first, non_blocking=True) for p in partial)
-            counts = sum(p[1].to(first, non_blocking=True) for p in partial)
+            sums = sum(p[0].to(first, non_blocking=True) for p in parts)
+            counts = sum(p[1].to(first, non_blocking=True) for p in parts)
             if group is not None:
                 import torch.distributed as dist
                 from pqt_tpu_torch.parallel import distributed
                 distributed.refuse_if_poisoned("the k-means all_reduce")
                 dist.all_reduce(sums, group=group)
                 dist.all_reduce(counts, group=group)
-            cents = torch.as_tensor(centroids).to(first).to(torch.float32)
+            cents = centroids.to(first).to(torch.float32)
             return torch.where(counts[:, None] > 0,
                                sums / torch.clamp_min(counts, 1.0)[:, None],
                                cents)
 
+    def kmeans_step(data, centroids):
+        sp = spans(data.shape[0])
+        groups = _cell_groups([d for d, _, _ in sp])
+        centroids = torch.as_tensor(centroids)
+        per_device = [partials(d, centroids, [
+            torch.as_tensor(data[sp[e][1]:sp[e][2]]) for e in es])
+            for d, es in groups.items()]
+        return merge(_in_cell_order(groups, per_device), centroids)
+
+    def inputs(data, centroids, sp, groups) -> dict:
+        """{device: (centroids, the rows copied in)} on each device."""
+        return {d: (torch.as_tensor(centroids).to(d),) + tuple(
+                    torch.as_tensor(data[sp[e][1]:sp[e][2]]).to(d)
+                    for e in es if not lies_on(data, d))
+                for d, es in groups.items()}
+
+    def stages(data, sp, groups) -> list:
+        def rows(d, es, copied):
+            return ([data[sp[e][1]:sp[e][2]] for e in es]
+                    if lies_on(data, d) else list(copied))
+        return [graphs.Stage(d, partials, lambda q, _, d=d, es=es: (
+                    d, q[d][0], rows(d, es, q[d][1:])))
+                for d, es in groups.items()] + [
+            graphs.Stage(first, merge, lambda q, outs: (
+                _in_cell_order(groups, outs), q[first][0]))]
+
+    cache, lock = {}, threading.Lock()
+
+    @functools.wraps(kmeans_step)
+    def step(data, centroids):
+        if not graphs._served(first) or data.shape[0] == 0:
+            return kmeans_step(data, centroids)
+        if group is not None:
+            if not graphs._group_alive(group):
+                raise RuntimeError("the k-means step's process group has "
+                                   "been destroyed")
+            from pqt_tpu_torch.parallel import distributed
+            distributed.refuse_if_poisoned("the k-means all_reduce")
+        sp = spans(data.shape[0])
+        groups = _cell_groups([d for d, _, _ in sp])
+        ins = inputs(data, centroids, sp, groups)
+        key = (("dp_kmeans", tuple(devices), group),
+               graphs._leaves(data) if isinstance(data, torch.Tensor) else
+               ("host", tuple(data.shape), str(data.dtype)),
+               tuple((d, tuple((tuple(x.shape), x.dtype) for x in v))
+                     for d, v in ins.items()))
+        return graphs.replay_or_capture(
+            cache, lock, key, ins, lambda: kmeans_step(data, centroids),
+            lambda: stages(data, sp, groups), group)
+
+    step.graphs = cache
     return step

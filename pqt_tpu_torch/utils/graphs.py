@@ -1,5 +1,5 @@
-"""Compiled query programs: each serving entry point captured once per
-static key as a CUDA graph, then replayed.
+"""Compiled programs: each serving entry point, and the train and build
+side's steps, captured once per static key as a CUDA graph, then replayed.
 
 `graphed(static_argnums=...)` is the port's counterpart of the JAX
 package's `functools.partial(jax.jit, static_argnums=...)` on its query
@@ -63,6 +63,26 @@ device's current stream set to a capture stream of its own, so the copies
 of the lists onto the merge's device join the capture as peer copies.
 An entry whose merge runs collectives of a process group records the
 group, and a replay raises once that group is destroyed.
+
+`graphed(..., inputs=(names))` copies more than one argument into the
+graph: the chunk encoder (models/db.py) takes the chunk's rows and its id
+offset, a 0-d int32 tensor, so one graph serves every chunk of a shape, as
+the JAX package traces `id_offset` as an array.  The key holds each
+input's shape, dtype and device, never its values.
+
+A loop (`CapturedLoop`, `loop_or_capture`) is one step captured with its
+state and constants read from buffers of the entry's own, and the step's
+new state written back into the state buffers inside the graph, so
+replays chain on the card with no copy through the host: the Lloyd
+iterations and the k-means++ picks (models/kmeans.py), the counterparts of
+the JAX package's `lax.while_loop` and `lax.fori_loop`.  Its key is
+shapes and static values only, since every tensor it reads is copied in
+once a run.  A step that draws random numbers captures with its
+generator registered.
+
+`with eager():` makes every graphed program called on that thread run its
+eager body on the card (to hold a replay against the body it was captured
+from); it is a choice of the caller, never a fallback.
 """
 
 from __future__ import annotations
@@ -149,8 +169,34 @@ def _clone(out):
     return out
 
 
-def _on_card(queries) -> bool:
-    return isinstance(queries, torch.Tensor) and queries.device.type == "cuda"
+def _on_card(x) -> bool:
+    """Whether x, a tensor or a device, is on a CUDA device."""
+    if isinstance(x, torch.Tensor):
+        x = x.device
+    return isinstance(x, torch.device) and x.type == "cuda"
+
+
+_mode = threading.local()
+
+
+@contextlib.contextmanager
+def eager():
+    """Within it, every graphed program called on this thread runs its
+    eager body."""
+    before = getattr(_mode, "eager", False)
+    _mode.eager = True
+    try:
+        yield
+    finally:
+        _mode.eager = before
+
+
+def _served(x) -> bool:
+    """Whether a call on x (a tensor or a device) is served by a graph: on
+    a card, not under a capture (a nested call inlines) and not in
+    `eager()`."""
+    return _on_card(x) and not torch.cuda.is_current_stream_capturing() \
+        and not getattr(_mode, "eager", False)
 
 
 @functools.cache
@@ -160,13 +206,17 @@ def _capture_stream(device: torch.device):
     return torch.cuda.Stream(device)
 
 
-def _record(fn: Callable, args: tuple, device: torch.device):
-    """Capture fn(*args) on `device` into a CUDA graph with a private pool:
-    (graph, outputs, device bytes the pool reserved)."""
+def _record(fn: Callable, args: tuple, device: torch.device,
+            generators=()):
+    """Capture fn(*args) on `device` into a CUDA graph with a private pool,
+    `generators` (torch.Generator) registered with it: (graph, outputs,
+    device bytes the pool reserved)."""
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()        # so the pool's growth is what it holds
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     with torch.cuda.device(device), torch.cuda.graph(
             graph, stream=_capture_stream(device),
             capture_error_mode=CAPTURE_ERROR_MODE):
@@ -204,20 +254,35 @@ def _group_alive(group) -> bool:
     return True
 
 
-def _buffer(queries):
-    """A contiguous copy of the queries, or of each replica of a mapping."""
-    if isinstance(queries, Mapping):
-        return {d: _buffer(q) for d, q in queries.items()}
-    return torch.empty_like(
-        queries, memory_format=torch.contiguous_format).copy_(queries)
+def _buffer(x):
+    """A contiguous copy of x on its device: of each tensor of a tuple, and
+    of each entry of a mapping {device: ...}."""
+    if isinstance(x, Mapping):
+        return {d: _buffer(v) for d, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_buffer(v) for v in x)
+    return torch.empty_like(x, memory_format=torch.contiguous_format
+                            ).copy_(x)
 
 
-def _copy_in(buffer, queries) -> None:
+def _copy_in(buffer, x) -> None:
     if isinstance(buffer, dict):
         for d, b in buffer.items():
-            b.copy_(queries[d])
+            _copy_in(b, x[d])
+    elif isinstance(buffer, tuple):
+        for b, v in zip(buffer, x):
+            _copy_in(b, v)
     else:
-        buffer.copy_(queries)
+        buffer.copy_(x)
+
+
+def _flat(buffer) -> list:
+    """The tensors of a buffer."""
+    if isinstance(buffer, dict):
+        return [t for b in buffer.values() for t in _flat(b)]
+    if isinstance(buffer, tuple):
+        return [t for b in buffer for t in _flat(b)]
+    return [buffer]
 
 
 class Stage(NamedTuple):
@@ -258,9 +323,7 @@ class CapturedQuery:
         self.capture_s = time.perf_counter() - t0
         self.outputs = outs[-1]
         self.held = outs[:-1]           # read by the last stage's graph
-        buffers = self.queries.values() if isinstance(self.queries, dict) \
-            else [self.queries]
-        self.bytes = pool_bytes + sum(b.nbytes for b in buffers)
+        self.bytes = pool_bytes + sum(b.nbytes for b in _flat(self.queries))
         self.replays = 0
         # cross-device order: one event a device the last stage waits on,
         # and one after the last stage that those devices wait on
@@ -309,23 +372,25 @@ def replay_or_capture(graphs: dict, lock: threading.Lock, key, queries,
     return out
 
 
-def graphed(static_argnums: Sequence[int]):
-    """Serve the decorated function as a CUDA graph a key on CUDA queries
-    (the module docstring); `static_argnums` as jax.jit's.  The function
-    must take an argument named `queries`: it is the one argument copied
-    into the graph on every call.  The wrapper's `__wrapped__` is the
-    eager body, `graphs` its entries by key and `graph_key(*args,
-    **kwargs)` the key of a call."""
+def graphed(static_argnums: Sequence[int],
+            inputs: Sequence[str] = ("queries",)):
+    """Serve the decorated function as a CUDA graph a key when its first
+    input is on a card (the module docstring); `static_argnums` as
+    jax.jit's.  `inputs` names the arguments copied into the graph on
+    every call: tensors on one device, keyed by shape and dtype.  The
+    wrapper's `__wrapped__` is the eager body, `graphs` its entries by key
+    and `graph_key(*args, **kwargs)` the key of a call."""
     static = frozenset(static_argnums)
 
     def decorate(fn: Callable) -> Callable:
         sig = inspect.signature(fn)
         names = list(sig.parameters)
-        if "queries" not in names:
-            raise TypeError(f"graphed: {fn.__name__} takes no `queries`")
-        queries_at = names.index("queries")
-        if queries_at in static:
-            raise TypeError(f"graphed: {fn.__name__}'s queries are static")
+        for name in inputs:
+            if name not in names:
+                raise TypeError(f"graphed: {fn.__name__} takes no `{name}`")
+        at = tuple(names.index(name) for name in inputs)
+        if static & set(at):
+            raise TypeError(f"graphed: {fn.__name__}'s inputs are static")
         graphs: dict = {}
         lock = threading.Lock()
 
@@ -337,21 +402,31 @@ def graphed(static_argnums: Sequence[int]):
         def key_of(args: tuple) -> tuple:
             return tuple(
                 ("static", a) if i in static else
-                ("queries", tuple(a.shape), a.dtype, a.device)
-                if i == queries_at else _leaves(a)
+                (names[i], tuple(a.shape), a.dtype, a.device)
+                if i in at else _leaves(a)
                 for i, a in enumerate(args))
+
+        def with_inputs(args: tuple, buffers) -> tuple:
+            args = list(args)
+            for i, b in zip(at, buffers if len(at) > 1 else (buffers,)):
+                args[i] = b
+            return tuple(args)
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             args = positional(args, kwargs)
-            queries = args[queries_at]
-            if not _on_card(queries) or \
-                    torch.cuda.is_current_stream_capturing():
+            ins = tuple(args[i] for i in at)
+            if not _served(ins[0]):
                 return fn(*args)
+            dev = ins[0].device
+            for name, x in zip(inputs, ins):
+                if not isinstance(x, torch.Tensor) or x.device != dev:
+                    raise TypeError(f"{fn.__name__}: `{name}` is not a "
+                                    f"tensor on {dev}")
             return replay_or_capture(
-                graphs, lock, key_of(args), queries, lambda: fn(*args),
-                lambda: [Stage(queries.device, fn, lambda q, _: args[
-                    :queries_at] + (q,) + args[queries_at + 1:])])
+                graphs, lock, key_of(args), ins if len(at) > 1 else ins[0],
+                lambda: fn(*args),
+                lambda: [Stage(dev, fn, lambda q, _: with_inputs(args, q))])
 
         wrapper.graphs = graphs
         wrapper.graph_key = lambda *a, **kw: key_of(positional(a, kw))
@@ -359,3 +434,64 @@ def graphed(static_argnums: Sequence[int]):
         return wrapper
 
     return decorate
+
+
+class CapturedLoop:
+    """One step of a loop, fn(*state, *constants) -> new state, captured on
+    `device` with every input read from a buffer of the entry's own and the
+    new state written back into the state buffers inside the graph: after
+    `load`, each replay makes one more step on the card.  `state` is the
+    state buffers; `launches`, `capture_s`, `bytes` and `replays` as
+    CapturedQuery's."""
+
+    def __init__(self, fn: Callable, inputs: tuple, n_state: int,
+                 device: torch.device, generators=()):
+        self.buffers = _buffer(tuple(inputs))
+        self.n_state = n_state
+
+        def step(*buffers):
+            for b, new in zip(buffers[:n_state], fn(*buffers)):
+                b.copy_(new)
+
+        before = _counts()
+        t0 = time.perf_counter()
+        try:
+            self.graph, _, pool_bytes = _record(step, self.buffers, device,
+                                                generators)
+        finally:
+            self.launches = _difference(_counts(), before)
+            _restore(before)
+        self.capture_s = time.perf_counter() - t0
+        self.bytes = pool_bytes + sum(b.nbytes for b in self.buffers)
+        self.replays = 0
+
+    @property
+    def state(self) -> tuple:
+        return self.buffers[:self.n_state]
+
+    def load(self, inputs) -> None:
+        _copy_in(self.buffers, tuple(inputs))
+
+    def replay(self, steps: int = 1) -> None:
+        for _ in range(steps):
+            self.graph.replay()
+            _add(self.launches)
+            self.replays += 1
+
+
+def loop_or_capture(graphs: dict, key, fn: Callable, inputs: tuple,
+                    n_state: int, device: torch.device, generators=()):
+    """The loop entry of `key` (CapturedLoop) loaded with `inputs` (the
+    state, then the constants), and the steps already made: 0 with an
+    entry of the key; else 1, the step run eagerly before the capture
+    (it builds the kernels, as an entry point's first call does), whose
+    new state the new entry is loaded with."""
+    entry = graphs.get(key)
+    made = 0
+    if entry is None:
+        inputs = tuple(fn(*inputs)) + tuple(inputs[n_state:])
+        made = 1
+        entry = CapturedLoop(fn, inputs, n_state, device, generators)
+        graphs[key] = entry
+    entry.load(inputs)
+    return entry, made
