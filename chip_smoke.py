@@ -35,7 +35,11 @@ Phases (any failure exits non-zero before the last line is printed):
      sums run in the mode and route their wrapper picks and in every other
      mode and route that takes the shape (all held and timed), the prefix
      sums' onepass mode also captured in a CUDA graph and replayed on new
-     inputs (each replay held, the replay timed beside the eager launch),
+     inputs (each replay held, the replay timed beside the eager launch);
+     kernel L, the build's line-code selection, at a 65536-row chunk's
+     SIFT1M and SIFT1B line tables (lp 16 and 32, c1 16) at both lambda
+     widths, codes and terms equal to its plain version to the bit (no
+     PyTorch call computes it: "library" None),
      the segment
      sums of the encode
      also over a rotating set of inputs larger than L2 (cold, beside the
@@ -46,7 +50,9 @@ Phases (any failure exits non-zero before the last line is printed):
      D's row sums), the line re-rank warm and cold (candidates drawn anew
      over rows read 256 MiB earlier) beside its old route, warm and cold;
      then the kernels are held on inputs that are hard for them (not
-     timed);
+     timed; kernel L on coincident centroids, exact residual ties, lambda
+     past and about both ends of [-4, 4), NaN and infinite distances,
+     ragged shapes and its loop route at other c1, to the bit);
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -106,8 +112,10 @@ Phases (any failure exits non-zero before the last line is printed):
      chunk files (the train and every chunk file again through the eager
      bodies, equal to the bit; encode_s split into its stages -- upload,
      device encode, the copies back, np.savez -- with rows a second and a
-     65536-row chunk's p50, replayed and eager, one chunk of each
-     profiled), merge them on the host into a spilled CSR database,
+     65536-row chunk's p50, replayed, eager and eager through kernel L's
+     plain version, one chunk of each profiled; the replayed chunk's bins,
+     part codes and payload rows equal to the plain route's to the bit),
+     merge them on the host into a spilled CSR database,
      save it with raw sidecars (adopting the spill files), load it onto
      the card, and serve 1024 queries in batches of 64 through exact and
      refine over vectors_csr, line, query_candidates, BIG line and BIG
@@ -163,6 +171,7 @@ busy ms, idle share).
 Timings are the card's, with its name and power limit printed beside them.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -262,6 +271,9 @@ SHARDED_EXACT_KERNELS = ("bitonic_topk", "block_scan", "segmented_reduce",
                          "gather_rows") + EXACT_KERNELS
 MULTIDB_KERNELS = BIG_KERNELS + EXACT_KERNELS
 CLI_KERNELS = PAIR_KERNELS + EXACT_KERNELS
+# every encode: kernel D's per-part norms and kernel L's line codes (with
+# k1_build = c1 it asks for no top-k)
+BUILD_KERNELS = ("segmented_reduce", "line_codes")
 # where the fused kernel appears in the per-kernel line: a mode of the rows
 # of the two TPU kernels it replaces on the exact re-rank
 SQDIST_ROWS = ("segmented_reduce", "gather_rows")
@@ -274,37 +286,41 @@ SQDIST_ROWS = ("segmented_reduce", "gather_rows")
 # payload rows itself (`gather_rerank`, kernel C by position) where kernel
 # H gathered them first, so H keeps the extent rows, the exact re-rank's ids
 # and the parts pipeline's candidate ids only (pair 72 -> 36, parts 36 ->
-# 18, slabs 27 -> 18, BIG 9 -> 0, wide 18 -> 9, SIFT1B 330 -> 165).
+# 18, slabs 27 -> 18, BIG 9 -> 0, wide 18 -> 9, SIFT1B 330 -> 165).  The
+# last column, kernel L's line codes (one launch an encode chunk), is from
+# its first passing run on an H100 (NVIDIA H100 80GB HBM3, 700 W): the
+# builds only (the pair path's counts include its build), 0 on every
+# serving path.
 LAUNCH_KEYS = ("bitonic_topk", "block_scan", "rerank_fused",
                "segmented_reduce", "lut_gather", "gather_rows",
                "gather_sqdist", "bitonic_topk:sort", "bitonic_topk:select",
-               "bitonic_topk:merge", "rerank_fused:wide")
+               "bitonic_topk:merge", "rerank_fused:wide", "line_codes")
 REFERENCE_LAUNCHES = {
-    "pair": (108, 73, 36, 140, 0, 36, 18, 45, 63, 0, 0),
-    "parts": (108, 108, 18, 90, 108, 18, 18, 81, 27, 0, 0),
-    "parts_slabs": (72, 81, 9, 63, 81, 18, 9, 54, 18, 0, 0),
-    "big_line": (45, 18, 9, 27, 18, 0, 0, 18, 27, 0, 0),
-    "big_perfect": (54, 18, 9, 27, 18, 0, 9, 27, 27, 0, 0),
-    "pair_wide": (27, 18, 9, 27, 0, 9, 0, 9, 18, 0, 9),
-    "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0),
-    "sift1b": (891, 396, 165, 561, 264, 165, 99, 396, 429, 66, 0),
+    "pair": (108, 73, 36, 140, 0, 36, 18, 45, 63, 0, 0, 16),
+    "parts": (108, 108, 18, 90, 108, 18, 18, 81, 27, 0, 0, 0),
+    "parts_slabs": (72, 81, 9, 63, 81, 18, 9, 54, 18, 0, 0, 0),
+    "big_line": (45, 18, 9, 27, 18, 0, 0, 18, 27, 0, 0, 0),
+    "big_perfect": (54, 18, 9, 27, 18, 0, 9, 27, 27, 0, 0, 0),
+    "pair_wide": (27, 18, 9, 27, 0, 9, 0, 9, 18, 0, 9, 0),
+    "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0, 155),
+    "sift1b": (891, 396, 165, 561, 264, 165, 99, 396, 429, 66, 0, 0),
     # phase 7's paths, from their first passing run on an H100 (NVIDIA
     # H100 80GB HBM3, 700 W): split serving, multi-DB serving in memory
     # and spilled, and the command-line query (its warm-up batch and four)
-    "split": (207, 108, 54, 162, 54, 54, 36, 99, 108, 0, 0),
-    "multidb": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0),
-    "multidb_spill": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0),
-    "cli": (20, 10, 5, 15, 5, 5, 5, 10, 10, 0, 0),
+    "split": (207, 108, 54, 162, 54, 54, 36, 99, 108, 0, 0, 0),
+    "multidb": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0, 0),
+    "multidb_spill": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0, 0),
+    "cli": (20, 10, 5, 15, 5, 5, 5, 10, 10, 0, 0, 0),
     # phase 8's paths, from their first passing run on an H100 (NVIDIA
     # H100 80GB HBM3, 700 W)
-    "cli_sharded": (25, 10, 0, 10, 5, 10, 5, 15, 10, 0, 0),
-    "sharded_line": (117, 72, 36, 108, 0, 36, 0, 45, 72, 0, 0),
-    "sharded_exact": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0),
-    "sharded_big": (189, 72, 36, 108, 72, 0, 0, 81, 108, 0, 0),
-    "sharded_exact_split": (234, 144, 0, 144, 0, 144, 72, 90, 144, 0, 0),
-    "sharded_nccl": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0),
-    "dp_encode": (0, 0, 0, 32, 0, 0, 0, 0, 0, 0, 0),
-    "sift1b_sharded": (1122, 528, 132, 660, 264, 396, 132, 594, 528, 0, 0),
+    "cli_sharded": (25, 10, 0, 10, 5, 10, 5, 15, 10, 0, 0, 0),
+    "sharded_line": (117, 72, 36, 108, 0, 36, 0, 45, 72, 0, 0, 0),
+    "sharded_exact": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0, 0),
+    "sharded_big": (189, 72, 36, 108, 72, 0, 0, 81, 108, 0, 0, 0),
+    "sharded_exact_split": (234, 144, 0, 144, 0, 144, 72, 90, 144, 0, 0, 0),
+    "sharded_nccl": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0, 0),
+    "dp_encode": (0, 0, 0, 32, 0, 0, 0, 0, 0, 0, 0, 16),
+    "sift1b_sharded": (1122, 528, 132, 660, 264, 396, 132, 594, 528, 0, 0, 0),
 }
 _EXACT_1M = {"R@1": 0.9931640625, "R@10": 0.9931640625,
              "top10_intersection": 0.99345703125}
@@ -974,8 +990,108 @@ def sectors_touched(torch, pos, row_bytes):
     return int(torch.unique(torch.cat([s[s <= last] for s in spans])).numel())
 
 
+# Kernel L's shapes: a 65536-row encode chunk (ENCODE_CHUNK) at SIFT1M's
+# and SIFT1B's line parts (lp 16 and 32, c1 16), each at both lambda widths
+LINE_CODE_SHAPES = (("sift1m_chunk", 16, 16), ("sift1b_chunk", 32, 16))
+
+
+def line_tables_case(torch, gen, n, lp, c1, dim=128, noise=8.0):
+    """A chunk's line tables as the encode makes them: (n, lp, c1) segment
+    distances of integer-valued rows in [0, 255] to c1 random centroids
+    (ops/distance.py subpart_sqdist_tables, made contiguous as
+    build_line_codes does) and the (lp, c1, c1) pair table.  Each row lies
+    about a point of the line between two centroids (lambda in [-0.2,
+    1.2)), so every line part has a real choice to make."""
+    from pqt_tpu_torch.ops import distance as D
+    cent = torch.rand((c1, dim), generator=gen, device="cuda") * 140
+    i, j = (torch.randint(0, c1, (n,), generator=gen, device="cuda")
+            for _ in range(2))
+    t = torch.rand((n, 1), generator=gen, device="cuda") * 1.4 - 0.2
+    x = ((1 - t) * cent[i] + t * cent[j]
+         + noise * torch.randn((n, dim), generator=gen, device="cuda"))
+    x = torch.clamp(torch.round(x), 0, 255)
+    return (D.subpart_sqdist_tables(x, cent, lp).contiguous(),
+            D.centroid_pair_sqdist(cent, lp))
+
+
+def line_code_hard_cases(torch, gen):
+    """Line-code selections that are easiest to get wrong: (name,
+    part_dists, pair_dists).  Coincident centroids (pair distances 0: lambda
+    from a divide by 1e-20, residuals of -inf and NaN), a line part whose
+    centroids all coincide, small integer distances (exact residual ties),
+    lambda far past both ends of [-4, 4), lambda on a fine grid about -4
+    and 4 (one pair, c1 2), NaN and infinite distances, all zeros; then
+    ragged row counts on the c1 16 route, the loop route at c1 2, 5, 17, 64
+    and 256, at c1 16 from distances 4 bytes off a 16-byte boundary, and no
+    rows at all."""
+    def on_card(*xs):
+        return tuple(x.to(device="cuda", dtype=torch.float32).contiguous()
+                     for x in xs)
+
+    from pqt_tpu_torch.ops import distance as D
+    n, lp, c1, dim = 1000, 4, 16, 32
+    cent = torch.randint(0, 20, (c1, dim), generator=gen,
+                         device="cuda").float()
+    cent[5] = cent[3]
+    cent[9] = cent[10] = cent[11] = cent[12]
+    x = cent[torch.randint(0, c1, (n,), generator=gen, device="cuda")]
+    x[n // 2:] += torch.randint(-2, 3, (n - n // 2, dim), generator=gen,
+                                device="cuda")
+    yield ("coincident centroids",
+           D.subpart_sqdist_tables(x, cent, lp).contiguous(),
+           D.centroid_pair_sqdist(cent, lp))
+    flat = cent.clone()
+    flat[:, :dim // lp] = flat[0, :dim // lp]
+    yield ("a line part of one point",
+           D.subpart_sqdist_tables(x, flat, lp).contiguous(),
+           D.centroid_pair_sqdist(flat, lp))
+    yield "integer ties", *on_card(
+        torch.randint(0, 4, (n, lp, c1), generator=gen, device="cuda"),
+        torch.randint(0, 4, (lp, c1, c1), generator=gen, device="cuda"))
+    yield "lambda far past both ends", *on_card(
+        torch.rand((n, lp, c1), generator=gen, device="cuda") * 100,
+        torch.rand((lp, c1, c1), generator=gen, device="cuda") * 0.9 + 0.1)
+    # lambda = -0.5 * (a2 - b2 - 1) for b2 = 100, c2 = 1
+    lam = torch.cat([e + torch.arange(-3000, 3000, dtype=torch.float64,
+                                      device="cuda") * 2.0 ** -18
+                     for e in (-4.0, 4.0)])
+    yield "lambda about -4 and 4 (c1 2)", *on_card(
+        torch.stack([torch.full_like(lam, 100.0), 101.0 - 2.0 * lam],
+                    1)[:, None, :],
+        torch.tensor([[[0.0, 1.0], [1.0, 0.0]]], device="cuda"))
+    d, p = line_tables_case(torch, gen, n, lp, c1, dim)
+    d[0, 0, 3] = float("nan")
+    d[1] = float("nan")
+    d[2, 1, :] = float("inf")
+    d[3, 2, 7] = float("inf")
+    d[4, 3, 0] = float("-inf")
+    yield "NaN and infinite distances", d, p
+    yield "zeros", *on_card(torch.zeros((n, lp, c1)),
+                            torch.zeros((lp, c1, c1)))
+    for rows, parts, width in ((1, 32, 16), (255, 32, 16), (257, 16, 16),
+                               (70001, 3, 16), (1000, 1, 16), (300, 4, 2),
+                               (300, 4, 5), (300, 4, 17), (200, 2, 64),
+                               (40, 2, 256), (0, 32, 16)):
+        yield (f"({rows}, {parts}, {width})",
+               *line_tables_case(torch, gen, rows, parts, width, 32 * parts))
+    d, p = line_tables_case(torch, gen, n, 8, 16)
+    off = torch.empty(d.numel() + 1, device="cuda")[1:].view(d.shape)
+    off.copy_(d)
+    yield "c1 16, 4 bytes off", off, p
+
+
+def same_line_codes(torch, got, want):
+    """Whether two (codes, terms) pairs are equal to the bit."""
+    return (got[0].dtype == want[0].dtype == torch.int64
+            and torch.equal(got[0], want[0])
+            and torch.equal(got[1].view(torch.int32),
+                            want[1].view(torch.int32)))
+
+
 def check_kernels(torch):
+    from pqt_tpu_torch.ops import linecodes as L
     from pqt_tpu_torch.ops.cuda import gather as ga
+    from pqt_tpu_torch.ops.cuda import linecodes as lc
     from pqt_tpu_torch.ops.cuda import primitives as prim
     from pqt_tpu_torch.ops.cuda import rerank as rr
 
@@ -1272,6 +1388,38 @@ def check_kernels(torch):
                old_route_ms=device_ms(
                    torch, lambda: old_exact_route(ga, prim, tab, pos, q)))
         del tab, pos, q
+
+    for case, lp, c1 in LINE_CODE_SHAPES:
+        # kernel L against its plain version (the chain of passes XLA fuses
+        # in the JAX package), codes and terms equal to the bit
+        n = ENCODE_CHUNK
+        d, p = line_tables_case(torch, gen, n, lp, c1)
+        for bits in (16, 8):
+            got = lc.line_codes(d, p, bits)
+            want = L.line_codes_plain(d, p, bits)
+            torch.cuda.synchronize()
+            if not same_line_codes(torch, got, want):
+                raise SmokeFailure(
+                    f"line_codes {case} lambda {bits} bits: "
+                    f"{int((got[0] != want[0]).sum())} codes and "
+                    f"{int((got[1] != want[1]).sum())} terms differ from "
+                    "the plain version")
+            del got, want
+            # in: the tables once; out: an int64 code and a float term a
+            # (row, part).  8 operations a pair A < B: two subtractions, a
+            # multiply, a divide, two multiplies, a subtraction, a compare
+            pairs = n * lp * c1 * (c1 - 1) // 2
+            b_ms, b_by = bound(n * lp * c1 * 4 + lp * c1 * c1 * 4
+                               + n * lp * 12, 8 * pairs)
+            record("line_codes", "pqt_tpu_torch/csrc/linecodes.cu",
+                   "pqt_tpu/ops/linecodes.py:77",
+                   f"{case} ({n},{lp},{c1}) lambda {bits} bits",
+                   device_ms(torch, lambda: lc.line_codes(d, p, bits)),
+                   device_ms(torch, lambda: L.line_codes_plain(d, p, bits),
+                             reps=5),
+                   None, b_ms, b_by, 0.0)
+        del d, p
+        torch.cuda.empty_cache()
     return results, floor
 
 
@@ -1635,8 +1783,12 @@ def check_other_paths(torch):
     shapes and positions outside the payload (rerank_hard_cases); and the exact
     distances in every load unit, past the query slice a lane keeps in
     registers, at the table's last row and its first, with fractional
-    queries and rows, and a position outside the table (NaN)."""
+    queries and rows, and a position outside the table (NaN); and kernel
+    L's line-code selection on line_code_hard_cases at both lambda widths,
+    codes and terms equal to the bit."""
+    from pqt_tpu_torch.ops import linecodes as L
     from pqt_tpu_torch.ops.cuda import gather as ga
+    from pqt_tpu_torch.ops.cuda import linecodes as lc
     from pqt_tpu_torch.ops.cuda import primitives as prim
     from pqt_tpu_torch.ops.cuda import rerank as rr
 
@@ -1733,6 +1885,12 @@ def check_other_paths(torch):
             raise SmokeFailure(f"gather_rerank {name} {tuple(payload.shape)} "
                                f"at {tuple(pos.shape)} differs (max abs "
                                f"error {err})")
+    for name, d, p in line_code_hard_cases(torch, gen):
+        for bits in (16, 8):
+            if not same_line_codes(torch, lc.line_codes(d, p, bits),
+                                   L.line_codes_plain(d, p, bits)):
+                raise SmokeFailure(f"line_codes {name} {tuple(d.shape)} "
+                                   f"lambda {bits} bits differs")
     # a position outside the table reads nothing and yields NaN
     tab, q = torch.zeros((10, 128), dtype=torch.uint8, device="cuda"), \
         torch.ones((1, 128), device="cuda")
@@ -1963,6 +2121,7 @@ TRACE_KERNELS = {
     "lut_gather": ("lut_kernel",),
     "gather_rows": ("gather_rows_kernel", "gather_long_kernel"),
     "gather_sqdist": ("gather_sqdist_kernel",),
+    "line_codes": ("line_codes_fixed_kernel", "line_codes_any_kernel"),
 }
 MERGE_EXTRA = r"merge_pass_kernel|radix_select_kernel<\d+, \w+, true>"
 
@@ -2376,7 +2535,7 @@ def query_paths(torch, P):
         return dict(modes=query_modes(P, c, tree, d, names),
                     eager=query_modes(P, c, tree, d, names, eager=True))
 
-    built = launch_counts()            # the train's and the build's
+    built = read_launches("pair path's train and build", BUILD_KERNELS)
     train_build = train_build_phase(
         torch, P, cfg, data, tree, db,
         dict(train_s=train_s, build_s=build_s, train_steps=train_steps))
@@ -2561,9 +2720,8 @@ def sift1b_database(torch, P, workdir):
     paths = [os.path.join(workdir, f"chunk{i}.npz")
              for i in range(-(-N_1B // N_1B_CHUNK))]
     times["encode_s"], spans = encode_files(P, cfg, tree, data, paths)
-    # the encode's per-part norms (kernel D); k1_build = c1 asks for no top-k
     build_launches = read_launches("SIFT1B train and encode",
-                                   ("segmented_reduce",))
+                                   BUILD_KERNELS)
     build = sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir,
                                 times, spans)
     t0 = time.perf_counter()
@@ -2630,12 +2788,29 @@ def encode_files(P, cfg, tree, data, paths):
     return seconds, spans
 
 
+@contextlib.contextmanager
+def plain_line_codes():
+    """Kernel L's plain version in the place of its wrapper, for the eager
+    bodies called inside: the build's line codes by the chain of passes
+    they took before the kernel (its launches are not counted)."""
+    from pqt_tpu_torch.ops import linecodes as L
+    from pqt_tpu_torch.ops.cuda import linecodes as lc
+    wrapper = lc.line_codes
+    lc.line_codes = L.line_codes_plain
+    try:
+        yield
+    finally:
+        lc.line_codes = wrapper
+
+
 def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
                         spans):
     """The SIFT1B train and encode again through their eager bodies: the
     tree and every chunk file (bins, payload rows, raw vectors, pair_occ)
     equal to the replayed ones to the bit; one 65536-row chunk's p50,
-    replayed and eager, each with one profiled chunk; rows a second, the
+    replayed, eager and eager through kernel L's plain version (the route
+    before the kernel), each with one profiled chunk, and the replayed
+    chunk equal to the plain route's to the bit; rows a second, the
     host share of encode_s and the Lloyd steps, printed beside the card's
     name and power limit; the graphs' keys, then freed."""
     from pqt_tpu_torch.models import db as DB
@@ -2650,12 +2825,26 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
     occ = DB._file_pair_occ((cfg.p // 2, cfg.part_radix ** 2), x.device)
     offset = DB._offset(0, x.device)
     out["chunk"] = {}
+
+    def plain(*args):
+        with plain_line_codes():
+            return DB.chunk_encoder.__wrapped__(*args)
+
     for name, fn in (("replayed", DB.chunk_encoder),
-                     ("eager", DB.chunk_encoder.__wrapped__)):
+                     ("eager", DB.chunk_encoder.__wrapped__),
+                     ("plain", plain)):
         def call(xb, fn=fn):
             return fn(cfg, tree, xb, offset, occ)
         out["chunk"][name] = {"p50_ms": p50_ms(torch, call, x),
                               "profile": profile_batch(torch, call, x)}
+    # the replayed chunk against the same chunk through kernel L's plain
+    # version: bins, part codes and payload rows equal to the bit
+    plain_eq = same_output(torch, DB.chunk_encoder(cfg, tree, x, offset, occ),
+                           plain(cfg, tree, x, offset, occ))
+    print(f"sift1b: a replayed {ENCODE_CHUNK}-row chunk's bins, part codes "
+          f"and payload rows {'equal' if plain_eq else 'DIFFER from'} "
+          "those of the chunk encoded through line_codes_plain on the card"
+          + (" to the bit" if plain_eq else ""), flush=True)
     with G.eager():
         etree, train_s, steps = trained(torch, P, cfg, data[:N_1B_TRAIN])
         tree_eq = same_leaves(torch, tree, etree, TREE_LEAVES)
@@ -2690,8 +2879,10 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
           f"{json.dumps({k: round(v, 4) for k, v in e['spans'].items()})}); "
           f"a {ENCODE_CHUNK}-row chunk p50 replayed "
           f"{c['replayed']['p50_ms']:.3f} ms, eager {c['eager']['p50_ms']:.3f}"
-          f" ms (device busy ms, idle share of one profiled chunk: replayed "
-          f"{idle['replayed']}, eager {idle['eager']}); the trees "
+          f" ms, eager through line_codes_plain {c['plain']['p50_ms']:.3f} ms"
+          f" (device busy ms, idle share of one profiled chunk: replayed "
+          f"{idle['replayed']}, eager {idle['eager']}, plain "
+          f"{idle['plain']}); the trees "
           f"{'equal' if tree_eq else 'DIFFER'} and the {len(paths)} chunk "
           f"files {'equal' if files_eq else 'DIFFER'} to the bit [{card}]",
           flush=True)
@@ -2702,7 +2893,11 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
     if not (tree_eq and files_eq):
         raise SmokeFailure("sift1b: a replayed train or chunk file differs "
                            "from its eager body's")
-    out.update(trees_equal=tree_eq, files_equal=files_eq)
+    if not plain_eq:
+        raise SmokeFailure("sift1b: a replayed chunk differs from the chunk "
+                           "encoded through line_codes_plain")
+    out.update(trees_equal=tree_eq, files_equal=files_eq,
+               plain_route_equal=plain_eq)
     return out
 
 
@@ -3236,7 +3431,7 @@ def dp_programs(torch, S, cfg, tree, db, grid, out):
     (bins, codes, t3), out["dp_encode_s"] = timed(
         torch, lambda: encode(tree, db.vectors))
     out["dp_encode_launches"] = read_launches("data-parallel encode",
-                                              ("segmented_reduce",))
+                                              BUILD_KERNELS)
     again, out["dp_encode_replayed_s"] = timed(
         torch, lambda: encode(tree, db.vectors))
     with G.eager():
@@ -3602,7 +3797,8 @@ def main(json_path=None):
     print("other kernel paths (hard top-k rows in every mode, multi-row long "
           "scans, ragged scan widths, segments of 1 to 130 in both modes, "
           "ragged lookups, row gathers in every unit and span, line "
-          "re-ranks in every mode and copy unit): equal to their plain "
+          "re-ranks in every mode and copy unit, line-code selections on "
+          "hard rows at both lambda widths): equal to their plain "
           "versions", flush=True)
 
     summary, fixture = query_paths(torch, P)

@@ -9,7 +9,8 @@ H's rows are held to, of the comparison of C with an older tree's, and of
 the cut between A's routes (TOPK_CLUSTER_* there).
 
 Run from the repository root:  python3 chip_sweep.py [--json PATH]
-    [--only scan|lut|gather|rerank|topk|topk_ptxas|topk_stress|topk_path]
+    [--only scan|lut|gather|rerank|topk|topk_ptxas|topk_stress|topk_path
+            |linecodes|encode]
     [--cases NAME,...] [--topk-lib PATH] [--second-lib]
 
 The random-read ladder (`--only gather`) gathers rows of 8, 72 and 128
@@ -47,6 +48,16 @@ C over them, +inf where invalid), kernel C alone over those rows, and
 drawn anew over rows read 256 MiB earlier), with a SHA-1 of the distances
 so that two trees' results can be compared to the bit; a shape a tree's
 kernel refuses is reported as refused.
+
+Kernel L (`--only linecodes`, csrc/linecodes.cu) prints nvcc's register
+and spill report of its kernels, then runs chip_smoke.py's
+LINE_CODE_SHAPES at both lambda widths, warm and cold, beside the plain
+version (equal to the bit, or the run fails), and its hard rows.
+`--only encode` runs the build's encode as chip_smoke.py does (SIFT1B's
+10M vectors into chunk files with `encode_s`' stages, a chunk's p50 and
+profile replayed and eager, the encoder keys' pools; SIFT1M's build of
+1M replayed and eager) in the tree it runs in: from an older checkout,
+the baseline of a comparison in one call.
 
 Run from the root of an older checkout whose block_scan or gather_rows has
 no plan, or that has no gather_rerank (with this script and chip_smoke.py
@@ -527,6 +538,141 @@ def sweep_topk_path(torch, emit, cases=None, rounds=8, batch=64):
               f"{len(a)} pairs", flush=True)
 
 
+def sweep_linecodes(torch, emit, cases=None):
+    """Kernel L (csrc/linecodes.cu): nvcc's register and spill report of
+    its kernels (`-Xptxas -v`, built into pqt_tpu_torch/_build/variants/
+    linecodes/, not loaded); then at chip_smoke.py's LINE_CODE_SHAPES at
+    both lambda widths, held to the plain version to the bit and timed
+    beside it, warm and cold (a rotating set of inputs larger than L2),
+    with the memory layout the line tables come out of their matmul in;
+    then chip_smoke.py's hard rows, each held to the bit."""
+    import subprocess
+    from pqt_tpu_torch.ops import distance as D
+    from pqt_tpu_torch.ops import linecodes as L
+    from pqt_tpu_torch.ops.cuda import build
+    from pqt_tpu_torch.ops.cuda import linecodes as lc
+    out = variant_dir("linecodes")
+    out.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out / "liblinecodes.so"), str(build.CSRC / "linecodes.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise smoke.SmokeFailure(f"linecodes.cu: nvcc failed\n"
+                                 f"{proc.stdout}{proc.stderr}")
+    rows = ptxas_report(proc.stdout + proc.stderr)
+    for (fn, regs, stack, st, ld), pretty in zip(
+            rows, demangle([r[0] for r in rows])):
+        emit({"kernel": "ptxas", "variant": "linecodes", "function": pretty,
+              "registers": regs, "stack_bytes": stack,
+              "spill_store_bytes": st, "spill_load_bytes": ld})
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = smoke.ENCODE_CHUNK
+    for case, lp, c1 in smoke.LINE_CODE_SHAPES:
+        if cases and case not in cases:
+            continue
+        d, p = smoke.line_tables_case(torch, gen, n, lp, c1)
+        raw = D.subpart_sqdist_tables(torch.zeros((8, 128), device="cuda"),
+                                      torch.zeros((c1, 128), device="cuda"),
+                                      lp)
+        pairs = n * lp * c1 * (c1 - 1) // 2
+        b_ms = smoke.bound(n * lp * c1 * 4 + lp * c1 * c1 * 4 + n * lp * 12,
+                           8 * pairs)[0]
+        for bits in (16, 8):
+            if not smoke.same_line_codes(torch, lc.line_codes(d, p, bits),
+                                         L.line_codes_plain(d, p, bits)):
+                raise smoke.SmokeFailure(f"line_codes {case} {bits} bits "
+                                         "differs from the plain version")
+            emit({"kernel": "line_codes", "case": f"{case} ({n},{lp},{c1})",
+                  "variant": f"lambda {bits} bits", "bound_ms": b_ms,
+                  "ms": smoke.device_ms(torch,
+                                        lambda: lc.line_codes(d, p, bits)),
+                  "cold_ms": smoke.cold_ms(
+                      torch, lambda t: lc.line_codes(t, p, bits), d),
+                  "plain_ms": smoke.device_ms(
+                      torch, lambda: L.line_codes_plain(d, p, bits), reps=5),
+                  "table_strides": list(raw.stride())})
+        del d, p
+        torch.cuda.empty_cache()
+    for name, d, p in smoke.line_code_hard_cases(torch, gen):
+        for bits in (16, 8):
+            if not smoke.same_line_codes(torch, lc.line_codes(d, p, bits),
+                                         L.line_codes_plain(d, p, bits)):
+                raise smoke.SmokeFailure(f"line_codes {name} "
+                                         f"{tuple(d.shape)} {bits} bits "
+                                         "differs")
+    torch.cuda.synchronize()
+    print("line_codes: every hard row equal to the plain version to the "
+          "bit at both lambda widths", flush=True)
+
+
+def sweep_encode(torch, emit, cases=None):
+    """The build's encode in the tree as it stands (this one, or an older
+    checkout with this script and chip_smoke.py copied there: the baseline
+    of a comparison in one call).  chip_smoke.py's SIFT1B phase up to its
+    chunk files: the 10M-vector fixture drawn on the card, the tree trained
+    on 200k, `encode_s` into 5 chunk files with its stages, a 65536-row
+    chunk's p50 replayed and eager with one profiled chunk each (device
+    busy ms, idle share), the encoder keys' pools; then chip_smoke.py's
+    SIFT1M build of 1M rows (phase 4's tree and configuration) replayed,
+    its first call capturing, again, and eager."""
+    import tempfile
+    import numpy as np
+    import pqt_tpu_torch as P
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.utils import graphs as G
+    cfg = P.SIFT1B_CONFIG.replace(kmeans_iters=8, train_subsample=100_000)
+    _, draw = smoke.sift1b_fixture(torch, smoke.N_1B)
+    data = torch.empty((smoke.N_1B, 128), dtype=torch.uint8, device="cuda")
+    for s in range(0, smoke.N_1B, smoke.N_1B_CHUNK):
+        data[s:s + smoke.N_1B_CHUNK] = draw(min(smoke.N_1B_CHUNK,
+                                                smoke.N_1B - s))
+    tree = smoke.trained(torch, P, cfg, data[:smoke.N_1B_TRAIN])[0]
+    with tempfile.TemporaryDirectory(prefix="pqt_sweep_") as workdir:
+        paths = [os.path.join(workdir, f"chunk{i}.npz")
+                 for i in range(-(-smoke.N_1B // smoke.N_1B_CHUNK))]
+        encode_s, spans = smoke.encode_files(P, cfg, tree, data, paths)
+    x = data[:smoke.ENCODE_CHUNK]
+    occ = DB._file_pair_occ((cfg.p // 2, cfg.part_radix ** 2), x.device)
+    offset = DB._offset(0, x.device)
+    chunk = {}
+    for name, fn in (("replayed", DB.chunk_encoder),
+                     ("eager", DB.chunk_encoder.__wrapped__)):
+        def call(xb, fn=fn):
+            return fn(cfg, tree, xb, offset, occ)
+        chunk[name] = {"p50_ms": smoke.p50_ms(torch, call, x),
+                       "profile": smoke.profile_batch(torch, call, x)}
+    pools = smoke.build_graphs_report("the SIFT1B encode")
+    emit({"kernel": "encode", "case": "sift1b", "variant": "tree",
+          "encode_s": encode_s, "spans": spans,
+          "device_share": spans.get("encode", 0.0) / encode_s,
+          "chunk": chunk,
+          "pools_mib": [[r["program"], r["key"], r["mib"]] for r in pools]})
+    smoke.clear_build_graphs()
+    del data, x, occ
+    torch.cuda.empty_cache()
+
+    mcfg = P.SIFT1M_CONFIG.replace(
+        kmeans_iters=8, train_subsample=100_000, hash_size=1 << 20,
+        max_bins=512, max_candidates=1024, pair_top_m=128, enum_width=512,
+        pair_filter=True)
+    rows = smoke.make_sift_like(smoke.N_DB, mcfg.dim,
+                                np.random.default_rng(0))[0]
+    mtree = smoke.trained(torch, P, mcfg, rows[:smoke.N_TRAIN])[0]
+    builds = {}
+    for name in ("first", "replayed"):
+        builds[name] = smoke.timed(torch, lambda: P.build_database(
+            mcfg, mtree, rows, keep_vectors=True, device="cuda"))[1]
+    pools = smoke.build_graphs_report("the SIFT1M build")
+    with G.eager():
+        builds["eager"] = smoke.timed(torch, lambda: P.build_database(
+            mcfg, mtree, rows, keep_vectors=True, device="cuda"))[1]
+    emit({"kernel": "encode", "case": "sift1m_build", "variant": "tree",
+          "build_s": builds,
+          "pools_mib": [[r["program"], r["key"], r["mib"]] for r in pools]})
+    smoke.clear_build_graphs()
+
+
 def main(json_path, only, cases, topk_lib=None, second_lib=False):
     import torch
     if not torch.cuda.is_available():
@@ -550,8 +696,9 @@ def main(json_path, only, cases, topk_lib=None, second_lib=False):
 
     def emit(r):
         rows.append(r)
-        if r["kernel"] in ("ptxas", "topk_stress", "topk_path"):
-            print(" ".join(f"{k} {v}" for k, v in r.items()), flush=True)
+        if r["kernel"] in ("ptxas", "topk_stress", "topk_path", "encode"):
+            print(" ".join(f"{k} {json.dumps(v) if isinstance(v, dict) else v}"
+                           for k, v in r.items()), flush=True)
             return
         if "refused" in r:
             print(f"{r['kernel']:10s} {r['case']:32s} {r['variant']:28s} "
@@ -564,6 +711,9 @@ def main(json_path, only, cases, topk_lib=None, second_lib=False):
                 extra += f"  reads {r['reads']:.2f} (modelled)"
         elif "cumsum_ms" in r:
             extra = f"cumsum {r['cumsum_ms']:.4f}  copy {r['copy_ms']:.4f}"
+        elif "plain_ms" in r:
+            extra = (f"cold {r['cold_ms']:.4f}  plain {r['plain_ms']:.4f}  "
+                     f"line tables' strides {r['table_strides']}")
         elif "index_ms" in r:
             extra = (f"table[idx] {r['index_ms']:.4f}  sectors' bound "
                      f"{r['sector_bound_ms']:.4f}")
@@ -594,6 +744,10 @@ def main(json_path, only, cases, topk_lib=None, second_lib=False):
         sweep_topk_stress(torch, emit, cases, second_lib)
     if only == "topk_path":
         sweep_topk_path(torch, emit, cases)
+    if only == "linecodes":
+        sweep_linecodes(torch, emit, cases)
+    if only == "encode":
+        sweep_encode(torch, emit, cases)
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
@@ -606,7 +760,7 @@ if __name__ == "__main__":
     ap.add_argument("--json", metavar="PATH")
     ap.add_argument("--only", choices=("scan", "lut", "gather", "rerank",
                                        "topk", "topk_ptxas", "topk_stress",
-                                       "topk_path"))
+                                       "topk_path", "linecodes", "encode"))
     ap.add_argument("--cases", help="comma-separated case names to run")
     ap.add_argument("--topk-lib", metavar="PATH",
                     help="with --only topk: kernel A's library to time (a "

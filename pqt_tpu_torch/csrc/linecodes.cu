@@ -1,0 +1,213 @@
+// Kernel L: the build's line-code selection.  For each (row, line part) of
+// part_dists (n, lp, c1) float32 and the pair table pair (lp, c1, c1)
+// float32, over the pairs A < B of L1 centroid segments:
+//
+//   lambda = ((a2 - b2) - c2) * -0.5 / max(c2, 1e-20)
+//   resid  = b2 - (lambda * lambda) * max(c2, 1e-20)
+//
+// with a2 = part_dists[row, part, B] (the distance to B), b2 = ...[A] and
+// c2 = pair[part, A, B]; it writes the packed code A | B << 8 | u16 << 16
+// (int64) of the pair of least residual, u16 its lambda quantised to the
+// configured width, and the t3 term (q * q - q) * c2 of the decoded lambda q
+// and the unclamped c2 (float32).  The sum of the terms over the line parts
+// stays with the caller (pqt_tpu_torch/ops/linecodes.py build_line_codes).
+//
+// It is not one of the Pallas kernels of the JAX package.  It replaces the
+// fused reduce that XLA makes of pqt_tpu/ops/linecodes.py:77-105
+// (best_lines: the residual, the triangle mask and the argmin in one pass,
+// with lambda's take_along_axis after it), which the port ran op by op:
+// eight passes over (n, lp, c1, c1) float32 intermediates, 2 GiB each at a
+// 65536-row SIFT1B chunk (lp 32, c1 16).  Here no intermediate leaves the
+// registers.
+//
+// Every result equals the plain version (line_codes_plain) to the bit:
+//
+//   * each operation is rounded on its own, in the plain version's order
+//     (__fsub_rn, __fmul_rn, __fdiv_rn: no fused multiply-add, an IEEE
+//     divide), as PyTorch's elementwise passes round;
+//   * the pick is torch.argmin's over the flat index A * c1 + B with the
+//     pairs A >= B masked to +inf: the first least value, a NaN counting as
+//     the least.  The masked flat index 0 (A = B = 0) is where the scan
+//     starts, so a row whose every residual is +inf picks it, as argmin
+//     does;
+//   * the quantiser truncates toward zero after the two bounds and clamps
+//     to [0, 65535] (a NaN lambda gives 0); the 8-bit width rounds on the
+//     u16 grid, min((u16 + 128) >> 8, 255) << 8.
+//
+// What bounds it on the H100: operations.  At a SIFT1B chunk it reads 134
+// MB and writes 25 MB (0.048 ms at 3.35 TB/s), and evaluates 120 pairs a
+// (row, part), 252M, each with an IEEE divide of some ten instructions
+// beside seven other operations and the compare: the instruction rate, not
+// the bytes, sets its time.  The design:
+//
+//   * one thread a (row, line part); a block of kThreads rows of one line
+//     part, the blocks of a row tile next to each other in the grid;
+//   * at c1 = 16 with 16-byte aligned distances (every build of the port),
+//     the thread loads its 16 distances as four float4 loads into
+//     registers and walks the 120 pairs fully unrolled; the block stages
+//     its part's pair table and its clamped twin (2 KB) in shared memory
+//     once, and every lane reads the same word, a broadcast;
+//   * any other c1 (up to 256) or alignment walks the pairs in loops, the
+//     distances and the pair table read through the read-only cache.
+//
+// The launch takes the caller's stream (PyTorch's current one), allocates
+// nothing and does not synchronise, so a CUDA graph captures it as it is.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxC1 = 256;
+constexpr float kLambdaLo = -4.0f;
+constexpr float kLambdaHi = 4.0f;
+constexpr float kLambdaScale = 8192.0f;        // 65536 / (hi - lo)
+
+__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+
+// torch.clamp_min(c2, 1e-20): a NaN stays NaN
+__device__ __forceinline__ float clamp_c2(float c2) {
+  const float eps = (float)1e-20;
+  return c2 < eps ? eps : c2;
+}
+
+// triangle.project_with_residual's lambda and residual, rounded as its
+// passes round them
+__device__ __forceinline__ void project(float a2, float b2, float c2,
+                                        float c2c, float& lam, float& resid) {
+  lam = __fdiv_rn(__fmul_rn(__fsub_rn(__fsub_rn(a2, b2), c2), -0.5f), c2c);
+  resid = __fsub_rn(b2, __fmul_rn(__fmul_rn(lam, lam), c2c));
+}
+
+// whether resid comes before best in torch.argmin's order, resid's index
+// being the larger: a NaN is the least value, ties keep the first index
+__device__ __forceinline__ bool before(float resid, float best) {
+  return resid < best || (resid != resid && best == best);
+}
+
+// The code and the t3 term of the picked pair `best` (flat index A * c1 +
+// B), its lambda and its unclamped c2.
+__device__ __forceinline__ void finish(int best, int c1, float lam, float c2,
+                                       int u8, long long slot,
+                                       long long* __restrict__ codes,
+                                       float* __restrict__ terms) {
+  // triangle.lambda_to_u16
+  float f = __fmul_rn(__fsub_rn(lam, kLambdaLo), kLambdaScale);
+  if (lam >= kLambdaHi) f = 65535.0f;
+  else if (lam < kLambdaLo) f = 0.0f;
+  int u = __float2int_rz(f);                   // a NaN gives 0
+  u = min(max(u, 0), 65535);
+  if (u8) u = min((u + 128) >> 8, 255) << 8;   // triangle.lambda_to_u8 << 8
+  // triangle.u16_to_lambda
+  const float q = __fadd_rn(__fmul_rn((float)u, 1.0f / kLambdaScale),
+                            kLambdaLo);
+  terms[slot] = __fmul_rn(__fsub_rn(__fmul_rn(q, q), q), c2);
+  codes[slot] = (long long)(best / c1) | ((long long)(best % c1) << 8) |
+                ((long long)u << 16);
+}
+
+template <int C1>
+__global__ void __launch_bounds__(kThreads)
+line_codes_fixed_kernel(const float* __restrict__ dists,
+                        const float* __restrict__ pair, int n, int lp,
+                        int u8, long long* __restrict__ codes,
+                        float* __restrict__ terms) {
+  __shared__ float s_c2[C1 * C1];
+  __shared__ float s_c2c[C1 * C1];
+  const int part = blockIdx.x % lp;
+  const long long row = (long long)(blockIdx.x / lp) * kThreads + threadIdx.x;
+  const float* p = pair + (long long)part * C1 * C1;
+  for (int i = threadIdx.x; i < C1 * C1; i += kThreads) {
+    const float c2 = p[i];
+    s_c2[i] = c2;
+    s_c2c[i] = clamp_c2(c2);
+  }
+  __syncthreads();
+  if (row >= n) return;
+  const long long slot = row * lp + part;
+  float d[C1];
+  const float4* src = reinterpret_cast<const float4*>(dists + slot * C1);
+#pragma unroll
+  for (int v = 0; v < C1 / 4; ++v) {
+    const float4 x = __ldg(src + v);
+    d[4 * v] = x.x;
+    d[4 * v + 1] = x.y;
+    d[4 * v + 2] = x.z;
+    d[4 * v + 3] = x.w;
+  }
+  // the masked flat index 0 (A = B = 0), +inf
+  float best_r = inf(), best_lam, r;
+  project(d[0], d[0], s_c2[0], s_c2c[0], best_lam, r);
+  int best = 0;
+#pragma unroll
+  for (int a = 0; a < C1; ++a) {
+#pragma unroll
+    for (int b = a + 1; b < C1; ++b) {
+      float lam;
+      project(d[b], d[a], s_c2[a * C1 + b], s_c2c[a * C1 + b], lam, r);
+      if (before(r, best_r)) {
+        best_r = r;
+        best = a * C1 + b;
+        best_lam = lam;
+      }
+    }
+  }
+  finish(best, C1, best_lam, s_c2[best], u8, slot, codes, terms);
+}
+
+__global__ void __launch_bounds__(kThreads)
+line_codes_any_kernel(const float* __restrict__ dists,
+                      const float* __restrict__ pair, int n, int lp, int c1,
+                      int u8, long long* __restrict__ codes,
+                      float* __restrict__ terms) {
+  const int part = blockIdx.x % lp;
+  const long long row = (long long)(blockIdx.x / lp) * kThreads + threadIdx.x;
+  if (row >= n) return;
+  const long long slot = row * lp + part;
+  const float* d = dists + slot * c1;
+  const float* p = pair + (long long)part * c1 * c1;
+  const float d0 = __ldg(d), p0 = __ldg(p);
+  float best_r = inf(), best_lam, r;
+  project(d0, d0, p0, clamp_c2(p0), best_lam, r);
+  int best = 0;
+  for (int a = 0; a < c1; ++a) {
+    const float b2 = __ldg(d + a);
+    for (int b = a + 1; b < c1; ++b) {
+      const float c2 = __ldg(p + a * c1 + b);
+      float lam;
+      project(__ldg(d + b), b2, c2, clamp_c2(c2), lam, r);
+      if (before(r, best_r)) {
+        best_r = r;
+        best = a * c1 + b;
+        best_lam = lam;
+      }
+    }
+  }
+  finish(best, c1, best_lam, __ldg(p + best), u8, slot, codes, terms);
+}
+
+}  // namespace
+
+// part_dists (n, lp, c1) and pair (lp, c1, c1) float32, contiguous; codes
+// and terms (n, lp), int64 and float32.  u8: lambda on the 8-bit grid.
+// Returns cudaGetLastError() after the launch (0: launched).
+extern "C" int pqt_line_codes(const float* dists, const float* pair, int n,
+                              int lp, int c1, int u8, long long* codes,
+                              float* terms, void* stream) {
+  if (n <= 0 || lp <= 0 || c1 <= 0 || c1 > kMaxC1 ||
+      (long long)n * lp > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = ((long long)n + kThreads - 1) / kThreads * lp;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c1 == 16 && reinterpret_cast<uintptr_t>(dists) % 16 == 0)
+    line_codes_fixed_kernel<16><<<(int)blocks, kThreads, 0, s>>>(
+        dists, pair, n, lp, u8, codes, terms);
+  else
+    line_codes_any_kernel<<<(int)blocks, kThreads, 0, s>>>(
+        dists, pair, n, lp, c1, u8, codes, terms);
+  return (int)cudaGetLastError();
+}

@@ -7,7 +7,10 @@ A | B << 8 | lambda_u16 << 16, held here in an int64 tensor (torch's uint32
 arithmetic is patchy on CUDA); the values equal the JAX package's codes.
 
 `reconstruct_dists_idx` is the plain version of kernel C
-(ops/cuda/rerank.py), which computes the same distances from payload rows.
+(ops/cuda/rerank.py), which computes the same distances from payload rows;
+`line_codes_plain` that of kernel L (ops/cuda/linecodes.py), the build's
+line-code selection, which `build_line_codes` calls.  `best_lines` stays
+plain: the diagnostics read its continuous lambda.
 """
 
 from __future__ import annotations
@@ -58,15 +61,14 @@ def best_lines(part_dists: torch.Tensor, pair_dists: torch.Tensor):
     return best // c1, best % c1, lam_best, c2_best
 
 
-def build_line_codes(part_dists: torch.Tensor, pair_dists: torch.Tensor,
+def line_codes_plain(part_dists: torch.Tensor, pair_dists: torch.Tensor,
                      lambda_bits: int = 16):
-    """Best (A, B, lambda) per (vector, line part).
-
-    Returns (packed (n, lp) codes -- lambda on the u16 grid whatever the
-    width, so `unpack_codes` always applies -- and t3 (n,) float32, the
-    query-independent term sum_lp (lambda^2 - lambda) * pair[lp, A, B]
-    computed from the DECODED lambda, so build and query agree).
-    """
+    """The plain version of kernel L (ops/cuda/linecodes.py): per (vector,
+    line part) the packed code of `best_lines`' pick -- lambda on the u16
+    grid whatever the width, so `unpack_codes` always applies -- and its t3
+    term (lambda^2 - lambda) * pair[lp, A, B] from the DECODED lambda, so
+    build and query agree.  Returns (codes (n, lp) int64, terms (n, lp)
+    float32)."""
     best_a, best_b, lam_best, c2_best = best_lines(part_dists, pair_dists)
     if lambda_bits == 8:
         lam_u16 = triangle.lambda_to_u8(lam_best) << 8
@@ -74,8 +76,26 @@ def build_line_codes(part_dists: torch.Tensor, pair_dists: torch.Tensor,
         lam_u16 = triangle.lambda_to_u16(lam_best)
     packed = pack_codes(best_a, best_b, lam_u16)
     lam_q = triangle.u16_to_lambda(lam_u16)
-    t3 = torch.sum((lam_q * lam_q - lam_q) * c2_best, dim=-1)
-    return packed, t3
+    return packed, (lam_q * lam_q - lam_q) * c2_best
+
+
+def build_line_codes(part_dists: torch.Tensor, pair_dists: torch.Tensor,
+                     lambda_bits: int = 16):
+    """Best (A, B, lambda) per (vector, line part): kernel L's codes and
+    terms (`line_codes`; its plain version on the CPU), the terms summed
+    over the line parts.  The kernel takes contiguous tables; the line
+    tables come out of their matmul with the line parts innermost (strides
+    (lp * c1, 1, lp) on the CPU and on the H100; ops/distance.py
+    subpart_sqdist_tables), so they are copied first.
+
+    Returns (packed (n, lp) codes, t3 (n,) float32, the query-independent
+    term sum_lp (lambda^2 - lambda) * pair[lp, A, B]).
+    """
+    # imported here: the kernel's module imports this one
+    from pqt_tpu_torch.ops.cuda import linecodes as kernel
+    packed, terms = kernel.line_codes(part_dists.contiguous(),
+                                      pair_dists.contiguous(), lambda_bits)
+    return packed, torch.sum(terms, dim=-1)
 
 
 def line_code_t3(packed: torch.Tensor,
