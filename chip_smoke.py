@@ -2481,6 +2481,105 @@ def graph_checks(torch, label, modes, eager, out, eager_out, qd, batch,
                        "mib": held}}
 
 
+STAGE_MARK_REPS = 3
+
+
+def _device_records(torch, prof) -> list:
+    """(name, start_us, end_us) of a session's device events, in order."""
+    return sorted(((e.name, float(e.time_range.start),
+                    float(e.time_range.end)) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda d: d[1])
+
+
+def stage_mark_checks(torch, label, fn, x, graphs, kind):
+    """The stage marks (pqt_tpu_torch/utils/tracing.py) of the graph that
+    serves fn(x), an entry of `graphs`, on the card: with the profiler off
+    every mark node reads disabled (cudaGraphNodeGetEnabled) and an eager
+    call launches no mark; while a session records, each of
+    STAGE_MARK_REPS replays shows the `kind`'s marks once, in the order of
+    STAGES, and no device event bears a `pqt.` name; once it stops, the
+    next replay's nodes read disabled again; every output, marks on or
+    off, equal to the bit.  Prints and returns the marks' summed device
+    time a replay, and what a session drops first: a session that starts
+    with the replays (no pads) tells whether its lost records are marks."""
+    from torch.profiler import ProfilerActivity, profile
+    from pqt_tpu_torch.utils import graphs as G
+    from pqt_tpu_torch.utils import tracing
+    want = [st for st in tracing.STAGES if st.startswith(kind + ".")]
+    before = {id(e): e.replays for e in graphs.values()}
+    off = fn(x)
+    torch.cuda.synchronize()
+    served = [e for e in graphs.values() if e.replays > before.get(id(e), 0)]
+    if len(served) != 1:
+        raise SmokeFailure(f"{label}: {len(served)} graphs replayed, not 1")
+    marks = served[0].marks
+
+    def disabled():
+        return not any(tracing.node_enabled(ex, node)
+                       for _, ex, node, _ in marks.nodes)
+
+    nodes = sorted(tracing.STAGES[i] for *_, i in marks.nodes)
+    off_disabled = disabled()
+    launched = []
+    launch = tracing._launch
+    tracing._launch = lambda i, d: (launched.append(i), launch(i, d))[1]
+    try:
+        with G.eager():
+            eager_out = fn(x)
+        torch.cuda.synchronize()
+    finally:
+        tracing._launch = launch
+    sessions, outs = {}, [eager_out]
+    for pads in (0, TRACE_PAD):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if pads:
+                pad_trace(torch)
+            outs += [fn(x) for _ in range(STAGE_MARK_REPS)]
+            torch.cuda.synchronize()
+        dev = _device_records(torch, prof)
+        seen = [(tracing.STAGES[int(n.split("<", 1)[1].split(">", 1)[0])],
+                 e - s) for n, s, e in dev if tracing.MARK_KERNEL in n]
+        sessions[pads] = {
+            "pads_kept": sum(PAD_KERNEL in d[0] for d in dev),
+            "marks_kept": len(seen), "marks_launched":
+                len(want) * STAGE_MARK_REPS,
+            "first_record": dev[0][0][:80] if dev else None,
+            "marks": [m for m, _ in seen], "mark_us": [d for _, d in seen],
+            "pqt_device_events": sorted({d[0] for d in dev
+                                         if d[0].startswith("pqt.")})}
+    after = fn(x)
+    torch.cuda.synchronize()
+    after_disabled = disabled()
+    outs.append(after)
+    equal = all(same_output(torch, o, off) for o in outs)
+    padded = sessions[TRACE_PAD]
+    in_order = padded["marks"] == want * STAGE_MARK_REPS
+    mark_us = sum(padded["mark_us"]) / STAGE_MARK_REPS
+    bare = sessions[0]
+    lost = bare["marks_launched"] - bare["marks_kept"]
+    print(f"{label}: mark nodes {nodes}; profiler off: every node "
+          f"{'disabled' if off_disabled else 'NOT disabled'}, an eager call "
+          f"launched {len(launched)} marks; profiled: {STAGE_MARK_REPS} "
+          f"replays show their marks {'once each, in order' if in_order else 'OUT OF ORDER: ' + str(padded['marks'])}, "
+          f"{mark_us:.3f} us of marks a replay, device events named pqt.: "
+          f"{padded['pqt_device_events'] + bare['pqt_device_events']}; "
+          f"after the session every node "
+          f"{'disabled' if after_disabled else 'NOT disabled'}; outputs "
+          f"{'equal' if equal else 'DIFFER'} to the bit, marks on and off; "
+          f"a session that starts with the replays kept {bare['marks_kept']} "
+          f"of {bare['marks_launched']} marks (its first record "
+          f"{bare['first_record']!r}), one that starts with {TRACE_PAD} pads "
+          f"kept {padded['pads_kept']} pads", flush=True)
+    if nodes != sorted(want) or not (off_disabled and after_disabled) \
+            or launched or not in_order or not equal \
+            or padded["pqt_device_events"] or bare["pqt_device_events"]:
+        raise SmokeFailure(f"{label}: the stage marks failed their check")
+    return {"nodes": nodes, "mark_us_per_replay": mark_us,
+            "dropped_marks_unpadded": lost, "sessions": sessions}
+
+
 def graph_summary(path):
     """A served path's numbers of its replays against its eager bodies."""
     return {k: path[k] for k in ("eager_serving", "profiles",
@@ -2543,6 +2642,9 @@ def query_paths(torch, P):
         torch, "pair path", qd=qd, required=PAIR_KERNELS + EXACT_KERNELS,
         cfg=cfg, db=db, reference=(ROUND5, "round 5"),
         **modes_of(cfg, db, all_modes))}
+    stage_marks = {"sift1m_exact": stage_mark_checks(
+        torch, "SIFT1M exact query", paths["pair"]["modes"]["exact"],
+        qd[:BATCH], P.query_knn.graphs, "query")}
     # the pair path's reference counts include its train and build
     paths["pair"]["launches"] = {k: n + built[k] for k, n in
                                  paths["pair"]["launches"].items()}
@@ -2582,7 +2684,7 @@ def query_paths(torch, P):
     gt = brute_force_phase(torch, data, qd)
     failed, changed = [], []
     summary = {"train_s": train_s, "build_s": build_s, "paths": {},
-               "train_build": train_build}
+               "train_build": train_build, "stage_marks": stage_marks}
     for label, path in paths.items():
         c = path["cfg"]
         metrics = path_recall(torch, label, path["outputs"], gt)
@@ -2758,10 +2860,10 @@ def sift1b_database(torch, P, workdir):
 def encode_file(P, cfg, tree, data, s, path):
     """The SIFT1B fixture's (on the card) N_1B_CHUNK rows from row s
     brought to the host and encoded into the chunk file `path`: (seconds,
-    the encode's stages in seconds, models/db.py encode_spans, with the
+    the encode's stages in seconds, utils/tracing.py encode_spans, with the
     copy to the host as "fixture_download")."""
-    from pqt_tpu_torch.models import db as DB
-    DB.encode_spans = spans = {}
+    from pqt_tpu_torch.utils import tracing
+    tracing.encode_spans = spans = {}
     try:
         t0 = time.perf_counter()
         rows = data[s:s + N_1B_CHUNK].cpu().numpy()
@@ -2770,7 +2872,7 @@ def encode_file(P, cfg, tree, data, s, path):
                                device="cuda")
         return time.perf_counter() - t0, spans
     finally:
-        DB.encode_spans = None
+        tracing.encode_spans = None
 
 
 def add_spans(total, spans):
@@ -2845,6 +2947,10 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
           f"and payload rows {'equal' if plain_eq else 'DIFFER from'} "
           "those of the chunk encoded through line_codes_plain on the card"
           + (" to the bit" if plain_eq else ""), flush=True)
+    out["stage_marks"] = {"sift1b_chunk_encoder": stage_mark_checks(
+        torch, "SIFT1B chunk encoder",
+        lambda xb: DB.chunk_encoder(cfg, tree, xb, offset, occ), x,
+        DB.chunk_encoder.graphs, "encode")}
     with G.eager():
         etree, train_s, steps = trained(torch, P, cfg, data[:N_1B_TRAIN])
         tree_eq = same_leaves(torch, tree, etree, TREE_LEAVES)
@@ -2937,6 +3043,9 @@ def sift1b_phase(torch, P, workdir):
                       ("bitonic_topk:merge", "bitonic_topk:cluster"),
                       batch=BATCH_1B, eager=modes_of(True))
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    build["stage_marks"]["sift1b_exact"] = stage_mark_checks(
+        torch, "SIFT1B exact query", path["modes"]["exact"], qd[:BATCH_1B],
+        P.query_knn.graphs, "query")
     print(f"sift1b: device memory held after the load {loaded_gib:.2f} GiB "
           f"(tables, payload, vectors_csr, the data by id, the tree), "
           f"peak while serving {serve_peak:.2f} GiB", flush=True)

@@ -38,6 +38,14 @@ replays the rest.  `chunk_codes` is the data-parallel encode's program
 by design: a build calls it once, so its graph would be captured and never
 replayed, and its pool would hold the sorted payload (n x 72 B at SIFT1B
 width) for nothing.
+
+The build marks its stages on the device (utils/tracing.py):
+`build.upload`, `build.encode`, `build.assemble` and `build.end` in
+`build_database` (which calls `_assemble_device` by this module's name,
+once a build), and each chunk's `encode.part_codes`, `encode.payload` and
+`encode.end` inside the chunk encoder's graph.  The out-of-core encode
+marks each step as a build of its own and times its stages in seconds
+while a caller holds `tracing.encode_spans`.
 """
 
 from __future__ import annotations
@@ -45,7 +53,6 @@ from __future__ import annotations
 import functools
 import os
 import threading
-import time
 import warnings
 from typing import NamedTuple, Optional
 
@@ -57,6 +64,7 @@ from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
                                        line_tables)
 from pqt_tpu_torch.ops import binning, linecodes
 from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk
+from pqt_tpu_torch.utils import tracing
 from pqt_tpu_torch.utils.device import resolve_device
 from pqt_tpu_torch.utils.graphs import graphed
 
@@ -229,9 +237,11 @@ def _encode_core(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor):
     """One chunk's rows, cast to float32 on their device, encoded: (part
     codes (C, p) int64, bins (C,) int32, wide line codes (C, lp), t3 (C,)
     float32)."""
+    tracing.mark("encode.part_codes", chunk.device)
     chunk = chunk.to(torch.float32)
     pc = encode_part_codes(cfg, tree, chunk)
     bins = binning.hashed_bin_ids(pc, cfg.part_radix, cfg.hash_size)
+    tracing.mark("encode.payload", chunk.device)
     codes, t3 = encode_line_codes(cfg, tree, chunk)
     return pc, bins, codes, t3
 
@@ -279,6 +289,7 @@ def chunk_encoder(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor,
     bins, pc, rows = _encode_chunk(cfg, tree, chunk, id_offset)
     if pair_occ is not None:
         _pair_occ_device(cfg, pc, pair_occ)
+    tracing.mark("encode.end", chunk.device)
     return bins, pc, rows
 
 
@@ -288,6 +299,7 @@ def chunk_codes(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor):
     chunk: the data-parallel encode's program, a CUDA graph a key on the
     card as `chunk_encoder`."""
     _, bins, codes, t3 = _encode_core(cfg, tree, chunk)
+    tracing.mark("encode.end", chunk.device)
     return bins, codes, t3
 
 
@@ -295,32 +307,6 @@ def _offset(id_offset: int, dev: torch.device) -> torch.Tensor:
     """A chunk's id offset as the 0-d int32 tensor `chunk_encoder` copies
     in (a fill on the device, no host copy)."""
     return torch.full((), id_offset, dtype=torch.int32, device=dev)
-
-
-# Seconds of the host encode's stages (`_encode_host` and the chunk files),
-# summed over calls while a caller holds a dict here: "upload", "encode"
-# (to the end of the chunk's device work), "download" (the `.cpu()`
-# copies) and "save" (np.savez).  Each stage ends with a device
-# synchronisation.  None: nothing is timed and no synchronisation added.
-encode_spans: Optional[dict] = None
-
-
-class _Spans:
-    """Adds the seconds since the last mark to encode_spans[name]; a no-op
-    while encode_spans is None."""
-
-    def __init__(self, dev: torch.device):
-        self.spans, self.dev = encode_spans, dev
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.spans is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.spans[name] = self.spans.get(name, 0.0) + now - self.t
-        self.t = now
 
 
 def build_database(cfg: PQTConfig, tree: PQTree, data,
@@ -343,10 +329,12 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
     if n > np.iinfo(np.int32).max:
         raise NotImplementedError("CSR positions exceed int32; shard the "
                                   "build")
+    tracing.mark("build.upload", dev)
     pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
                             dtype=torch.uint8, device=dev)
                 if cfg.pair_filter_enabled else None)
     vectors = torch.as_tensor(data, device=dev) if keep_vectors else None
+    tracing.mark("build.encode", dev)
     bins_l, packed_l = [], []
     for s in range(0, n, encode_chunk):
         chunk = (vectors[s:s + encode_chunk] if vectors is not None else
@@ -355,8 +343,10 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
                                             pair_occ)
         bins_l.append(bins_c)
         packed_l.append(packed_c)
+    tracing.mark("build.assemble", dev)
     prefix, counts, prefix2, payload = _assemble_device(
         cfg, torch.cat(bins_l), torch.cat(packed_l))
+    tracing.mark("build.end", dev)
     return PQTDatabase(prefix=prefix, counts=counts, payload=payload,
                        pair_occ=pair_occ, vectors=vectors, prefix2=prefix2)
 
@@ -444,22 +434,26 @@ def _encode_host(cfg: PQTConfig, tree: PQTree, data: np.ndarray,
     """Encode host rows on the tree's device, `encode_chunk` rows a step
     (uint8 rows go up raw and are cast there): (bins (n,) int32, payload
     rows (n, payload_width) int32) on the host; pair_occ, on the device, is
-    marked in place."""
+    marked in place.  Each step's device work is marked as a build of its
+    own (utils/tracing.py), whose CSR the host assembles."""
     dev = tree.cb1.device
     n = data.shape[0]
     bins = np.empty((n,), np.int32)
     packed = np.empty((n, payload_width(cfg)), np.int32)
-    spans = _Spans(dev)
+    seconds = tracing.Seconds(dev)
     for s in range(0, n, encode_chunk):
+        tracing.mark("build.upload", dev)
         chunk = torch.as_tensor(data[s:s + encode_chunk], device=dev)
-        spans.mark("upload")
+        seconds.end("upload")
+        tracing.mark("build.encode", dev)
         bins_c, _, packed_c = chunk_encoder(cfg, tree, chunk,
                                             _offset(id_offset + s, dev),
                                             pair_occ)
-        spans.mark("encode")
+        tracing.mark("build.end", dev)
+        seconds.end("encode")
         bins[s:s + encode_chunk] = bins_c.cpu().numpy()
         packed[s:s + encode_chunk] = packed_c.cpu().numpy()
-        spans.mark("download")
+        seconds.end("download")
     return bins, packed
 
 
@@ -522,9 +516,9 @@ class ChunkedDBBuilder:
             arrays = dict(bins=bins, packed=packed)
             if self.keep_vectors:
                 arrays["vecs"] = data
-            spans = _Spans(self.device)
+            seconds = tracing.Seconds(self.device)
             np.savez(path, **arrays)
-            spans.mark("save")
+            seconds.end("save")
             self._chunks.append(path)
         else:
             self._chunks.append((bins, packed))
@@ -627,9 +621,9 @@ def encode_chunk_to_file(cfg: PQTConfig, tree: PQTree, data, id_offset: int,
             arrays["vecs"] = data
         if pair_occ is not None:
             arrays["pair_occ"] = pair_occ.cpu().numpy()
-    spans = _Spans(tree.cb1.device)
+    seconds = tracing.Seconds(tree.cb1.device)
     np.savez(path, **arrays)
-    spans.mark("save")
+    seconds.end("save")
     return data.shape[0]
 
 

@@ -44,6 +44,14 @@ The entry points `query_knn`, `query_candidates` and `query_knn_refine`
 are `graphed` with the JAX package's static arguments: on the card each
 key is captured once as a CUDA graph and replayed (utils/graphs.py);
 `__wrapped__` is the eager body.
+
+The shared helpers mark where each stage starts on the device
+(utils/tracing.py): `query.tables` (`_part_candidates`), `query.pair`
+(the rest of `_pair_stage`, or the parts' sort), `query.probe`
+(`_enumerate_bins_pair`, `_enumerate_bins`), `query.candidates`
+(`_line_rerank`, the exact core's row gather), `query.rerank`
+(`_exact_top` or the line top-k), and each entry point its end
+(`query.end`), so the exact and the line path carry the same marks.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from pqt_tpu_torch.ops.cuda.gather import gather_rows, lut_gather
 from pqt_tpu_torch.ops.cuda.primitives import (bitonic_topk, block_scan,
                                                gather_sqdist)
 from pqt_tpu_torch.ops.cuda.rerank import gather_rerank
+from pqt_tpu_torch.utils import tracing
 from pqt_tpu_torch.utils.graphs import graphed
 
 _INF = float("inf")
@@ -132,6 +141,7 @@ def _part_candidates(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor):
     """Per part, the k1_query best L1 cells x all c2 refinements: (d2 (B, p,
     L) level-2 distances, codes (B, p, L) int64 part codes l1*c2 + l2),
     L = k1_query * c2, in (L1 rank, l2) order."""
+    tracing.mark("query.tables", queries.device)
     W = cfg.k1_query
     d1 = level1_tables(cfg, tree, queries)               # (B, p, c1)
     d2 = level2_tables(cfg, tree, queries)               # (B, p, c1, c2)
@@ -162,6 +172,7 @@ def _pair_stage(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor,
     the database get +inf and sort behind every live pair.
     """
     flat_d2, codes = _part_candidates(cfg, tree, queries)
+    tracing.mark("query.pair", queries.device)
     B, p, L = flat_d2.shape
     weights, exact = _part_hash_weights(cfg)
     M = min(cfg.pair_top_m, L * L)
@@ -200,6 +211,7 @@ def _enumerate_bins_pair(cfg: PQTConfig, h_pairs: torch.Tensor,
     Bin e composes pair ranks pair_sequence(M, E)[e] by adding the two
     partial terms mod 2^32 (the mixing hash is a sum over parts).
     """
+    tracing.mark("query.probe", h_pairs.device)
     B, n_pairs, M = h_pairs.shape
     E = min(cfg.effective_enum_width, M * M if n_pairs == 2 else M)
     if n_pairs == 1:
@@ -243,6 +255,7 @@ def _sorted_part_lists(cfg: PQTConfig, tree: PQTree, queries: torch.Tensor):
     ties in candidate order (kernel A, like the JAX package's stable
     argsort): (sorted_d2 (B, p, L), sorted_codes (B, p, L) int64)."""
     flat_d2, codes = _part_candidates(cfg, tree, queries)
+    tracing.mark("query.pair", queries.device)
     sorted_d2, order = _topk(flat_d2, flat_d2.shape[-1])
     return sorted_d2, torch.gather(codes, 2, order)
 
@@ -277,6 +290,7 @@ def _enumerate_bins(cfg: PQTConfig, sorted_d2: torch.Tensor,
     Returns (bins (B, max_bins) local slot ids, bin_counts (B, max_bins));
     slots past the last non-empty bin have count 0.
     """
+    tracing.mark("query.probe", sorted_codes.device)
     B, p, L = sorted_codes.shape
     base = min(L, 16)                  # reference clamps to 16 (ProTree.cu:135)
     n_enum = min(cfg.bin_enum_factor * cfg.max_bins, base ** p)
@@ -390,6 +404,7 @@ def _line_rerank(cfg: PQTConfig, tree: PQTree, payload, queries, start, cnt,
                  k: int, want_candidates: bool):
     """Candidate positions, ids and line distances (kernel C) and top-k
     (kernel A): the shared tail of both pipelines' cores."""
+    tracing.mark("query.candidates", queries.device)
     positions, valid = _candidate_positions(cfg, payload.shape[0], start,
                                             cnt)
     cand_ids, dists = _line_candidates(cfg, tree, payload, queries,
@@ -399,6 +414,7 @@ def _line_rerank(cfg: PQTConfig, tree: PQTree, payload, queries, start, cnt,
     n_cand = torch.sum(valid, dim=-1)
     if want_candidates:
         return cand_ids, dists, n_cand, positions
+    tracing.mark("query.rerank", queries.device)
     return _top_ids(dists, cand_ids, k) + (n_cand,)
 
 
@@ -466,8 +482,10 @@ def query_core_exact(cfg: PQTConfig, tree: PQTree, prefix2, payload,
         bins, cnt = _probe_parts(cfg, tree, counts, queries, pair_occ,
                                  bin_offset)
         start = gather_rows(prefix2, bins.contiguous())[..., 0]
+    tracing.mark("query.candidates", queries.device)
     rows, valid, positions = _collect_rows(cfg, payload, start, cnt)
     cand_ids = rows[..., 0]
+    tracing.mark("query.rerank", queries.device)
     dists = torch.where(valid, _row_sqdist(
         queries, vectors_csr, torch.where(valid, positions, 0)), _INF)
     if cfg.dedup_candidates:
@@ -482,6 +500,7 @@ def _parts_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     int32, the payload's first row where invalid; valid (B, K))."""
     bins, bin_counts = _probe_parts(cfg, tree, db.counts, queries,
                                     db.pair_occ)
+    tracing.mark("query.candidates", queries.device)
     positions, valid = binning.gather_candidates(
         lut_gather(db.prefix, bins.contiguous()), bin_counts,
         cfg.max_candidates,
@@ -501,6 +520,7 @@ def _pad_k(ids, dists, k):
 def _exact_top(queries, table, positions, cand_ids, valid, k):
     """The top-k (kernel A) of the candidates by exact squared distance
     from their raw rows table[positions] (0 where invalid): (ids, dists)."""
+    tracing.mark("query.rerank", queries.device)
     return _top_ids(torch.where(valid, _row_sqdist(queries, table, positions),
                                 _INF), cand_ids, k)
 
@@ -521,6 +541,16 @@ def query_knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     The exact re-rank reads db.vectors by id, or, for an out-of-core
     database that holds only vectors_csr, those by CSR position
     (query_core_exact)."""
+    out = _knn(cfg, tree, db, queries, k, exact_rerank)
+    tracing.mark("query.end", queries.device)
+    return out
+
+
+def _knn(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
+         queries: torch.Tensor, k: int,
+         exact_rerank: bool = False) -> QueryResult:
+    """query_knn's work, up to its end mark (query_knn_refine's first
+    stage)."""
     queries = queries.to(torch.float32)
     if exact_rerank and db.vectors is None:
         _require_vectors(db, "exact re-rank")
@@ -564,11 +594,15 @@ def query_candidates(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     queries = queries.to(torch.float32)
     if not cfg.pair_pipeline_enabled:
         cand_ids, valid = _parts_candidates(cfg, tree, db, queries)
-        return torch.where(valid, cand_ids, -1), valid
+        cand_ids = torch.where(valid, cand_ids, -1)
+        tracing.mark("query.end", queries.device)
+        return cand_ids, valid
     cand_ids, line_d, _, _ = query_core_pair(
         cfg, tree, db.prefix2, db.payload, queries, 0,
         pair_occ=db.pair_occ, want_candidates=True)
-    return cand_ids, torch.isfinite(line_d)
+    valid = torch.isfinite(line_d)
+    tracing.mark("query.end", queries.device)
+    return cand_ids, valid
 
 
 @graphed(static_argnums=(0, 4, 5, 6))
@@ -583,7 +617,7 @@ def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
     queries = queries.to(torch.float32)
     k1 = k_line or k * refine_factor
     if db.vectors is not None:
-        stage1 = query_knn.__wrapped__(cfg, tree, db, queries, k1)
+        stage1 = _knn(cfg, tree, db, queries, k1)
         ids1, n_cand = stage1.indices, stage1.n_candidates
         table, rows_at = db.vectors, torch.where(ids1 >= 0, ids1, 0)
     else:
@@ -602,4 +636,5 @@ def query_knn_refine(cfg: PQTConfig, tree: PQTree, db: PQTDatabase,
         rows_at = torch.where(live, torch.gather(pos, 1, idx1), 0)
     ids, dists = _exact_top(queries, table, rows_at, ids1, ids1 >= 0, k)
     ids, dists = _pad_k(ids, dists, k)
+    tracing.mark("query.end", queries.device)
     return QueryResult(indices=ids, dists=dists, n_candidates=n_cand)

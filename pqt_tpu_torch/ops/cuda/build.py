@@ -3,9 +3,10 @@
 The sources: `topk.cu` (kernel A, row top-k), `scan.cu` (B, row prefix
 sums), `rerank.cu` (C, line re-rank by position), `reduce.cu` (D, segment
 sums), `lut.cu` (E/F/G, table lookup), `gather.cu` (H, row gather),
-`sqdist.cu` (H and D fused for the exact re-rank) and `linecodes.cu` (L,
+`sqdist.cu` (H and D fused for the exact re-rank), `linecodes.cu` (L,
 the build's line-code selection, the port's own fusion of what XLA fuses
-in the JAX package's encode).  Each `.cu` source has a
+in the JAX package's encode) and `mark.cu` (the stage marks of
+utils/tracing.py, and the switch of their nodes in a captured graph).  Each `.cu` source has a
 plain C interface and is compiled by `nvcc` into its
 own shared library for Hopper (`sm_90a`), then loaded with ctypes.  No
 source includes PyTorch's headers, so a build takes seconds.  The libraries
@@ -63,6 +64,10 @@ _SIGNATURES = {
                                       _P), _I)},
     "linecodes": {"pqt_line_codes": ((_P, _P, _I, _I, _I, _I, _P, _P, _P),
                                      _I)},
+    "mark": {"pqt_stage_mark": ((_I, _P), _I),
+             "pqt_graph_marks": ((_P, _P, _P, _I, _P), _I),
+             "pqt_graph_node_set_enabled": ((_P, _P, _I), _I),
+             "pqt_graph_node_get_enabled": ((_P, _P, _P), _I)},
 }
 
 _lock = threading.Lock()

@@ -49,6 +49,20 @@ Kernel launch counters (`<wrapper>.launches` and the counts by mode): the
 capture adds nothing to them, and each replay adds what the capture
 recorded, so the counts stay the launches that ran on the card.
 
+Tracing (utils/tracing.py).  A capture keeps its cudaGraph_t
+(`torch.cuda.CUDAGraph(keep_graph=True)`, then `instantiate()`), so the
+entry can find the stage marks the body recorded: each mark is one
+kernel node, found by its kernel function (`tracing.GraphMarks`).  A
+replay compares the profiler's state with the state of the entry's mark
+nodes and calls cudaGraphNodeSetEnabled on them only when the two differ:
+with the profiler off a replay runs no mark, and no graph is captured
+again for the profiler's sake, since the key never holds its state.  The
+wrapper opens two host spans, live only while the profiler records and
+around host work that launches nothing: `pqt.graph.key`, from the call's
+entry through the binding of its arguments, the key and the lookup of the
+entry, and `pqt.graph.count`, the launch counters a replay adds.  A
+loop's step (`CapturedLoop`, below) marks nothing.
+
 An entry is a list of stages, each one graph on one device
 (`CapturedQuery`).  An entry point is one stage.  The sharded query step
 (parallel/sharded.py, the counterpart of jax.jit over shard_map) is one
@@ -96,6 +110,8 @@ from collections.abc import Mapping
 from typing import Callable, NamedTuple, Sequence
 
 import torch
+
+from pqt_tpu_torch.utils import tracing
 
 CAPTURE_ERROR_MODE = "thread_local"
 
@@ -210,18 +226,20 @@ def _capture_stream(device: torch.device):
 def _record(fn: Callable, args: tuple, device: torch.device,
             generators=()):
     """Capture fn(*args) on `device` into a CUDA graph with a private pool,
-    `generators` (torch.Generator) registered with it: (graph, outputs,
-    device bytes the pool reserved)."""
+    `generators` (torch.Generator) registered with it, and instantiate it;
+    the graph keeps its cudaGraph_t (keep_graph), whose mark nodes the
+    entry switches: (graph, outputs, device bytes the pool reserved)."""
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()        # so the pool's growth is what it holds
     reserved = torch.cuda.memory_reserved(device)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     for gen in generators:
         graph.register_generator_state(gen)
     with torch.cuda.device(device), torch.cuda.graph(
             graph, stream=_capture_stream(device),
             capture_error_mode=CAPTURE_ERROR_MODE):
         out = fn(*args)
+    graph.instantiate()
     return graph, out, torch.cuda.memory_reserved(device) - reserved
 
 
@@ -330,6 +348,7 @@ class CapturedQuery:
         # and one after the last stage that those devices wait on
         self.ready = {d: _event() for d, _ in self.stages[:-1] if d != last}
         self.done = _event() if self.ready else None
+        self.marks = tracing.GraphMarks(self.stages)
 
     @property
     def graph(self):
@@ -341,6 +360,7 @@ class CapturedQuery:
             raise RuntimeError("this graph runs collectives of a process "
                                "group that has been destroyed; clear the "
                                "graphs before destroying their group")
+        self.marks.sync()
         _copy_in(self.queries, queries)
         *firsts, (last, graph) = self.stages
         for d, g in firsts:
@@ -354,7 +374,8 @@ class CapturedQuery:
         graph.replay()
         if self.done is not None:
             self.done.record(_stream(last))
-        _add(self.launches)
+        with tracing.span("pqt.graph.count"):
+            _add(self.launches)
         self.replays += 1
         return _clone(self.outputs)
 
@@ -413,20 +434,33 @@ def graphed(static_argnums: Sequence[int],
                 args[i] = b
             return tuple(args)
 
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
+        def lookup(args, kwargs):
+            """(positional args, inputs, key, entry); key None where the
+            call is not served by a graph."""
             args = positional(args, kwargs)
             ins = tuple(args[i] for i in at)
             if not _served(ins[0]):
-                return fn(*args)
+                return args, ins, None, None
             dev = ins[0].device
             for name, x in zip(inputs, ins):
                 if not isinstance(x, torch.Tensor) or x.device != dev:
                     raise TypeError(f"{fn.__name__}: `{name}` is not a "
                                     f"tensor on {dev}")
+            key = key_of(args)
+            return args, ins, key, graphs.get(key)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with tracing.span("pqt.graph.key"):
+                args, ins, key, entry = lookup(args, kwargs)
+            if key is None:
+                return fn(*args)
+            queries = ins if len(at) > 1 else ins[0]
+            if entry is not None:
+                return entry.replay(queries)
+            dev = ins[0].device
             return replay_or_capture(
-                graphs, lock, key_of(args), ins if len(at) > 1 else ins[0],
-                lambda: fn(*args),
+                graphs, lock, key, queries, lambda: fn(*args),
                 lambda: [Stage(dev, fn, lambda q, _: with_inputs(args, q))])
 
         wrapper.graphs = graphs
