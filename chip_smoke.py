@@ -63,6 +63,9 @@ Phases (any failure exits non-zero before the last line is printed):
      a train at the configuration's own kmeans_iters (30) on the 200k rows
      runs replayed and eager, and replayed again with each block of Lloyd
      steps between two reads of `done` (LLOYD_BLOCKS), every tree equal;
+     the build's chunked upload (pinned slots, a copy stream) with and
+     without raw vectors equals, in every leaf to the bit, a frozen copy
+     of the body before it (`serial_build`: every row up first);
   5. the parts path on the same tree and database: the parts pipeline with
      the pair filter through the same four entry points, then exact, line
      and query_candidates again with slab gathers (32 rows a slab);
@@ -114,7 +117,11 @@ Phases (any failure exits non-zero before the last line is printed):
      device encode, the copies back, np.savez -- with rows a second and a
      65536-row chunk's p50, replayed, eager and eager through kernel L's
      plain version, one chunk of each profiled; the replayed chunk's bins,
-     part codes and payload rows equal to the plain route's to the bit),
+     part codes and payload rows equal to the plain route's to the bit;
+     the chunked upload of 8M host rows held to `serial_build` as at
+     SIFT1M width, and one build of them profiled: no pageable copy to
+     the card, one pinned copy and one slot fill a chunk, every chunk
+     staged, and the share of the copies' time that kernels overlap),
      merge them on the host into a spilled CSR database,
      save it with raw sidecars (adopting the spill files), load it onto
      the card, and serve 1024 queries in batches of 64 through exact and
@@ -171,6 +178,7 @@ busy ms, idle share).
 Timings are the card's, with its name and power limit printed beside them.
 """
 
+import bisect
 import contextlib
 import json
 import os
@@ -391,6 +399,9 @@ N_DB, N_TRAIN, N_QUERIES, BATCH, K = 1_000_000, 200_000, 1024, 256, 100
 # smoke's run time) in chunk files of 2M, a tree trained on 200k, 1024
 # queries in batches of 64, and its recall floors.
 N_1B, N_1B_TRAIN, N_1B_CHUNK, BATCH_1B = 10_000_000, 200_000, 2_000_000, 64
+# the host rows of the SIFT1B-width upload checks: 123 chunks, the last
+# one short
+N_OVERLAP = 8_000_000
 SIFT1B_FLOORS = {"exact_R@1": 0.95, "refine_R@1": 0.95,
                  "candidate_recall": 0.95, "line_top10_intersection": 0.5,
                  "big_perfect_R@1": 0.95}
@@ -2183,6 +2194,7 @@ DB_LEAVES = ("prefix", "counts", "payload", "pair_occ", "vectors", "prefix2")
 LLOYD_BLOCKS = (1, 2, 4, 8)
 ENCODE_CHUNK = 65536            # the builds' default encode chunk
 CHUNK_REPS = 20
+UPLOAD_REPS = 3                 # warm builds timed a side, staged and serial
 
 
 def build_caches():
@@ -2349,6 +2361,159 @@ def train_build_phase(torch, P, cfg, data, tree, db, times):
         raise SmokeFailure("the 30-iteration train: a replayed tree differs "
                            "from the eager one")
     out["own_iters"] = t30
+    return out
+
+
+def serial_build(torch, cfg, tree, data, keep_vectors,
+                 encode_chunk=ENCODE_CHUNK):
+    """A frozen copy of build_database's body before its chunked upload:
+    every row up first in one pageable copy (without keep_vectors, each
+    chunk in one), then the chunk encoder over the chunks, then the CSR
+    assembly."""
+    from pqt_tpu_torch.models import db as DB
+    dev = tree.cb1.device
+    n = data.shape[0]
+    pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
+                            dtype=torch.uint8, device=dev)
+                if cfg.pair_filter_enabled else None)
+    vectors = torch.as_tensor(data, device=dev) if keep_vectors else None
+    bins_l, packed_l = [], []
+    for s in range(0, n, encode_chunk):
+        chunk = (vectors[s:s + encode_chunk] if vectors is not None else
+                 torch.as_tensor(data[s:s + encode_chunk], device=dev))
+        bins_c, _, packed_c = DB.chunk_encoder(cfg, tree, chunk,
+                                               DB._offset(s, dev), pair_occ)
+        bins_l.append(bins_c)
+        packed_l.append(packed_c)
+    prefix, counts, prefix2, payload = DB._assemble_device(
+        cfg, torch.cat(bins_l), torch.cat(packed_l))
+    return DB.PQTDatabase(prefix=prefix, counts=counts, payload=payload,
+                          pair_occ=pair_occ, vectors=vectors,
+                          prefix2=prefix2)
+
+
+def covered_share(spans, cover):
+    """The share of the summed lengths of `spans` ((start, end) pairs)
+    that the union of `cover` overlaps."""
+    merged = []
+    for s, e in sorted(cover):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    ends = [e for _, e in merged]
+    total = covered = 0.0
+    for s, e in spans:
+        total += e - s
+        for cs, ce in merged[bisect.bisect_right(ends, s):]:
+            if cs >= e:
+                break
+            covered += min(e, ce) - max(s, cs)
+    return covered / total if total > 0 else None
+
+
+def profiled_upload(torch, P, cfg, tree, data):
+    """One staged build (keep_vectors, graphs warm) under the profiler:
+    its pageable and pinned host-to-device copies, the share of the
+    pinned copies' time that kernels (no marks or pads) overlap, the
+    chunks it staged, and its `pqt.build.stage` (host us a thousand rows)
+    and `pqt.build.wait` spans."""
+    from torch.profiler import ProfilerActivity, profile
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.utils import tracing
+    before = DB.build_database.chunks_staged
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_trace(torch)
+        db = P.build_database(cfg, tree, data, keep_vectors=True,
+                              device="cuda")
+        torch.cuda.synchronize()
+    counted = DB.build_database.chunks_staged - before
+    del db
+    dev = _device_records(torch, prof)
+    htod = [d for d in dev if d[0].startswith("Memcpy HtoD")]
+    pinned = [(s, e) for name, s, e in htod if "Pinned" in name]
+    kernels = [(s, e) for name, s, e in dev
+               if not name.startswith(("Memcpy", "Memset"))
+               and PAD_KERNEL not in name and tracing.MARK_KERNEL not in name]
+    spans = {"pqt.build.stage": [0, 0.0], "pqt.build.wait": [0, 0.0]}
+    for e in prof.events():
+        if e.name in spans and \
+                e.device_type != torch.autograd.DeviceType.CUDA:
+            spans[e.name][0] += 1
+            spans[e.name][1] += e.time_range.end - e.time_range.start
+    return {"pageable_htod": sum("Pageable" in d[0] for d in htod),
+            "pinned_htod": len(pinned),
+            "pinned_htod_us": sum(e - s for s, e in pinned),
+            "overlap_share": covered_share(pinned, kernels),
+            "staged_chunks": counted,
+            "stage_spans": spans["pqt.build.stage"][0],
+            "stage_us_per_krow": spans["pqt.build.stage"][1] / (
+                data.shape[0] / 1e3),
+            "wait_spans": spans["pqt.build.wait"][0],
+            "wait_us": spans["pqt.build.wait"][1]}
+
+
+def upload_overlap_checks(torch, P, label, cfg, tree, data, profiled=False):
+    """build_database's chunked upload (models/db.py `_row_chunks`) on the
+    card against `serial_build`, the body before it: with keep_vectors and
+    without, every leaf (pair_occ included) equal to the bit, every chunk
+    counted as staged, and the median seconds of UPLOAD_REPS builds of
+    each, warm and in alternation.  With `profiled`, `profiled_upload`:
+    no pageable copy, and one pinned copy and one fill a chunk.  Prints
+    all beside the card's name and power limit."""
+    from pqt_tpu_torch.models import db as DB
+    card = card_line()
+    n = data.shape[0]
+    chunks = -(-n // ENCODE_CHUNK)
+    out = {"rows": n, "chunks": chunks}
+    ok = True
+    for keep in (True, False):
+        def staged_build():
+            return P.build_database(cfg, tree, data, keep_vectors=keep,
+                                    device="cuda")
+
+        before = DB.build_database.chunks_staged
+        staged = staged_build()
+        counted = DB.build_database.chunks_staged - before
+        serial = serial_build(torch, cfg, tree, data, keep)
+        equal = same_leaves(torch, staged, serial, DB_LEAVES)
+        del staged, serial
+        seconds = {"staged": [], "serial": []}
+        for _ in range(UPLOAD_REPS):
+            seconds["staged"].append(timed(torch, staged_build)[1])
+            seconds["serial"].append(timed(torch, lambda: serial_build(
+                torch, cfg, tree, data, keep))[1])
+        med = {k: float(np.median(v)) for k, v in seconds.items()}
+        ok = ok and equal and counted == chunks
+        out[f"keep_vectors={keep}"] = {"equal": equal, "staged_chunks":
+                                       counted, "seconds": seconds}
+        print(f"{label} upload overlap, keep_vectors={keep}: {n} rows in "
+              f"{chunks} chunks, {counted} staged; build seconds, median of "
+              f"{UPLOAD_REPS} warm: staged {med['staged']:.4f}, serial "
+              f"(upload first) {med['serial']:.4f} ({n / med['staged']:.0f}"
+              f" against {n / med['serial']:.0f} rows/s); every leaf, "
+              f"pair_occ included, {'equal' if equal else 'DIFFERS'} to the "
+              f"bit [{card}]", flush=True)
+    if profiled:
+        p = out["profiled"] = profiled_upload(torch, P, cfg, tree, data)
+        share = p["overlap_share"]
+        print(f"{label} upload overlap, one profiled staged build "
+              f"(keep_vectors): {p['pageable_htod']} pageable and "
+              f"{p['pinned_htod']} pinned host-to-device copies "
+              f"({p['pinned_htod_us']:.1f} us), "
+              f"{share if share is None else round(100 * share, 2)}% of "
+              f"the pinned copies' time overlapped by kernels, "
+              f"{p['staged_chunks']} of {chunks} chunks staged; "
+              f"{p['stage_spans']} fills ({p['stage_us_per_krow']:.3f} host "
+              f"us a thousand rows, profiled), {p['wait_spans']} waits for "
+              f"a slot ({p['wait_us']:.1f} us) [{card}]", flush=True)
+        ok = ok and not p["pageable_htod"] and chunks == p["staged_chunks"] \
+            == p["pinned_htod"] == p["stage_spans"]
+    if not ok:
+        raise SmokeFailure(f"{label}: the chunked upload failed its check: "
+                           f"{out}")
     return out
 
 
@@ -2638,6 +2803,9 @@ def query_paths(torch, P):
     train_build = train_build_phase(
         torch, P, cfg, data, tree, db,
         dict(train_s=train_s, build_s=build_s, train_steps=train_steps))
+    train_build["upload_overlap"] = upload_overlap_checks(
+        torch, P, "SIFT1M", cfg.replace(pair_filter=True), tree, data)
+    clear_build_graphs()
     paths = {"pair": serve_path(
         torch, "pair path", qd=qd, required=PAIR_KERNELS + EXACT_KERNELS,
         cfg=cfg, db=db, reference=(ROUND5, "round 5"),
@@ -2826,6 +2994,10 @@ def sift1b_database(torch, P, workdir):
                                    BUILD_KERNELS)
     build = sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir,
                                 times, spans)
+    build["upload_overlap"] = upload_overlap_checks(
+        torch, P, "SIFT1B", cfg, tree, data[:N_OVERLAP].cpu().numpy(),
+        profiled=True)
+    clear_build_graphs()
     t0 = time.perf_counter()
     host_db = P.merge_chunk_files(cfg, tree, paths, keep_vectors=True,
                                   spill_path=os.path.join(workdir, "spill"),

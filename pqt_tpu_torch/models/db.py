@@ -39,13 +39,21 @@ by design: a build calls it once, so its graph would be captured and never
 replayed, and its pool would hold the sorted payload (n x 72 B at SIFT1B
 width) for nothing.
 
+`build_database` hands the encoder its host rows a chunk at a time
+(`_row_chunks`): on a card each chunk is staged in a ring of pinned host
+slots and copied up on a side stream, so the copy of one chunk and the
+host's fill of the next overlap the encode of the one before.
+
 The build marks its stages on the device (utils/tracing.py):
-`build.upload`, `build.encode`, `build.assemble` and `build.end` in
-`build_database` (which calls `_assemble_device` by this module's name,
-once a build), and each chunk's `encode.part_codes`, `encode.payload` and
-`encode.end` inside the chunk encoder's graph.  The out-of-core encode
-marks each step as a build of its own and times its stages in seconds
-while a caller holds `tracing.encode_spans`.
+`build.upload` (the allocations and the first chunk's copy),
+`build.encode`, `build.assemble` and `build.end` in `build_database`
+(which calls `_assemble_device` by this module's name, once a build), and
+each chunk's `encode.part_codes`, `encode.payload` and `encode.end` inside
+the chunk encoder's graph; the later chunks' copies overlap those.  On the
+host, `pqt.build.stage` spans each fill of a slot and `pqt.build.wait`
+each wait for one.  The out-of-core encode marks each step as a build of
+its own and times its stages in seconds while a caller holds
+`tracing.encode_spans`.
 """
 
 from __future__ import annotations
@@ -309,6 +317,83 @@ def _offset(id_offset: int, dev: torch.device) -> torch.Tensor:
     return torch.full((), id_offset, dtype=torch.int32, device=dev)
 
 
+# Pinned host slots in the ring that stages a build's rows, and without
+# keep_vectors as many device chunk buffers: the host fills one slot while
+# the copy engine empties another, with one more in hand so the host need
+# not wait on the copy just started.
+_RING = 3
+
+
+@functools.cache
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream a build's row copies run on, one a device."""
+    return torch.cuda.Stream(dev)
+
+
+def _host_tensor(rows: np.ndarray) -> torch.Tensor:
+    """Host rows as a CPU tensor, a view where they are contiguous
+    (read-only arrays too: the build only reads them)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.ascontiguousarray(rows))
+
+
+def _row_chunks(data: np.ndarray, vectors: Optional[torch.Tensor],
+                rows: int, dev: torch.device):
+    """Yield (s, data[s:s + rows] as a tensor on dev), in order: a slice of
+    `vectors` where given, which it fills, else of a chunk buffer.  On a
+    card each chunk goes through a ring of _RING pinned host slots: the
+    host waits for the copy that last used the slot (span
+    `pqt.build.wait`), fills it (`pqt.build.stage`) and starts its copy
+    to the device on the device's side stream, on which the current
+    stream waits before the caller encodes the chunk; so the host fills
+    the next slot while the device encodes.  Without vectors the copy
+    first waits for the encode that last read its buffer.  Off a card the
+    chunks are the host rows themselves.  Counted in
+    build_database.chunks_staged and .bytes_staged."""
+    n = data.shape[0]
+    if dev.type != "cuda":
+        for s in range(0, n, rows):
+            chunk = _host_tensor(data[s:s + rows])
+            if vectors is not None:
+                chunk = vectors[s:s + rows].copy_(chunk)
+            _staged(chunk)
+            yield s, chunk
+        return
+    cur, side = torch.cuda.current_stream(dev), _copy_stream(dev)
+    slots = torch.empty((_RING, min(rows, n)) + data.shape[1:],
+                        dtype=_host_tensor(data[:0]).dtype, pin_memory=True)
+    bufs = (torch.empty(slots.shape, dtype=slots.dtype, device=dev)
+            if vectors is None else None)
+    copied = [None] * _RING     # each slot's last copy
+    read = [None] * _RING       # each buffer's last encode
+    # the destinations were allocated on the current stream
+    side.wait_stream(cur)
+    for i, s in enumerate(range(0, n, rows)):
+        k, m = i % _RING, min(rows, n - s)
+        if copied[k] is not None:
+            with tracing.span("pqt.build.wait"):
+                copied[k].synchronize()
+        with tracing.span("pqt.build.stage"):
+            slots[k, :m].copy_(_host_tensor(data[s:s + m]))
+        chunk = vectors[s:s + m] if bufs is None else bufs[k, :m]
+        with torch.cuda.stream(side):
+            if read[k] is not None:
+                side.wait_event(read[k])
+            chunk.copy_(slots[k, :m], non_blocking=True)
+            copied[k] = side.record_event()
+        cur.wait_event(copied[k])
+        _staged(chunk)
+        yield s, chunk
+        if bufs is not None:
+            read[k] = cur.record_event()
+
+
+def _staged(chunk: torch.Tensor) -> None:
+    build_database.chunks_staged += 1
+    build_database.bytes_staged += chunk.nbytes
+
+
 def build_database(cfg: PQTConfig, tree: PQTree, data,
                    keep_vectors: bool = False, encode_chunk: int = 65536,
                    device="cuda") -> PQTDatabase:
@@ -316,15 +401,15 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
 
     data: (n, dim) array-like; uint8 data is uploaded raw and cast on the
     device chunk by chunk.  With keep_vectors the raw vectors stay on the
-    device, by original id, for exact re-rank.
+    device, by original id, for exact re-rank.  The rows go up a chunk at
+    a time (`_row_chunks`), each copy overlapping the encode of the chunk
+    before it.
     """
     dev = resolve_device(device)
     if tree.cb1.device != dev:
         raise ValueError(f"tree is on {tree.cb1.device}, build device is "
                          f"{dev}")
-    data = np.asarray(data)
-    if data.dtype not in (np.uint8, np.float32):
-        data = data.astype(np.float32)
+    data = _host_rows(data)
     n = data.shape[0]
     if n > np.iinfo(np.int32).max:
         raise NotImplementedError("CSR positions exceed int32; shard the "
@@ -333,12 +418,12 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
     pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
                             dtype=torch.uint8, device=dev)
                 if cfg.pair_filter_enabled else None)
-    vectors = torch.as_tensor(data, device=dev) if keep_vectors else None
-    tracing.mark("build.encode", dev)
+    vectors = (torch.empty(data.shape, dtype=_host_tensor(data[:0]).dtype,
+                           device=dev) if keep_vectors else None)
     bins_l, packed_l = [], []
-    for s in range(0, n, encode_chunk):
-        chunk = (vectors[s:s + encode_chunk] if vectors is not None else
-                 torch.as_tensor(data[s:s + encode_chunk], device=dev))
+    for s, chunk in _row_chunks(data, vectors, encode_chunk, dev):
+        if s == 0:      # the upload stage holds the first chunk's copy
+            tracing.mark("build.encode", dev)
         bins_c, _, packed_c = chunk_encoder(cfg, tree, chunk, _offset(s, dev),
                                             pair_occ)
         bins_l.append(bins_c)
@@ -349,6 +434,11 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
     tracing.mark("build.end", dev)
     return PQTDatabase(prefix=prefix, counts=counts, payload=payload,
                        pair_occ=pair_occ, vectors=vectors, prefix2=prefix2)
+
+
+# chunks and bytes of host rows the builds have staged (`_row_chunks`)
+build_database.chunks_staged = 0
+build_database.bytes_staged = 0
 
 
 # ---------------------------------------------------------------------------

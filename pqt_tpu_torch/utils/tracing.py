@@ -31,12 +31,17 @@ The stages, in the order one call marks them:
     the packing and the pair marks;
   * `build.upload`, `build.encode`, `build.assemble`, `build.end`
     (models/db.py `build_database`, and the out-of-core encode's chunks):
-    the rows' upload; the chunk encodes; the CSR assembly.
+    the rows' upload (in `build_database`, the allocations and the first
+    chunk's copy: the later chunks' copies overlap the encodes); the
+    chunk encodes; the CSR assembly.
 
 Host spans (`span`) are record_function ranges, live only while the
 profiler records, around host work that launches nothing: the profiler
 mirrors a range that encloses a launch onto the device's timeline, where
 it would read as device work.  No range of the port encloses a launch.
+The spans: `pqt.graph.key` and `pqt.graph.count` (utils/graphs.py), and
+`pqt.build.stage` and `pqt.build.wait` (models/db.py `_row_chunks`), a
+build's fill of a pinned slot with host rows and its wait for a slot.
 
 `encode_spans`: the out-of-core encode's seconds by stage, summed while a
 caller holds a dict there (`Seconds`); each stage ends with a device

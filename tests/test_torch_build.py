@@ -129,6 +129,62 @@ def test_encode_bins_and_payload_views_match_jax(trees, name):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+UPLOAD_CHUNK = 512
+DB_LEAVES = ("prefix", "counts", "payload", "pair_occ", "vectors", "prefix2")
+
+
+def _upload_rows(base, case):
+    """The host rows of a chunked-upload case, from the fixture's rows."""
+    c = UPLOAD_CHUNK
+    if case == "read_only":
+        rows = base[:2 * c + 3].copy()
+        rows.setflags(write=False)
+        return rows
+    if case == "rotated":       # portbench/gen.py's rows(offset): a view
+        ring = np.concatenate([base, base[:700]])
+        return ring[613:613 + base.shape[0]]
+    return {"multiple": base[:4 * c], "ragged": base[:4 * c + 37],
+            "short": base[:c - 91], "strided": base[::2],
+            "float32": base[:3 * c + 5]}[case]
+
+
+@pytest.mark.parametrize("keep_vectors", [True, False],
+                         ids=["vectors", "no_vectors"])
+@pytest.mark.parametrize("case", ["multiple", "ragged", "short", "read_only",
+                                  "strided", "rotated", "float32"])
+def test_chunked_upload_matches_one_chunk(trees, case, keep_vectors):
+    """build_database in chunks of UPLOAD_CHUNK rows (`_row_chunks`)
+    equals, in every leaf to the bit (pair_occ and vectors included), the
+    same rows built in one chunk: n a multiple of the chunk, ragged, and
+    shorter than one chunk; a read-only array, a strided view, a rotated
+    view of a larger array; float32 rows.  Every chunk is counted as
+    staged, with its bytes."""
+    name = "small" if case == "float32" else "sift"
+    tree, base = trees[name]
+    cfg = CONFIGS["exact" if name == "small" else "sift_width"]
+    tcfg, ttree = _port_tree(cfg.replace(pair_filter=True), tree)
+    rows = _upload_rows(base, case)
+    assert rows.dtype == (np.float32 if name == "small" else np.uint8)
+    n = rows.shape[0]
+    want = T.build_database(tcfg, ttree, rows, keep_vectors=keep_vectors,
+                            encode_chunk=n, device="cpu")
+    chunks, nbytes = (TDB.build_database.chunks_staged,
+                      TDB.build_database.bytes_staged)
+    got = T.build_database(tcfg, ttree, rows, keep_vectors=keep_vectors,
+                           encode_chunk=UPLOAD_CHUNK, device="cpu")
+    assert TDB.build_database.chunks_staged - chunks == -(-n // UPLOAD_CHUNK)
+    assert TDB.build_database.bytes_staged - nbytes == rows.nbytes
+    assert got.pair_occ is not None
+    for leaf in DB_LEAVES:
+        a, b = getattr(got, leaf), getattr(want, leaf)
+        if not keep_vectors and leaf == "vectors":
+            assert a is None and b is None
+            continue
+        assert a.dtype == b.dtype and torch.equal(a, b), leaf
+    if keep_vectors:
+        np.testing.assert_array_equal(got.vectors.numpy(), rows)
+
+
 def test_load_or_build_builds_once(trees, tmp_path):
     tree, _ = trees["small"]
     tcfg, ttree = _port_tree(PAIR_CFG, tree)
