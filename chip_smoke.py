@@ -39,7 +39,10 @@ Phases (any failure exits non-zero before the last line is printed):
      kernel L, the build's line-code selection, at a 65536-row chunk's
      SIFT1M and SIFT1B line tables (lp 16 and 32, c1 16) at both lambda
      widths, codes and terms equal to its plain version to the bit (no
-     PyTorch call computes it: "library" None),
+     PyTorch call computes it: "library" None), kernel P, the build's part
+     codes, at a 65536-row chunk of the SIFT presets' part widths (p 4,
+     256 centroids, vl 32) and of GIST's vl 240, each code that differs from
+     the plain version's a near-tie, at most 1e-4 of them,
      the segment
      sums of the encode
      also over a rotating set of inputs larger than L2 (cold, beside the
@@ -52,7 +55,10 @@ Phases (any failure exits non-zero before the last line is printed):
      then the kernels are held on inputs that are hard for them (not
      timed; kernel L on coincident centroids, exact residual ties, lambda
      past and about both ends of [-4, 4), NaN and infinite distances,
-     ragged shapes and its loop route at other c1, to the bit);
+     ragged shapes and its loop route at other c1, to the bit; kernel P on
+     integer ties, rows on centroids, NaN and infinite values and zeros to
+     the bit, on ragged rows, its loop route and an unaligned input at
+     most a near-tie);
   4. the pair path at SIFT1M width: train a tree on 200k of bench.py's 1M
      SIFT-like vectors (seed 0), build the database of all 1M on the card
      (with the pair-occupancy table, which the pair path leaves unused),
@@ -121,7 +127,11 @@ Phases (any failure exits non-zero before the last line is printed):
      the chunked upload of 8M host rows held to `serial_build` as at
      SIFT1M width, and one build of them profiled: no pageable copy to
      the card, one pinned copy and one slot fill a chunk, every chunk
-     staged, and the share of the copies' time that kernels overlap),
+     staged, and the share of the copies' time that kernels overlap;
+     `part_codes_checks` on the same rows, as at SIFT1M width after its
+     upload checks: kernel P on a chunk against its plain version and
+     timed beside its bound, and a build against the same build through
+     the plain version, equal but at near-tie rows),
      merge them on the host into a spilled CSR database,
      save it with raw sidecars (adopting the spill files), load it onto
      the card, and serve 1024 queries in batches of 64 through exact and
@@ -279,9 +289,9 @@ SHARDED_EXACT_KERNELS = ("bitonic_topk", "block_scan", "segmented_reduce",
                          "gather_rows") + EXACT_KERNELS
 MULTIDB_KERNELS = BIG_KERNELS + EXACT_KERNELS
 CLI_KERNELS = PAIR_KERNELS + EXACT_KERNELS
-# every encode: kernel D's per-part norms and kernel L's line codes (with
-# k1_build = c1 it asks for no top-k)
-BUILD_KERNELS = ("segmented_reduce", "line_codes")
+# every encode: kernel D's per-part norms, kernel L's line codes and
+# kernel P's part codes (with k1_build = c1 it asks for no top-k)
+BUILD_KERNELS = ("segmented_reduce", "line_codes", "part_codes")
 # where the fused kernel appears in the per-kernel line: a mode of the rows
 # of the two TPU kernels it replaces on the exact re-rank
 SQDIST_ROWS = ("segmented_reduce", "gather_rows")
@@ -298,37 +308,41 @@ SQDIST_ROWS = ("segmented_reduce", "gather_rows")
 # last column, kernel L's line codes (one launch an encode chunk), is from
 # its first passing run on an H100 (NVIDIA H100 80GB HBM3, 700 W): the
 # builds only (the pair path's counts include its build), 0 on every
-# serving path.
+# serving path.  The last, kernel P's part codes, likewise: one launch an
+# encode chunk beside L's, where the level-2 tables and their argmin ran
+# as PyTorch ops (kernel D's norms stay: P reads them).
 LAUNCH_KEYS = ("bitonic_topk", "block_scan", "rerank_fused",
                "segmented_reduce", "lut_gather", "gather_rows",
                "gather_sqdist", "bitonic_topk:sort", "bitonic_topk:select",
-               "bitonic_topk:merge", "rerank_fused:wide", "line_codes")
+               "bitonic_topk:merge", "rerank_fused:wide", "line_codes",
+               "part_codes")
 REFERENCE_LAUNCHES = {
-    "pair": (108, 73, 36, 140, 0, 36, 18, 45, 63, 0, 0, 16),
-    "parts": (108, 108, 18, 90, 108, 18, 18, 81, 27, 0, 0, 0),
-    "parts_slabs": (72, 81, 9, 63, 81, 18, 9, 54, 18, 0, 0, 0),
-    "big_line": (45, 18, 9, 27, 18, 0, 0, 18, 27, 0, 0, 0),
-    "big_perfect": (54, 18, 9, 27, 18, 0, 9, 27, 27, 0, 0, 0),
-    "pair_wide": (27, 18, 9, 27, 0, 9, 0, 9, 18, 0, 9, 0),
-    "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0, 155),
-    "sift1b": (891, 396, 165, 561, 264, 165, 99, 396, 429, 66, 0, 0),
+    "pair": (108, 73, 36, 140, 0, 36, 18, 45, 63, 0, 0, 16, 16),
+    "parts": (108, 108, 18, 90, 108, 18, 18, 81, 27, 0, 0, 0, 0),
+    "parts_slabs": (72, 81, 9, 63, 81, 18, 9, 54, 18, 0, 0, 0, 0),
+    "big_line": (45, 18, 9, 27, 18, 0, 0, 18, 27, 0, 0, 0, 0),
+    "big_perfect": (54, 18, 9, 27, 18, 0, 9, 27, 27, 0, 0, 0, 0),
+    "pair_wide": (27, 18, 9, 27, 0, 9, 0, 9, 18, 0, 9, 0, 0),
+    "sift1b_build": (0, 0, 0, 310, 0, 0, 0, 0, 0, 0, 0, 155, 155),
+    "sift1b": (891, 396, 165, 561, 264, 165, 99, 396, 429, 66, 0, 0, 0),
     # phase 7's paths, from their first passing run on an H100 (NVIDIA
     # H100 80GB HBM3, 700 W): split serving, multi-DB serving in memory
     # and spilled, and the command-line query (its warm-up batch and four)
-    "split": (207, 108, 54, 162, 54, 54, 36, 99, 108, 0, 0, 0),
-    "multidb": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0, 0),
-    "multidb_spill": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0, 0),
-    "cli": (20, 10, 5, 15, 5, 5, 5, 10, 10, 0, 0, 0),
+    "split": (207, 108, 54, 162, 54, 54, 36, 99, 108, 0, 0, 0, 0),
+    "multidb": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0, 0, 0),
+    "multidb_spill": (90, 135, 54, 81, 162, 0, 9, 63, 27, 0, 0, 0, 0),
+    "cli": (20, 10, 5, 15, 5, 5, 5, 10, 10, 0, 0, 0, 0),
     # phase 8's paths, from their first passing run on an H100 (NVIDIA
     # H100 80GB HBM3, 700 W)
-    "cli_sharded": (25, 10, 0, 10, 5, 10, 5, 15, 10, 0, 0, 0),
-    "sharded_line": (117, 72, 36, 108, 0, 36, 0, 45, 72, 0, 0, 0),
-    "sharded_exact": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0, 0),
-    "sharded_big": (189, 72, 36, 108, 72, 0, 0, 81, 108, 0, 0, 0),
-    "sharded_exact_split": (234, 144, 0, 144, 0, 144, 72, 90, 144, 0, 0, 0),
-    "sharded_nccl": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0, 0),
-    "dp_encode": (0, 0, 0, 32, 0, 0, 0, 0, 0, 0, 0, 16),
-    "sift1b_sharded": (1122, 528, 132, 660, 264, 396, 132, 594, 528, 0, 0, 0),
+    "cli_sharded": (25, 10, 0, 10, 5, 10, 5, 15, 10, 0, 0, 0, 0),
+    "sharded_line": (117, 72, 36, 108, 0, 36, 0, 45, 72, 0, 0, 0, 0),
+    "sharded_exact": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0, 0, 0),
+    "sharded_big": (189, 72, 36, 108, 72, 0, 0, 81, 108, 0, 0, 0, 0),
+    "sharded_exact_split": (234, 144, 0, 144, 0, 144, 72, 90, 144, 0, 0, 0, 0),
+    "sharded_nccl": (117, 72, 0, 72, 0, 72, 36, 45, 72, 0, 0, 0, 0),
+    "dp_encode": (0, 0, 0, 32, 0, 0, 0, 0, 0, 0, 0, 16, 16),
+    "sift1b_sharded": (1122, 528, 132, 660, 264, 396, 132, 594, 528, 0, 0, 0,
+                       0),
 }
 _EXACT_1M = {"R@1": 0.9931640625, "R@10": 0.9931640625,
              "top10_intersection": 0.99345703125}
@@ -1099,10 +1113,93 @@ def same_line_codes(torch, got, want):
                             want[1].view(torch.int32)))
 
 
+# kernel P at the SIFT presets' part widths (p 4, c1 * c2 256, vl 32: SIFT1M's
+# and SIFT1B's chunks alike) and at GIST's vl 240 (its loop route)
+PART_CODE_SHAPES = (("sift chunk", 4, 256, 32), ("gist chunk", 4, 256, 240))
+# a pick of kernel P that differs from its plain version's must be a
+# near-tie: the plain distances of the two picks this close, relatively;
+# and at most this share of a chunk's codes may differ
+NEAR_TIE_REL, PART_CODES_DIFFER = 1e-6, 1e-4
+
+
+def part_codes_case(torch, gen, n, p, k, vl, noise=8.0):
+    """Rows as the encode sees them: integer values in [0, 255] about one of
+    k random centroids in [0, 140) a part; (x (n, p * vl), codebook (p, k,
+    vl))."""
+    cb = torch.rand((p, k, vl), generator=gen, device="cuda") * 140
+    pick = torch.randint(0, k, (n, p), generator=gen, device="cuda")
+    x = cb[torch.arange(p, device="cuda")[None, :], pick]
+    x = x + noise * torch.randn(x.shape, generator=gen, device="cuda")
+    return torch.clamp(torch.round(x), 0, 255).reshape(n, p * vl), cb
+
+
+def part_code_differences(torch, x, cb):
+    """Kernel P against its plain version on x (n, p * vl) and codebook
+    (p, k, vl): (codes (n, p), the number of codes that differ, whether
+    each is a near-tie, the largest relative gap of the plain distances of
+    the two picks)."""
+    from pqt_tpu_torch.ops import distance as D
+    from pqt_tpu_torch.ops.cuda import partcodes as pc
+    args = D.part_norms(x, cb)
+    got = pc.part_codes(*args)
+    want = D.part_codes_plain(*args)
+    torch.cuda.synchronize()
+    rows, parts = (got != want).nonzero(as_tuple=True)
+    if rows.numel() == 0:
+        return got, 0, True, 0.0
+    t = D.part_sqdist_tables(x, cb)
+    a = t[rows, parts, got[rows, parts]].double()
+    b = t[rows, parts, want[rows, parts]].double()
+    gap = float(((a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp_min(
+        1e-30)).max())
+    return got, int(rows.numel()), gap <= NEAR_TIE_REL, gap
+
+
+def part_code_hard_cases(torch, gen):
+    """Part-code selections that are easiest to get wrong: (name, x,
+    codebook, exact), exact where every distance is an integer float32
+    holds (kernel P then equals its plain version to the bit).  Small
+    integers (ties everywhere: the first wins), rows on a centroid with a
+    centroid twice, NaN and infinite rows and centroids, all zeros; ragged
+    row counts; the loop route at k 1, 16, 100, 300 and 512 and vl 4, 8,
+    17, 64 and 240; rows 4 bytes off a 16-byte boundary; no rows."""
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen,
+                             device="cuda").float()
+
+    yield "integer ties", ints((1000, 32), 3), ints((4, 256, 8), 3), True
+    cb = ints((4, 256, 32), 20)
+    cb[:, 9] = cb[:, 3]
+    x = cb[torch.arange(4, device="cuda")[None, :],
+           torch.randint(0, 256, (1000, 4), generator=gen, device="cuda")]
+    yield "rows on centroids", x.reshape(1000, 128), cb, True
+    x, cb = ints((300, 128), 20), ints((4, 256, 32), 20)
+    x[0, 0] = float("nan")
+    x[1] = float("inf")
+    x[2, 32:64] = float("-inf")
+    cb[2, 5, 0] = float("nan")
+    cb[3, 7] = float("inf")
+    yield "NaN and infinite values", x, cb, True
+    yield "zeros", ints((300, 128), 1), ints((4, 256, 32), 1), True
+    for rows, p, k, vl in ((1, 4, 256, 32), (63, 4, 256, 32),
+                           (65, 4, 256, 32), (70001, 2, 256, 32),
+                           (300, 4, 1, 4), (300, 4, 16, 8), (300, 3, 100, 17),
+                           (300, 4, 300, 8), (200, 2, 512, 64),
+                           (300, 4, 256, 240), (0, 4, 256, 32)):
+        yield (f"({rows}, {p}, {k}, {vl})",
+               *part_codes_case(torch, gen, rows, p, k, vl), False)
+    x, cb = part_codes_case(torch, gen, 1000, 4, 256, 32)
+    off = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    off.copy_(x)
+    yield "4 bytes off", off, cb, False
+
+
 def check_kernels(torch):
+    from pqt_tpu_torch.ops import distance as D
     from pqt_tpu_torch.ops import linecodes as L
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import linecodes as lc
+    from pqt_tpu_torch.ops.cuda import partcodes as pc
     from pqt_tpu_torch.ops.cuda import primitives as prim
     from pqt_tpu_torch.ops.cuda import rerank as rr
 
@@ -1430,6 +1527,28 @@ def check_kernels(torch):
                              reps=5),
                    None, b_ms, b_by, 0.0)
         del d, p
+        torch.cuda.empty_cache()
+    for case, p, k, vl in PART_CODE_SHAPES:
+        # kernel P against its plain version (the level-2 tables op by op
+        # and torch.argmin), a pick that differs a near-tie
+        n = ENCODE_CHUNK
+        x, cb = part_codes_case(torch, gen, n, p, k, vl)
+        _, differ, near, gap = part_code_differences(torch, x, cb)
+        if differ > PART_CODES_DIFFER * n * p or not near:
+            raise SmokeFailure(f"part_codes {case}: {differ} codes differ "
+                               f"from the plain version's (largest gap "
+                               f"{gap:.3g})")
+        args = D.part_norms(x, cb)
+        # in: the rows, the codebook and both norms once; out: an int64 code
+        # a (row, part).  A multiply-add a dimension of each distance
+        b_ms, b_by = bound(n * p * vl * 4 + p * k * vl * 4 + p * k * 4
+                           + n * p * 4 + n * p * 8, 2 * n * p * k * vl)
+        record("part_codes", "pqt_tpu_torch/csrc/partcodes.cu",
+               "pqt_tpu/models/db.py:176", f"{case} ({n},{p},{k},{vl})",
+               device_ms(torch, lambda: pc.part_codes(*args)),
+               device_ms(torch, lambda: D.part_codes_plain(*args), reps=5),
+               None, b_ms, b_by, 0.0, differ=differ, gap=gap)
+        del x, cb, args
         torch.cuda.empty_cache()
     return results, floor
 
@@ -1796,7 +1915,9 @@ def check_other_paths(torch):
     registers, at the table's last row and its first, with fractional
     queries and rows, and a position outside the table (NaN); and kernel
     L's line-code selection on line_code_hard_cases at both lambda widths,
-    codes and terms equal to the bit."""
+    codes and terms equal to the bit; P's part codes on
+    part_code_hard_cases, equal to the bit where every distance is exact,
+    else at most one code in 10^4 differs, at a near-tie."""
     from pqt_tpu_torch.ops import linecodes as L
     from pqt_tpu_torch.ops.cuda import gather as ga
     from pqt_tpu_torch.ops.cuda import linecodes as lc
@@ -1902,6 +2023,13 @@ def check_other_paths(torch):
                                    L.line_codes_plain(d, p, bits)):
                 raise SmokeFailure(f"line_codes {name} {tuple(d.shape)} "
                                    f"lambda {bits} bits differs")
+    for name, x, cb, exact in part_code_hard_cases(torch, gen):
+        _, differ, near, gap = part_code_differences(torch, x, cb)
+        allowed = 0 if exact else max(1, PART_CODES_DIFFER * x.shape[0])
+        if differ > allowed or not near:
+            raise SmokeFailure(f"part_codes {name} {tuple(x.shape)} "
+                               f"{tuple(cb.shape)}: {differ} codes differ "
+                               f"(largest gap {gap:.3g})")
     # a position outside the table reads nothing and yields NaN
     tab, q = torch.zeros((10, 128), dtype=torch.uint8, device="cuda"), \
         torch.ones((1, 128), device="cuda")
@@ -2133,6 +2261,7 @@ TRACE_KERNELS = {
     "gather_rows": ("gather_rows_kernel", "gather_long_kernel"),
     "gather_sqdist": ("gather_sqdist_kernel",),
     "line_codes": ("line_codes_fixed_kernel", "line_codes_any_kernel"),
+    "part_codes": ("part_codes_kernel",),
 }
 MERGE_EXTRA = r"merge_pass_kernel|radix_select_kernel<\d+, \w+, true>"
 
@@ -2805,6 +2934,8 @@ def query_paths(torch, P):
         dict(train_s=train_s, build_s=build_s, train_steps=train_steps))
     train_build["upload_overlap"] = upload_overlap_checks(
         torch, P, "SIFT1M", cfg.replace(pair_filter=True), tree, data)
+    train_build["part_codes"] = part_codes_checks(torch, P, "SIFT1M", cfg,
+                                                  tree, data)
     clear_build_graphs()
     paths = {"pair": serve_path(
         torch, "pair path", qd=qd, required=PAIR_KERNELS + EXACT_KERNELS,
@@ -2994,9 +3125,12 @@ def sift1b_database(torch, P, workdir):
                                    BUILD_KERNELS)
     build = sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir,
                                 times, spans)
+    host_rows = data[:N_OVERLAP].cpu().numpy()
     build["upload_overlap"] = upload_overlap_checks(
-        torch, P, "SIFT1B", cfg, tree, data[:N_OVERLAP].cpu().numpy(),
-        profiled=True)
+        torch, P, "SIFT1B", cfg, tree, host_rows, profiled=True)
+    build["part_codes"] = part_codes_checks(torch, P, "SIFT1B", cfg, tree,
+                                            host_rows)
+    del host_rows
     clear_build_graphs()
     t0 = time.perf_counter()
     host_db = P.merge_chunk_files(cfg, tree, paths, keep_vectors=True,
@@ -3075,6 +3209,122 @@ def plain_line_codes():
         yield
     finally:
         lc.line_codes = wrapper
+
+
+@contextlib.contextmanager
+def plain_part_codes():
+    """Kernel P's plain version in the place of its wrapper, for the eager
+    bodies called inside: the build's part codes by the chain of passes
+    they took before the kernel (its launches are not counted)."""
+    from pqt_tpu_torch.ops import distance as D
+    from pqt_tpu_torch.ops.cuda import partcodes as pc
+    wrapper = pc.part_codes
+    pc.part_codes = D.part_codes_plain
+    try:
+        yield
+    finally:
+        pc.part_codes = wrapper
+
+
+def tf32_state(torch):
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def bins_and_rows_by_id(torch, db):
+    """(bin (n,) int64, payload row (n, width)) of each id of a built
+    database, from its CSR layout."""
+    n = db.payload.shape[0]
+    pos = torch.arange(n, dtype=db.prefix.dtype, device=db.payload.device)
+    bins = torch.searchsorted(db.prefix, pos, right=True) - 1
+    ids = db.payload[:, 0].to(torch.int64)
+    by_id = torch.empty(n, dtype=torch.int64, device=bins.device)
+    by_id[ids] = bins
+    rows = torch.empty_like(db.payload)
+    rows[ids] = db.payload
+    return by_id, rows
+
+
+def part_codes_checks(torch, P, label, cfg, tree, data):
+    """Kernel P on the card at `cfg`'s widths with a trained tree: one
+    ENCODE_CHUNK-row chunk of `data` (host rows) through P and through its
+    plain version, each code that differs a near-tie (the plain distances
+    of the two picks within NEAR_TIE_REL) and at most PART_CODES_DIFFER of
+    them, with P's and the plain version's device ms beside P's bound;
+    then a build of all of `data` against the same build through the plain
+    version (eager): every row's bin and payload row equal but where the
+    row's part codes differ, and P launched once a chunk; the TF32 flags
+    unchanged.  Prints all beside the card's name and power limit."""
+    from pqt_tpu_torch.ops import distance as D
+    from pqt_tpu_torch.ops.cuda import partcodes as pc
+    from pqt_tpu_torch.utils import graphs as G
+    card = card_line()
+    flags = tf32_state(torch)
+    flat = tree.cb2.reshape(cfg.p, cfg.c1 * cfg.c2, cfg.vl)
+    n, p, k, vl = ENCODE_CHUNK, cfg.p, cfg.c1 * cfg.c2, cfg.vl
+
+    def rows(s, e):
+        return torch.as_tensor(data[s:e], device="cuda").to(torch.float32)
+
+    x = rows(0, n)
+    _, differ, near, gap = part_code_differences(torch, x, flat)
+    args = D.part_norms(x, flat)
+    b_ms, b_by = bound(n * p * vl * 4 + p * k * vl * 4 + p * k * 4
+                       + n * p * 4 + n * p * 8, 2 * n * p * k * vl)
+    out = {"chunk": [n, p, k, vl], "differ": differ, "gap": gap,
+           "ms": device_ms(torch, lambda: pc.part_codes(*args)),
+           "plain_ms": device_ms(torch, lambda: D.part_codes_plain(*args),
+                                 reps=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del x, args
+    # the rows of the whole build whose part codes differ
+    total, differ_rows = data.shape[0], []
+    for s in range(0, total, ENCODE_CHUNK):
+        a = D.part_norms(rows(s, s + ENCODE_CHUNK), flat)
+        d = (pc.part_codes(*a) != D.part_codes_plain(*a)).any(dim=1)
+        differ_rows.append(d.nonzero()[:, 0] + s)
+    differ_rows = torch.cat(differ_rows)
+    before = pc.part_codes.launches
+    db = P.build_database(cfg, tree, data, encode_chunk=ENCODE_CHUNK,
+                          device="cuda")
+    launched = pc.part_codes.launches - before
+    with plain_part_codes(), G.eager():
+        plain = P.build_database(cfg, tree, data, encode_chunk=ENCODE_CHUNK,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(db, f), getattr(plain, f))
+               for f in ("prefix", "counts", "payload"))
+    if same:
+        outside = True
+    else:
+        keep = torch.ones(total, dtype=torch.bool, device="cuda")
+        keep[differ_rows] = False
+        mine, theirs = bins_and_rows_by_id(torch, db), \
+            bins_and_rows_by_id(torch, plain)
+        outside = all(torch.equal(a[keep], b[keep])
+                      for a, b in zip(mine, theirs))
+    del db, plain
+    torch.cuda.empty_cache()
+    chunks = -(-total // ENCODE_CHUNK)
+    out.update(build_rows=total, build_rows_differ=int(differ_rows.numel()),
+               build_equal=same, equal_outside=outside, launched=launched,
+               chunks=chunks, tf32=[str(f) for f in tf32_state(torch)])
+    verdict = ("equal to the bit" if same else
+               "equal outside them" if outside else "DIFFER")
+    print(f"{label} part codes: kernel P on a {n}-row chunk ({p} parts, "
+          f"{k} centroids, vl {vl}) {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"{differ} codes differ (largest gap of their plain distances "
+          f"{gap:.3g}); a {total}-row build: {differ_rows.numel()} rows' "
+          f"codes differ, bins and payload rows {verdict} against the "
+          f"plain route's, P launched {launched} times in {chunks} chunks; "
+          f"TF32 flags {tf32_state(torch)} [{card}]", flush=True)
+    if (differ > PART_CODES_DIFFER * n * p or not near or not outside
+            or launched != chunks or tf32_state(torch) != flags
+            or flags[0]):
+        raise SmokeFailure(f"{label}: kernel P failed its check: {out}")
+    return out
 
 
 def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
@@ -4079,8 +4329,9 @@ def main(json_path=None):
           "scans, ragged scan widths, segments of 1 to 130 in both modes, "
           "ragged lookups, row gathers in every unit and span, line "
           "re-ranks in every mode and copy unit, line-code selections on "
-          "hard rows at both lambda widths): equal to their plain "
-          "versions", flush=True)
+          "hard rows at both lambda widths, part codes on hard rows and "
+          "every route, exact ones to the bit, others at most near-ties): "
+          "equal to their plain versions", flush=True)
 
     summary, fixture = query_paths(torch, P)
     summary.update(phase7_paths(torch, P, fixture))

@@ -70,7 +70,8 @@ import torch
 from pqt_tpu_torch.config import PQTConfig
 from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
                                        line_tables)
-from pqt_tpu_torch.ops import binning, linecodes
+from pqt_tpu_torch.ops import binning, distance, linecodes
+from pqt_tpu_torch.ops.cuda import partcodes
 from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk
 from pqt_tpu_torch.utils import tracing
 from pqt_tpu_torch.utils.device import resolve_device
@@ -209,19 +210,19 @@ def encode_part_codes(cfg: PQTConfig, tree: PQTree,
                       x: torch.Tensor) -> torch.Tensor:
     """Per-part codes l1*c2 + l2 (n, p) int64: per part, the least level-2
     distance over the k1_build best L1 cells and all c2 refinements (first
-    minimum on ties)."""
+    minimum on ties).  With k1_build >= c1 every cell is a candidate and
+    the flat index of the least is the code: kernel P (`part_codes`, its
+    plain version on the CPU) picks it without writing the tables."""
+    if cfg.k1_build >= cfg.c1:
+        flat = tree.cb2.reshape(cfg.p, cfg.c1 * cfg.c2, cfg.vl)
+        return partcodes.part_codes(*distance.part_norms(x, flat))
     d2 = level2_tables(cfg, tree, x)                     # (n, p, c1, c2)
     n, p = d2.shape[:2]
-    if cfg.k1_build >= cfg.c1:
-        cand = d2
-        l1_of_cand = torch.arange(cfg.c1, device=x.device).expand(n, p,
-                                                                  cfg.c1)
-    else:
-        d1 = level1_tables(cfg, tree, x)                 # (n, p, c1)
-        _, l1_idx = bitonic_topk(d1.reshape(n * p, cfg.c1), cfg.k1_build)
-        l1_of_cand = l1_idx.to(torch.int64).reshape(n, p, cfg.k1_build)
-        cand = torch.gather(d2, 2, l1_of_cand[..., None].expand(
-            n, p, cfg.k1_build, cfg.c2))
+    d1 = level1_tables(cfg, tree, x)                     # (n, p, c1)
+    _, l1_idx = bitonic_topk(d1.reshape(n * p, cfg.c1), cfg.k1_build)
+    l1_of_cand = l1_idx.to(torch.int64).reshape(n, p, cfg.k1_build)
+    cand = torch.gather(d2, 2, l1_of_cand[..., None].expand(
+        n, p, cfg.k1_build, cfg.c2))
     best = torch.argmin(cand.reshape(n, p, -1), dim=-1)  # (n, p)
     best_l1 = torch.gather(l1_of_cand, 2, (best // cfg.c2)[..., None])[..., 0]
     return best_l1 * cfg.c2 + best % cfg.c2

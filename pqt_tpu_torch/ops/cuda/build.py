@@ -5,8 +5,10 @@ sums), `rerank.cu` (C, line re-rank by position), `reduce.cu` (D, segment
 sums), `lut.cu` (E/F/G, table lookup), `gather.cu` (H, row gather),
 `sqdist.cu` (H and D fused for the exact re-rank), `linecodes.cu` (L,
 the build's line-code selection, the port's own fusion of what XLA fuses
-in the JAX package's encode) and `mark.cu` (the stage marks of
-utils/tracing.py, and the switch of their nodes in a captured graph).  Each `.cu` source has a
+in the JAX package's encode), `partcodes.cu` (P, the build's part codes:
+the level-2 distances and their argmin, likewise) and `mark.cu` (the
+stage marks of utils/tracing.py, and the switch of their nodes in a
+captured graph).  Each `.cu` source has a
 plain C interface and is compiled by `nvcc` into its
 own shared library for Hopper (`sm_90a`), then loaded with ctypes.  No
 source includes PyTorch's headers, so a build takes seconds.  The libraries
@@ -64,6 +66,8 @@ _SIGNATURES = {
                                       _P), _I)},
     "linecodes": {"pqt_line_codes": ((_P, _P, _I, _I, _I, _I, _P, _P, _P),
                                      _I)},
+    "partcodes": {"pqt_part_codes": ((_P, _P, _P, _P, _L, _I, _I, _I, _P,
+                                      _P), _I)},
     "mark": {"pqt_stage_mark": ((_I, _P), _I),
              "pqt_graph_marks": ((_P, _P, _P, _I, _P), _I),
              "pqt_graph_node_set_enabled": ((_P, _P, _I), _I),

@@ -1,5 +1,6 @@
-"""Batched squared L2 distance tables, the exact brute-force oracle, and
-the brute-force baseline.
+"""Batched squared L2 distance tables, the plain version of kernel P (the
+build's part codes, the argmin of the level-2 tables), the exact
+brute-force oracle, and the brute-force baseline.
 
 Port of pqt_tpu/ops/distance.py.  Every table is one matrix product plus
 norms, ||x - c||^2 = ||x||^2 + ||c||^2 - 2 <x, c>, in full float32: the
@@ -27,21 +28,41 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(xn + cn[None, :] - 2.0 * dot, 0.0)
 
 
+def part_norms(x: torch.Tensor, codebook: torch.Tensor):
+    """The norms of `part_sqdist_tables`: x (n, p*vl), codebook (p, k, vl)
+    -> (x float32 contiguous, codebook float32, cn (p, k) the centroids'
+    squared norms, xn (n, p) the rows' per-part ones, kernel D's)."""
+    d = x.shape[1]
+    p, _, vl = codebook.shape
+    if d != p * vl:
+        raise ValueError(f"dim {d} != p*vl = {p}*{vl}")
+    x = x.to(torch.float32).contiguous()
+    cb = codebook.to(torch.float32)
+    return (x, cb, torch.sum(cb * cb, dim=-1),
+            segmented_reduce(x, p, square=True))
+
+
+def _tables(x, cb, cn, xn) -> torch.Tensor:
+    p, _, vl = cb.shape
+    dot = torch.einsum("npv,pkv->npk", x.reshape(x.shape[0], p, vl), cb)
+    return torch.clamp_min(xn[:, :, None] + cn[None, :, :] - 2.0 * dot, 0.0)
+
+
 def part_sqdist_tables(x: torch.Tensor,
                        codebook: torch.Tensor) -> torch.Tensor:
     """Per-part squared distances: x (n, p*vl), codebook (p, k, vl) ->
     (n, p, k)."""
-    n, d = x.shape
-    p, k, vl = codebook.shape
-    if d != p * vl:
-        raise ValueError(f"dim {d} != p*vl = {p}*{vl}")
-    x = x.to(torch.float32).contiguous()
-    xp = x.reshape(n, p, vl)
-    cb = codebook.to(torch.float32)
-    dot = torch.einsum("npv,pkv->npk", xp, cb)
-    xn = segmented_reduce(x, p, square=True)
-    cn = torch.sum(cb * cb, dim=-1)
-    return torch.clamp_min(xn[:, :, None] + cn[None, :, :] - 2.0 * dot, 0.0)
+    return _tables(*part_norms(x, codebook))
+
+
+def part_codes_plain(x: torch.Tensor, codebook: torch.Tensor,
+                     cn: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel P (ops/cuda/partcodes.py): per (row,
+    part) the index of the least of `part_sqdist_tables`' distances, the
+    first one, a NaN the least (torch.argmin).  x (n, p*vl), codebook (p,
+    k, vl), cn (p, k) and xn (n, p) as `part_norms` gives them -> (n, p)
+    int64."""
+    return torch.argmin(_tables(x, codebook, cn, xn), dim=-1)
 
 
 def subpart_sqdist_tables(x: torch.Tensor, centroids: torch.Tensor,

@@ -119,11 +119,12 @@ CAPTURE_ERROR_MODE = "thread_local"
 def kernel_wrappers():
     """Every kernel wrapper; each counts its launches in `launches`, and
     kernel A and C also by mode and route."""
-    from pqt_tpu_torch.ops.cuda import gather, linecodes, primitives, rerank
+    from pqt_tpu_torch.ops.cuda import (gather, linecodes, partcodes,
+                                        primitives, rerank)
     return (primitives.bitonic_topk, primitives.block_scan,
             rerank.rerank_fused, primitives.segmented_reduce,
             gather.lut_gather, gather.gather_rows, primitives.gather_sqdist,
-            linecodes.line_codes)
+            linecodes.line_codes, partcodes.part_codes)
 
 
 def _counts() -> dict:
