@@ -71,7 +71,10 @@ Phases (any failure exits non-zero before the last line is printed):
      steps between two reads of `done` (LLOYD_BLOCKS), every tree equal;
      the build's chunked upload (pinned slots, a copy stream) with and
      without raw vectors equals, in every leaf to the bit, a frozen copy
-     of the body before it (`serial_build`: every row up first);
+     of the body before it (`serial_build`: every row up first), and so
+     do the other entries that stage rows through it (ChunkedDBBuilder,
+     encode_chunk_to_file and their merge, build_multi_database) against
+     frozen copies of theirs (`staged_entry_checks`);
   5. the parts path on the same tree and database: the parts pipeline with
      the pair filter through the same four entry points, then exact, line
      and query_candidates again with slab gathers (32 rows a slab);
@@ -119,8 +122,8 @@ Phases (any failure exits non-zero before the last line is printed):
      forced by the run time; the fixture scales its clusters with n as
      benchmarks/rehearsal_50m.py does): train on 200k, encode 2M-vector
      chunk files (the train and every chunk file again through the eager
-     bodies, equal to the bit; encode_s split into its stages -- upload,
-     device encode, the copies back, np.savez -- with rows a second and a
+     bodies, equal to the bit; encode_s split into the fixture's copy to
+     the host and `encode_chunk_to_file`, with rows a second and a
      65536-row chunk's p50, replayed, eager and eager through kernel L's
      plain version, one chunk of each profiled; the replayed chunk's bins,
      part codes and payload rows equal to the plain route's to the bit;
@@ -190,6 +193,7 @@ Timings are the card's, with its name and power limit printed beside them.
 
 import bisect
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -2521,6 +2525,176 @@ def serial_build(torch, cfg, tree, data, keep_vectors,
                           prefix2=prefix2)
 
 
+def serial_encode_host(torch, cfg, tree, data, id_offset, encode_chunk,
+                       pair_occ):
+    """A frozen copy of models/db.py `_encode_host` before it went through
+    the build's ring: each chunk up in one pageable copy, encoded, its
+    bins and payload rows copied down."""
+    from pqt_tpu_torch.models import db as DB
+    dev = tree.cb1.device
+    n = data.shape[0]
+    bins = np.empty((n,), np.int32)
+    packed = np.empty((n, DB.payload_width(cfg)), np.int32)
+    for s in range(0, n, encode_chunk):
+        chunk = torch.as_tensor(data[s:s + encode_chunk], device=dev)
+        bins_c, _, packed_c = DB.chunk_encoder(
+            cfg, tree, chunk, DB._offset(id_offset + s, dev), pair_occ)
+        bins[s:s + encode_chunk] = bins_c.cpu().numpy()
+        packed[s:s + encode_chunk] = packed_c.cpu().numpy()
+    return bins, packed
+
+
+@contextlib.contextmanager
+def serial_host_encode(torch):
+    """ChunkedDBBuilder and encode_chunk_to_file through
+    `serial_encode_host`, their body before the ring."""
+    from pqt_tpu_torch.models import db as DB
+    staged = DB._encode_host
+    DB._encode_host = functools.partial(serial_encode_host, torch)
+    try:
+        yield
+    finally:
+        DB._encode_host = staged
+
+
+def serial_multi_build(torch, cfg, tree, data, group_parts, keep_vectors,
+                       encode_chunk=ENCODE_CHUNK):
+    """A frozen copy of models/multidb.py `build_multi_database`'s body
+    before the build's ring: every row up first in one pageable copy
+    (without keep_vectors, each chunk in one), the chunk encoder over the
+    chunks, then the groups' assembly."""
+    from pqt_tpu_torch.models import db as DB
+    from pqt_tpu_torch.models import multidb as M
+    dev = tree.cb1.device
+    vectors = torch.as_tensor(data, device=dev) if keep_vectors else None
+    codes_l, packed_l = [], []
+    for s in range(0, data.shape[0], encode_chunk):
+        chunk = (vectors[s:s + encode_chunk] if vectors is not None else
+                 torch.as_tensor(data[s:s + encode_chunk], device=dev))
+        _, pc, rows = DB.chunk_encoder(cfg, tree, chunk, DB._offset(s, dev))
+        codes_l.append(pc)
+        packed_l.append(rows)
+    dbs, pair_occ = M.assemble_multi_database(
+        cfg, torch.cat(codes_l), torch.cat(packed_l), group_parts, None, dev)
+    return M.MultiDatabase(databases=dbs, vectors=vectors, pair_occ=pair_occ)
+
+
+def same_multi(torch, a, b):
+    """Whether two multi-databases hold equal tensors in every leaf."""
+    return (len(a.databases) == len(b.databases)
+            and same_leaves(torch, a, b, ("vectors", "pair_occ"))
+            and all(same_leaves(torch, x, y, DB_LEAVES)
+                    for x, y in zip(a.databases, b.databases)))
+
+
+def staged_entry_checks(torch, P, label, cfg, tree, data):
+    """The other entries that stage host rows through the build's ring
+    (models/db.py `_encode_rows`) against frozen copies of their bodies
+    before it: ChunkedDBBuilder (two add_chunk calls, split on a chunk
+    boundary) and its database, encode_chunk_to_file (two files) and
+    their merge, against the same through `serial_encode_host` and
+    against `serial_build`; build_multi_database (group_parts 2) against
+    `serial_multi_build`; with keep_vectors and without, every leaf and
+    every file equal to the bit, every chunk counted as staged.  Then the
+    median seconds of UPLOAD_REPS warm calls a side, in alternation, of
+    the host encode (`_encode_host` against `serial_encode_host`, one
+    occupancy map) and of the multi-DB build, not claimed."""
+    from pqt_tpu_torch.models import db as DB
+    card = card_line()
+    n = data.shape[0]
+    chunks = -(-n // ENCODE_CHUNK)
+    half = (chunks // 2) * ENCODE_CHUNK
+    parts = ((0, data[:half]), (half, data[half:]))
+    out, ok = {}, True
+    with tempfile.TemporaryDirectory(prefix="pqt_staged_") as workdir:
+        for keep in (True, False):
+            res = {}
+
+            def builder():
+                b = P.ChunkedDBBuilder(cfg, tree, keep_vectors=keep,
+                                       encode_chunk=ENCODE_CHUNK,
+                                       device="cuda")
+                for _, rows in parts:
+                    b.add_chunk(rows)
+                return b.finalize()
+
+            def files(tag):
+                paths = [os.path.join(workdir, f"{tag}{i}.npz")
+                         for i in range(len(parts))]
+                for path, (s, rows) in zip(paths, parts):
+                    P.encode_chunk_to_file(cfg, tree, rows, s, path,
+                                           encode_chunk=ENCODE_CHUNK,
+                                           keep_vectors=keep, device="cuda")
+                return paths
+
+            before = DB.build_database.chunks_staged
+            staged_db, staged_files = builder(), files("staged")
+            mdb = P.build_multi_database(cfg, tree, data, 2, ENCODE_CHUNK,
+                                         keep_vectors=keep, device="cuda")
+            res["staged_chunks"] = DB.build_database.chunks_staged - before
+            with serial_host_encode(torch):
+                serial_db, serial_files = builder(), files("serial")
+            res["builder_equal"] = same_leaves(torch, staged_db, serial_db,
+                                               DB_LEAVES)
+            del staged_db, serial_db
+            res["files_equal"] = all(same_npz(a, b) for a, b in
+                                     zip(staged_files, serial_files))
+            # the merged files against the in-memory build's serial body
+            merged = P.merge_chunk_files(cfg, tree, staged_files,
+                                         device="cuda")
+            one = serial_build(torch, cfg, tree, data, False)
+            res["merge_equal"] = same_leaves(torch, merged, one, DB_LEAVES)
+            del merged, one
+            res["multi_equal"] = same_multi(
+                torch, mdb, serial_multi_build(torch, cfg, tree, data, 2,
+                                               keep))
+            del mdb
+            for path in staged_files + serial_files:
+                os.remove(path)
+            ok = ok and res["staged_chunks"] == 3 * chunks and all(
+                res[k] for k in ("builder_equal", "files_equal",
+                                 "merge_equal", "multi_equal"))
+            out[f"keep_vectors={keep}"] = res
+            print(f"{label} staged entries, keep_vectors={keep}: "
+                  f"{res['staged_chunks']} of {3 * chunks} chunks staged; "
+                  "ChunkedDBBuilder "
+                  f"{'equal' if res['builder_equal'] else 'DIFFERS'}, "
+                  "encode_chunk_to_file's files "
+                  f"{'equal' if res['files_equal'] else 'DIFFER'} to their "
+                  "serial body's, their merge "
+                  f"{'equal' if res['merge_equal'] else 'DIFFERS'} to "
+                  "serial_build's, build_multi_database "
+                  f"{'equal' if res['multi_equal'] else 'DIFFERS'} to "
+                  f"serial_multi_build's, to the bit [{card}]", flush=True)
+    occ = torch.zeros((cfg.p // 2, cfg.part_radix ** 2), dtype=torch.uint8,
+                      device="cuda")
+    sides = {"host encode": (
+        lambda: DB._encode_host(cfg, tree, data, 0, ENCODE_CHUNK, occ),
+        lambda: serial_encode_host(torch, cfg, tree, data, 0, ENCODE_CHUNK,
+                                   occ)),
+             "multi-DB build": (
+        lambda: P.build_multi_database(cfg, tree, data, 2, ENCODE_CHUNK,
+                                       device="cuda"),
+        lambda: serial_multi_build(torch, cfg, tree, data, 2, False))}
+    for name, (staged, serial) in sides.items():
+        staged(), serial()
+        seconds = {"staged": [], "serial": []}
+        for _ in range(UPLOAD_REPS):
+            seconds["staged"].append(timed(torch, staged)[1])
+            seconds["serial"].append(timed(torch, serial)[1])
+        med = {k: float(np.median(v)) for k, v in seconds.items()}
+        out[name] = seconds
+        print(f"{label} {name} of {n} rows, seconds, median of {UPLOAD_REPS}"
+              f" warm: staged {med['staged']:.4f}, serial {med['serial']:.4f}"
+              f" ({n / med['staged']:.0f} against {n / med['serial']:.0f} "
+              f"rows/s; not claimed) [{card}]", flush=True)
+    clear_build_graphs()
+    if not ok:
+        raise SmokeFailure(f"{label}: a staged entry failed its check: "
+                           f"{out}")
+    return out
+
+
 def covered_share(spans, cover):
     """The share of the summed lengths of `spans` ((start, end) pairs)
     that the union of `cover` overlaps."""
@@ -2584,14 +2758,17 @@ def profiled_upload(torch, P, cfg, tree, data):
             "wait_us": spans["pqt.build.wait"][1]}
 
 
-def upload_overlap_checks(torch, P, label, cfg, tree, data, profiled=False):
+def upload_overlap_checks(torch, P, label, cfg, tree, data, profiled=False,
+                          other_entries=False):
     """build_database's chunked upload (models/db.py `_row_chunks`) on the
     card against `serial_build`, the body before it: with keep_vectors and
     without, every leaf (pair_occ included) equal to the bit, every chunk
     counted as staged, and the median seconds of UPLOAD_REPS builds of
     each, warm and in alternation.  With `profiled`, `profiled_upload`:
-    no pageable copy, and one pinned copy and one fill a chunk.  Prints
-    all beside the card's name and power limit."""
+    no pageable copy, and one pinned copy and one fill a chunk.  With
+    `other_entries`, `staged_entry_checks`: the out-of-core and multi-DB
+    encodes through the same ring.  Prints all beside the card's name and
+    power limit."""
     from pqt_tpu_torch.models import db as DB
     card = card_line()
     n = data.shape[0]
@@ -2643,6 +2820,9 @@ def upload_overlap_checks(torch, P, label, cfg, tree, data, profiled=False):
     if not ok:
         raise SmokeFailure(f"{label}: the chunked upload failed its check: "
                            f"{out}")
+    if other_entries:
+        out["other_entries"] = staged_entry_checks(torch, P, label, cfg,
+                                                   tree, data)
     return out
 
 
@@ -2933,7 +3113,8 @@ def query_paths(torch, P):
         torch, P, cfg, data, tree, db,
         dict(train_s=train_s, build_s=build_s, train_steps=train_steps))
     train_build["upload_overlap"] = upload_overlap_checks(
-        torch, P, "SIFT1M", cfg.replace(pair_filter=True), tree, data)
+        torch, P, "SIFT1M", cfg.replace(pair_filter=True), tree, data,
+        other_entries=True)
     train_build["part_codes"] = part_codes_checks(torch, P, "SIFT1M", cfg,
                                                   tree, data)
     clear_build_graphs()
@@ -3166,19 +3347,17 @@ def sift1b_database(torch, P, workdir):
 def encode_file(P, cfg, tree, data, s, path):
     """The SIFT1B fixture's (on the card) N_1B_CHUNK rows from row s
     brought to the host and encoded into the chunk file `path`: (seconds,
-    the encode's stages in seconds, utils/tracing.py encode_spans, with the
-    copy to the host as "fixture_download")."""
-    from pqt_tpu_torch.utils import tracing
-    tracing.encode_spans = spans = {}
-    try:
-        t0 = time.perf_counter()
-        rows = data[s:s + N_1B_CHUNK].cpu().numpy()
-        spans["fixture_download"] = time.perf_counter() - t0
-        P.encode_chunk_to_file(cfg, tree, rows, s, path, keep_vectors=True,
-                               device="cuda")
-        return time.perf_counter() - t0, spans
-    finally:
-        tracing.encode_spans = None
+    its two steps in seconds: "fixture_download", the copy to the host,
+    and "encode_chunk_to_file", the rows' upload, encode and copy down
+    and the file's save)."""
+    t0 = time.perf_counter()
+    rows = data[s:s + N_1B_CHUNK].cpu().numpy()
+    t1 = time.perf_counter()
+    P.encode_chunk_to_file(cfg, tree, rows, s, path, keep_vectors=True,
+                           device="cuda")
+    t2 = time.perf_counter()
+    return t2 - t0, {"fixture_download": t1 - t0,
+                     "encode_chunk_to_file": t2 - t1}
 
 
 def add_spans(total, spans):
@@ -3334,8 +3513,8 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
     equal to the replayed ones to the bit; one 65536-row chunk's p50,
     replayed, eager and eager through kernel L's plain version (the route
     before the kernel), each with one profiled chunk, and the replayed
-    chunk equal to the plain route's to the bit; rows a second, the
-    host share of encode_s and the Lloyd steps, printed beside the card's
+    chunk equal to the plain route's to the bit; rows a second, encode_s's
+    two steps and the Lloyd steps, printed beside the card's
     name and power limit; the graphs' keys, then freed."""
     from pqt_tpu_torch.models import db as DB
     from pqt_tpu_torch.utils import graphs as G
@@ -3389,10 +3568,7 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
                     "encode_s": encode_s, "spans": espans}
     for side in ("replayed", "eager"):
         o = out[side]
-        host = sum(v for k, v in o["spans"].items() if k != "encode")
         o["rows_per_s"] = N_1B / o["encode_s"]
-        o["host_s"] = host
-        o["host_share"] = host / o["encode_s"]
     r, e, c = out["replayed"], out["eager"], out["chunk"]
     idle = {k: (v["profile"].get("device_busy_ms"),
                 v["profile"].get("idle_share")) for k, v in c.items()}
@@ -3400,10 +3576,9 @@ def sift1b_build_checks(torch, P, cfg, tree, data, paths, workdir, times,
           f"{r['train_s']:.4f} s ({r['train_steps']} Lloyd steps), eager "
           f"{e['train_s']:.4f} s ({e['train_steps']} steps); encode_s of "
           f"{N_1B} rows: replayed {r['encode_s']:.3f} s ({r['rows_per_s']:.0f}"
-          f" rows/s, host share {r['host_share']:.3f}: "
+          f" rows/s: "
           f"{json.dumps({k: round(v, 4) for k, v in r['spans'].items()})}), "
-          f"eager {e['encode_s']:.3f} s ({e['rows_per_s']:.0f} rows/s, host "
-          f"share {e['host_share']:.3f}: "
+          f"eager {e['encode_s']:.3f} s ({e['rows_per_s']:.0f} rows/s: "
           f"{json.dumps({k: round(v, 4) for k, v in e['spans'].items()})}); "
           f"a {ENCODE_CHUNK}-row chunk p50 replayed "
           f"{c['replayed']['p50_ms']:.3f} ms, eager {c['eager']['p50_ms']:.3f}"

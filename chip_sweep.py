@@ -645,7 +645,6 @@ def sweep_encode(torch, emit, cases=None):
     pools = smoke.build_graphs_report("the SIFT1B encode")
     emit({"kernel": "encode", "case": "sift1b", "variant": "tree",
           "encode_s": encode_s, "spans": spans,
-          "device_share": spans.get("encode", 0.0) / encode_s,
           "chunk": chunk,
           "pools_mib": [[r["program"], r["key"], r["mib"]] for r in pools]})
     smoke.clear_build_graphs()

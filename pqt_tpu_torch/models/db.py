@@ -19,7 +19,9 @@ The out-of-core half (port of pqt_tpu/models/db.py:100-138, 358-666)
 encodes chunks on the card and assembles the CSR on the host:
 `ChunkedDBBuilder` (in RAM, or spilled to disk with `spill_path`),
 `encode_chunk_to_file` + `merge_chunk_files` (the multi-process shape), and
-`merge_chunk_files_range` (one hash range).  Rows are placed in input order
+`merge_chunk_files_range` (one hash range; the whole merge is the range [0,
+hash_size)).  The merges are one scan of the files (`_scan_chunk_files`)
+and one placement loop (`_streaming_merge`): rows are placed in input order
 against per-bin cursors (io/native.py), so ids stay ascending inside every
 bin and the merged payload equals `build_database`'s for the same bins.  A
 spilled build keeps the raw vectors in CSR order (`vectors_csr`), which the
@@ -39,21 +41,24 @@ by design: a build calls it once, so its graph would be captured and never
 replayed, and its pool would hold the sorted payload (n x 72 B at SIFT1B
 width) for nothing.
 
-`build_database` hands the encoder its host rows a chunk at a time
-(`_row_chunks`): on a card each chunk is staged in a ring of pinned host
-slots and copied up on a side stream, so the copy of one chunk and the
-host's fill of the next overlap the encode of the one before.
+Every build hands the encoder its host rows through one loop,
+`_encode_rows` over `_row_chunks`: on a card each chunk is staged in a
+ring of pinned host slots and copied up on a side stream, so the copy of
+one chunk and the host's fill of the next overlap the encode of the one
+before.  `build_database` keeps the chunks' outputs on the device for
+`_assemble_device`, the out-of-core encode (`_encode_host`) copies them
+into host arrays, and models/multidb.py keeps the part codes and rows for
+its groups.
 
 The build marks its stages on the device (utils/tracing.py):
 `build.upload` (the allocations and the first chunk's copy),
 `build.encode`, `build.assemble` and `build.end` in `build_database`
 (which calls `_assemble_device` by this module's name, once a build), and
 each chunk's `encode.part_codes`, `encode.payload` and `encode.end` inside
-the chunk encoder's graph; the later chunks' copies overlap those.  On the
-host, `pqt.build.stage` spans each fill of a slot and `pqt.build.wait`
-each wait for one.  The out-of-core encode marks each step as a build of
-its own and times its stages in seconds while a caller holds
-`tracing.encode_spans`.
+the chunk encoder's graph; the later chunks' copies overlap those.  The
+out-of-core encode marks the same stages but the assembly, which the host
+does.  On the host, `pqt.build.stage` spans each fill of a slot and
+`pqt.build.wait` each wait for one.
 """
 
 from __future__ import annotations
@@ -395,6 +400,32 @@ def _staged(chunk: torch.Tensor) -> None:
     build_database.bytes_staged += chunk.nbytes
 
 
+def _device_vectors(data: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """An empty tensor on dev for host rows by id, in their dtype, which
+    `_row_chunks` fills."""
+    return torch.empty(data.shape, dtype=_host_tensor(data[:0]).dtype,
+                       device=dev)
+
+
+def _encode_rows(cfg: PQTConfig, tree: PQTree, data: np.ndarray,
+                 encode_chunk: int, id_offset: int = 0,
+                 pair_occ: Optional[torch.Tensor] = None,
+                 vectors: Optional[torch.Tensor] = None):
+    """Encode host rows on the tree's device, `encode_chunk` rows a chunk,
+    staged through `_row_chunks` (which fills `vectors` where given): yield
+    (s, (bins (C,) int32, part codes (C, p) int64, payload rows (C,
+    payload_width) int32)) for the rows from s, their ids from id_offset +
+    s; pair_occ, where given, is marked in place.  Marks `build.encode`
+    once the first chunk's copy is under way; the caller marks
+    `build.upload` before its allocations, and its own end."""
+    dev = tree.cb1.device
+    for s, chunk in _row_chunks(data, vectors, encode_chunk, dev):
+        if s == 0:      # the upload stage holds the first chunk's copy
+            tracing.mark("build.encode", dev)
+        yield s, chunk_encoder(cfg, tree, chunk, _offset(id_offset + s, dev),
+                               pair_occ)
+
+
 def build_database(cfg: PQTConfig, tree: PQTree, data,
                    keep_vectors: bool = False, encode_chunk: int = 65536,
                    device="cuda") -> PQTDatabase:
@@ -403,30 +434,20 @@ def build_database(cfg: PQTConfig, tree: PQTree, data,
     data: (n, dim) array-like; uint8 data is uploaded raw and cast on the
     device chunk by chunk.  With keep_vectors the raw vectors stay on the
     device, by original id, for exact re-rank.  The rows go up a chunk at
-    a time (`_row_chunks`), each copy overlapping the encode of the chunk
+    a time (`_encode_rows`), each copy overlapping the encode of the chunk
     before it.
     """
-    dev = resolve_device(device)
-    if tree.cb1.device != dev:
-        raise ValueError(f"tree is on {tree.cb1.device}, build device is "
-                         f"{dev}")
+    dev = _check_tree_device(tree, device)
     data = _host_rows(data)
-    n = data.shape[0]
-    if n > np.iinfo(np.int32).max:
-        raise NotImplementedError("CSR positions exceed int32; shard the "
-                                  "build")
     tracing.mark("build.upload", dev)
     pair_occ = (torch.zeros((cfg.p // 2, cfg.part_radix ** 2),
                             dtype=torch.uint8, device=dev)
                 if cfg.pair_filter_enabled else None)
-    vectors = (torch.empty(data.shape, dtype=_host_tensor(data[:0]).dtype,
-                           device=dev) if keep_vectors else None)
+    vectors = _device_vectors(data, dev) if keep_vectors else None
     bins_l, packed_l = [], []
-    for s, chunk in _row_chunks(data, vectors, encode_chunk, dev):
-        if s == 0:      # the upload stage holds the first chunk's copy
-            tracing.mark("build.encode", dev)
-        bins_c, _, packed_c = chunk_encoder(cfg, tree, chunk, _offset(s, dev),
-                                            pair_occ)
+    for _, (bins_c, _, packed_c) in _encode_rows(
+            cfg, tree, data, encode_chunk, pair_occ=pair_occ,
+            vectors=vectors):
         bins_l.append(bins_c)
         packed_l.append(packed_c)
     tracing.mark("build.assemble", dev)
@@ -522,36 +543,34 @@ def assemble_database(cfg: PQTConfig, bin_ids: np.ndarray, codes: np.ndarray,
 def _encode_host(cfg: PQTConfig, tree: PQTree, data: np.ndarray,
                  id_offset: int, encode_chunk: int,
                  pair_occ: Optional[torch.Tensor]):
-    """Encode host rows on the tree's device, `encode_chunk` rows a step
-    (uint8 rows go up raw and are cast there): (bins (n,) int32, payload
-    rows (n, payload_width) int32) on the host; pair_occ, on the device, is
-    marked in place.  Each step's device work is marked as a build of its
-    own (utils/tracing.py), whose CSR the host assembles."""
+    """Encode host rows through `_encode_rows`: (bins (n,) int32, payload
+    rows (n, payload_width) int32) on the host, each chunk's copied down
+    as it is encoded; pair_occ, on the device, is marked in place.  The
+    device work is marked as `build_database`'s, but for the assembly,
+    which the host does."""
     dev = tree.cb1.device
+    tracing.mark("build.upload", dev)
     n = data.shape[0]
     bins = np.empty((n,), np.int32)
     packed = np.empty((n, payload_width(cfg)), np.int32)
-    seconds = tracing.Seconds(dev)
-    for s in range(0, n, encode_chunk):
-        tracing.mark("build.upload", dev)
-        chunk = torch.as_tensor(data[s:s + encode_chunk], device=dev)
-        seconds.end("upload")
-        tracing.mark("build.encode", dev)
-        bins_c, _, packed_c = chunk_encoder(cfg, tree, chunk,
-                                            _offset(id_offset + s, dev),
-                                            pair_occ)
-        tracing.mark("build.end", dev)
-        seconds.end("encode")
+    for s, (bins_c, _, packed_c) in _encode_rows(cfg, tree, data,
+                                                 encode_chunk, id_offset,
+                                                 pair_occ):
         bins[s:s + encode_chunk] = bins_c.cpu().numpy()
         packed[s:s + encode_chunk] = packed_c.cpu().numpy()
-        seconds.end("download")
+    tracing.mark("build.end", dev)
     return bins, packed
 
 
 def _host_rows(data) -> np.ndarray:
+    """A build's host rows: uint8 or float32 as given, any other dtype as
+    float32; at most int32's largest number of them."""
     data = np.asarray(data)
     if data.dtype not in (np.uint8, np.float32):
         data = data.astype(np.float32)
+    if data.shape[0] > np.iinfo(np.int32).max:
+        raise NotImplementedError("CSR positions exceed int32; shard the "
+                                  "build")
     return data
 
 
@@ -607,9 +626,7 @@ class ChunkedDBBuilder:
             arrays = dict(bins=bins, packed=packed)
             if self.keep_vectors:
                 arrays["vecs"] = data
-            seconds = tracing.Seconds(self.device)
             np.savez(path, **arrays)
-            seconds.end("save")
             self._chunks.append(path)
         else:
             self._chunks.append((bins, packed))
@@ -622,31 +639,74 @@ class ChunkedDBBuilder:
     def finalize(self, to_device: bool = True, device=None) -> PQTDatabase:
         """The CSR database: leaves on `device` (the builder's by default),
         or, with to_device=False, numpy arrays and memmaps."""
+        dev = (resolve_device(self.device if device is None else device)
+               if to_device else None)
         occ = self._pair_occ
         if isinstance(occ, torch.Tensor):
             occ = occ.cpu().numpy()
-        return _streaming_merge(
-            self.cfg, self._chunks, self._hist, self._n, occ,
-            self._vec_meta if self.spill_path else None, self.spill_path,
-            np.concatenate(self._vecs) if self._vecs else None, to_device,
-            self.device if device is None else device)
+        prefix, counts, payload, vectors_csr = _streaming_merge(
+            self.cfg, self._chunks, self._hist, 0,
+            self._vec_meta if self.spill_path else None, self.spill_path)
+        return _csr_database(
+            prefix, counts, payload, occ,
+            np.concatenate(self._vecs) if self._vecs else None, vectors_csr,
+            to_device, dev)
 
 
-def _streaming_merge(cfg: PQTConfig, chunks, hist: np.ndarray, n: int,
-                     pair_occ, vec_meta, spill_path, vectors, to_device_,
-                     device) -> PQTDatabase:
-    """Place every chunk's rows at their CSR positions (the merge of
-    ChunkedDBBuilder.finalize and merge_chunk_files).  chunks: (bins,
-    packed) pairs, or chunk file paths (bins, packed and, when vec_meta is
-    given, vecs); vec_meta (dtype, dim) spills the vectors in CSR order."""
+def _range_mask(bins: np.ndarray, lo: int, hi: int,
+                hash_size: int) -> Optional[np.ndarray]:
+    """The mask of the bins in [lo, hi), or None when the range is the
+    whole table and every bin is in it."""
+    if (lo, hi) == (0, hash_size):
+        return None
+    return (bins >= lo) & (bins < hi)
+
+
+def _scan_chunk_files(cfg: PQTConfig, paths, lo: int, hi: int,
+                      keep_vectors: bool):
+    """One pass over encoded chunk files for a merge of hash bins [lo,
+    hi): (the bins' histogram (hi - lo,) int64, the raw vectors' (dtype,
+    dim) with keep_vectors or None, the OR of the files' pair_occ or
+    None)."""
+    hist = np.zeros((hi - lo,), np.int64)
+    vec_meta = pair_occ = None
+    for p in paths:
+        with np.load(p) as z:
+            if keep_vectors and "vecs" not in z.files:
+                raise ChunkFormatError(
+                    f"chunk {p} has no raw vectors but keep_vectors=True "
+                    "was requested; re-encode it with encode_chunk_to_file("
+                    "keep_vectors=True) or merge with keep_vectors=False")
+            bins = z["bins"]
+            mask = _range_mask(bins, lo, hi, cfg.hash_size)
+            hist += np.bincount(bins if mask is None else bins[mask] - lo,
+                                minlength=hi - lo)
+            if keep_vectors and vec_meta is None:
+                # from the first chunk only: reading an npz member loads it
+                # whole, so probing every chunk would double the vector I/O
+                v = z["vecs"]
+                vec_meta = (v.dtype, int(v.shape[1]))
+            if "pair_occ" in z.files:
+                pair_occ = (z["pair_occ"] if pair_occ is None
+                            else pair_occ | z["pair_occ"])
+    return hist, vec_meta, pair_occ
+
+
+def _streaming_merge(cfg: PQTConfig, chunks, hist: np.ndarray, lo: int,
+                     vec_meta=None, spill_path=None):
+    """Place every chunk's rows of hash bins [lo, lo + len(hist)) at their
+    CSR positions, in input order against per-bin cursors (the merge of
+    ChunkedDBBuilder.finalize and of both chunk-file merges).  chunks:
+    (bins, packed) pairs, or chunk file paths (bins, packed and, when
+    vec_meta (dtype, dim) is given, vecs, which are placed too).  The
+    outputs are memmaps at spill_path (the vectors at
+    `<spill_path>.vecs`), else in RAM.  Returns (prefix rebased to lo,
+    counts, payload, vectors in CSR order or None)."""
     from pqt_tpu_torch.io import native
-    dev = resolve_device(device) if to_device_ else None
-    if int(hist.sum()) != n:
-        raise ValueError("bin histogram out of sync with row count")
+    n = int(hist.sum())
     if n > np.iinfo(np.int32).max:
         raise NotImplementedError("CSR positions exceed int32; shard the "
                                   "build")
-    w = payload_width(cfg)
     # Host RAM at 2^29 slots: the int64 histogram and cursors (4 GiB each)
     # and the int32 prefix and counts (2 GiB each); the probe table is
     # derived on the device when the leaves go there.
@@ -654,30 +714,35 @@ def _streaming_merge(cfg: PQTConfig, chunks, hist: np.ndarray, n: int,
     cursor -= hist
     prefix = cursor.astype(np.int32)
     counts = hist.astype(np.int32)
-    vec_mm = None
-    if spill_path:
-        payload = np.memmap(spill_path, np.int32, mode="w+", shape=(n, w))
-        if vec_meta is not None:
-            vec_mm = np.memmap(f"{spill_path}.vecs", vec_meta[0], mode="w+",
-                               shape=(n, vec_meta[1]))
-    else:
-        payload = np.empty((n, w), np.int32)
+
+    def output(path, dtype, width):
+        if spill_path:
+            return np.memmap(path, dtype, mode="w+", shape=(n, width))
+        return np.empty((n, width), dtype)
+
+    payload = output(spill_path, np.int32, payload_width(cfg))
+    vecs = (None if vec_meta is None
+            else output(f"{spill_path}.vecs", vec_meta[0], vec_meta[1]))
     for chunk in chunks:
         vecs_chunk = None
         if isinstance(chunk, (str, os.PathLike)):
             with np.load(chunk) as z:
                 bins, rows = z["bins"], z["packed"]
-                if vec_mm is not None:
+                if vecs is not None:
                     vecs_chunk = z["vecs"]
         else:
             bins, rows = chunk
+        mask = _range_mask(bins, lo, lo + hist.shape[0], cfg.hash_size)
+        if mask is not None:
+            bins, rows = bins[mask] - lo, rows[mask]
+            if vecs_chunk is not None:
+                vecs_chunk = vecs_chunk[mask]
         pos = native.place_positions(bins, cursor)
         native.scatter_rows(rows, pos, payload)
         if vecs_chunk is not None:
-            native.scatter_rows(vecs_chunk, pos, vec_mm)
+            native.scatter_rows(vecs_chunk, pos, vecs)
     del cursor
-    return _csr_database(prefix, counts, payload, pair_occ, vectors, vec_mm,
-                         to_device_, dev)
+    return prefix, counts, payload, vecs
 
 
 _FILE_OCC_LOCK = threading.Lock()
@@ -712,9 +777,7 @@ def encode_chunk_to_file(cfg: PQTConfig, tree: PQTree, data, id_offset: int,
             arrays["vecs"] = data
         if pair_occ is not None:
             arrays["pair_occ"] = pair_occ.cpu().numpy()
-    seconds = tracing.Seconds(tree.cb1.device)
     np.savez(path, **arrays)
-    seconds.end("save")
     return data.shape[0]
 
 
@@ -728,43 +791,9 @@ def merge_chunk_files_range(cfg: PQTConfig, paths, lo: int, hi: int,
     pair_occ or None -- the OR of the chunks' tables), ids ascending
     inside every bin as in the global merge.
     """
-    from pqt_tpu_torch.io import native
-    span = hi - lo
-    hist = np.zeros((span,), np.int64)
-    vec_meta = None
-    pair_occ = None
-    for p in paths:
-        with np.load(p) as z:
-            if keep_vectors and "vecs" not in z.files:
-                raise ChunkFormatError(
-                    f"chunk {p} has no raw vectors but keep_vectors=True "
-                    "was requested")
-            b = z["bins"]
-            m = (b >= lo) & (b < hi)
-            hist += np.bincount(b[m] - lo, minlength=span)
-            if "pair_occ" in z.files:
-                pair_occ = (z["pair_occ"] if pair_occ is None
-                            else pair_occ | z["pair_occ"])
-            if keep_vectors and vec_meta is None:
-                v = z["vecs"]
-                vec_meta = (v.dtype, int(v.shape[1]))
-    cursor = np.cumsum(hist)
-    cursor -= hist
-    prefix = cursor.astype(np.int32)
-    n_local = int(hist.sum())
-    payload = np.empty((n_local, payload_width(cfg)), np.int32)
-    vecs = (np.empty((n_local, vec_meta[1]), vec_meta[0])
-            if keep_vectors else None)
-    for p in paths:
-        with np.load(p) as z:
-            b, rows = z["bins"], z["packed"]
-            vc = z["vecs"] if keep_vectors else None
-        m = (b >= lo) & (b < hi)
-        pos = native.place_positions(b[m] - lo, cursor)
-        native.scatter_rows(rows[m], pos, payload)
-        if vc is not None:
-            native.scatter_rows(vc[m], pos, vecs)
-    return prefix, hist.astype(np.int32), payload, vecs, pair_occ
+    hist, vec_meta, pair_occ = _scan_chunk_files(cfg, paths, lo, hi,
+                                                 keep_vectors)
+    return _streaming_merge(cfg, paths, hist, lo, vec_meta) + (pair_occ,)
 
 
 def merge_chunk_files(cfg: PQTConfig, tree: PQTree, paths,
@@ -773,36 +802,19 @@ def merge_chunk_files(cfg: PQTConfig, tree: PQTree, paths,
                       to_device: bool = True, device="cuda") -> PQTDatabase:
     """Assemble the global CSR database from `encode_chunk_to_file` chunks
     (made by either package): host work only, the streaming counting sort
-    of ChunkedDBBuilder.finalize.  keep_vectors=True needs `spill_path`
-    (the vectors merge into a CSR-ordered memmap, `vectors_csr`).  The
-    leaves go to `device`, or stay numpy arrays and memmaps with
-    to_device=False.  The tree is not used; the argument keeps the JAX
-    package's signature."""
+    of ChunkedDBBuilder.finalize over the range [0, hash_size).
+    keep_vectors=True needs `spill_path` (the vectors merge into a
+    CSR-ordered memmap, `vectors_csr`).  The leaves go to `device`, or stay
+    numpy arrays and memmaps with to_device=False.  The tree is not used;
+    the argument keeps the JAX package's signature."""
     del tree
     if keep_vectors and not spill_path:
         raise ValueError("merge_chunk_files(keep_vectors=True) needs "
                          "spill_path (vectors merge into a CSR memmap)")
-    hist = np.zeros((cfg.hash_size,), np.int64)
-    n = 0
-    occ = None
-    vec_meta = None
-    for p in paths:
-        with np.load(p) as z:
-            if keep_vectors and "vecs" not in z.files:
-                raise ChunkFormatError(
-                    f"chunk {p} has no raw vectors but "
-                    "merge_chunk_files(keep_vectors=True) was requested; "
-                    "re-encode it with encode_chunk_to_file("
-                    "keep_vectors=True) or merge with keep_vectors=False")
-            bins = z["bins"]
-            hist += np.bincount(bins, minlength=cfg.hash_size)
-            n += int(bins.shape[0])
-            if keep_vectors and vec_meta is None:
-                # from the first chunk only: reading an npz member loads it
-                # whole, so probing every chunk would double the vector I/O
-                v = z["vecs"]
-                vec_meta = (v.dtype, int(v.shape[1]))
-            if "pair_occ" in z.files:
-                occ = z["pair_occ"] if occ is None else occ | z["pair_occ"]
-    return _streaming_merge(cfg, list(paths), hist, n, occ, vec_meta,
-                            spill_path, None, to_device, device)
+    hist, vec_meta, occ = _scan_chunk_files(cfg, paths, 0, cfg.hash_size,
+                                            keep_vectors)
+    dev = resolve_device(device) if to_device else None
+    prefix, counts, payload, vectors_csr = _streaming_merge(
+        cfg, paths, hist, 0, vec_meta, spill_path)
+    return _csr_database(prefix, counts, payload, occ, None, vectors_csr,
+                         to_device, dev)

@@ -44,9 +44,8 @@ import torch
 
 from pqt_tpu_torch.config import PQTConfig
 from pqt_tpu_torch.models.db import (PQTDatabase, _assemble_device,
-                                     _check_tree_device, _offset,
-                                     chunk_encoder,
-                                     to_device)
+                                     _check_tree_device, _device_vectors,
+                                     _encode_rows, _host_rows, to_device)
 from pqt_tpu_torch.models.query import (QueryResult, _duplicate_stats,
                                         _pad_k, _parts_sequence_on,
                                         _row_sqdist, _sorted_part_lists,
@@ -55,6 +54,7 @@ from pqt_tpu_torch.models.tree import PQTree, line_tables
 from pqt_tpu_torch.ops import binning
 from pqt_tpu_torch.ops.cuda.gather import lut_gather
 from pqt_tpu_torch.ops.cuda.rerank import gather_rerank
+from pqt_tpu_torch.utils import tracing
 from pqt_tpu_torch.utils.device import resolve_device
 from pqt_tpu_torch.utils.graphs import graphed
 
@@ -156,32 +156,29 @@ def build_multi_database(cfg: PQTConfig, tree: PQTree, data,
     """Build one inverted file per part group on `device` (the tree's).
 
     Vectors keep their dtype (uint8 stays uint8 on the card; any other
-    than uint8 or float32 becomes float32); the encode casts a chunk at a
-    time.  With `spill_path` the groups' payloads go to host memmaps
-    (`<spill_path>.g<i>`); place the result on the card with
+    than uint8 or float32 becomes float32); the rows go up a chunk at a
+    time as in `build_database` (models/db.py `_encode_rows`), and the
+    encode casts each.  With `spill_path` the groups' payloads go to host
+    memmaps (`<spill_path>.g<i>`); place the result on the card with
     `place_multi_database` before querying.
     """
     dev = _check_tree_device(tree, device)
     if cfg.p % group_parts:
         raise ValueError(f"group_parts {group_parts} does not divide p "
                          f"{cfg.p}")
-    data = np.asarray(data)
-    if data.dtype not in (np.uint8, np.float32):
-        data = data.astype(np.float32)
-    n = data.shape[0]
-    if n > np.iinfo(np.int32).max:
-        raise NotImplementedError("CSR positions exceed int32")
-    vectors = torch.as_tensor(data, device=dev) if keep_vectors else None
+    data = _host_rows(data)
+    tracing.mark("build.upload", dev)
+    vectors = _device_vectors(data, dev) if keep_vectors else None
     codes_l, packed_l = [], []
-    for s in range(0, n, encode_chunk):
-        chunk = (vectors[s:s + encode_chunk] if vectors is not None else
-                 torch.as_tensor(data[s:s + encode_chunk], device=dev))
-        _, pc, rows = chunk_encoder(cfg, tree, chunk, _offset(s, dev))
+    for _, (_, pc, rows) in _encode_rows(cfg, tree, data, encode_chunk,
+                                         vectors=vectors):
         codes_l.append(pc)
         packed_l.append(rows)
+    tracing.mark("build.assemble", dev)
     dbs, pair_occ = assemble_multi_database(
         cfg, torch.cat(codes_l), torch.cat(packed_l), group_parts,
         spill_path, dev)
+    tracing.mark("build.end", dev)
     return MultiDatabase(databases=dbs, vectors=vectors, pair_occ=pair_occ)
 
 

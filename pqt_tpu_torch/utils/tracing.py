@@ -1,5 +1,4 @@
-"""The port's tracing: stage marks on the device, spans on the host, and
-the out-of-core encode's seconds.
+"""The port's tracing: stage marks on the device and spans on the host.
 
 Marks and spans follow torch.profiler: they are live exactly while a
 profiler session records (`enabled()`, the profiler's own state, one C
@@ -30,10 +29,11 @@ The stages, in the order one call marks them:
     chunk): the part codes and the bin hash; the line codes (kernel L),
     the packing and the pair marks;
   * `build.upload`, `build.encode`, `build.assemble`, `build.end`
-    (models/db.py `build_database`, and the out-of-core encode's chunks):
-    the rows' upload (in `build_database`, the allocations and the first
-    chunk's copy: the later chunks' copies overlap the encodes); the
-    chunk encodes; the CSR assembly.
+    (models/db.py `build_database`; the out-of-core encode and
+    models/multidb.py's build mark them too, the out-of-core encode
+    without `build.assemble`): the allocations and the first chunk's
+    copy (the later chunks' copies overlap the encodes); the chunk
+    encodes; the CSR assembly.
 
 Host spans (`span`) are record_function ranges, live only while the
 profiler records, around host work that launches nothing: the profiler
@@ -42,18 +42,12 @@ it would read as device work.  No range of the port encloses a launch.
 The spans: `pqt.graph.key` and `pqt.graph.count` (utils/graphs.py), and
 `pqt.build.stage` and `pqt.build.wait` (models/db.py `_row_chunks`), a
 build's fill of a pinned slot with host rows and its wait for a slot.
-
-`encode_spans`: the out-of-core encode's seconds by stage, summed while a
-caller holds a dict there (`Seconds`); each stage ends with a device
-synchronisation.  It is off (None) unless a caller sets it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import time
-from typing import Optional
 
 import torch
 
@@ -165,30 +159,3 @@ class GraphMarks:
             for d, graph_exec, node, _ in self.nodes:
                 _set_enabled(d, graph_exec, node, on)
             self.on = on
-
-
-# Seconds of the out-of-core encode's stages (models/db.py `_encode_host`
-# and the chunk files), summed over calls while a caller holds a dict here:
-# "upload", "encode" (to the end of the chunk's device work), "download"
-# (the `.cpu()` copies) and "save" (np.savez).  Each stage ends with a
-# device synchronisation.  None: nothing is timed and no synchronisation
-# added.
-encode_spans: Optional[dict] = None
-
-
-class Seconds:
-    """Adds the seconds since the last `end` to encode_spans[name]; a
-    no-op while encode_spans is None."""
-
-    def __init__(self, device: torch.device):
-        self.spans, self.device = encode_spans, device
-        self.t = time.perf_counter()
-
-    def end(self, name: str) -> None:
-        if self.spans is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.spans[name] = self.spans.get(name, 0.0) + now - self.t
-        self.t = now

@@ -148,17 +148,56 @@ def _upload_rows(base, case):
             "float32": base[:3 * c + 5]}[case]
 
 
+def _staged_leaves(entry, cfg, tree, rows, keep_vectors, chunk, path):
+    """What `entry` makes of the host rows encoded `chunk` rows a step, by
+    name, as numpy arrays (None where a leaf is absent): a database's
+    leaves, a multi-DB's groups' leaves and its own, or a chunk file's
+    arrays."""
+    if entry == "encode_chunk_to_file":
+        T.encode_chunk_to_file(cfg, tree, rows, 0, path, encode_chunk=chunk,
+                               keep_vectors=keep_vectors, device="cpu")
+        with np.load(path) as z:
+            return {name: z[name] for name in z.files}
+    if entry == "build_multi_database":
+        mdb = T.build_multi_database(cfg, tree, rows, 2, encode_chunk=chunk,
+                                     keep_vectors=keep_vectors, device="cpu")
+        leaves = {"vectors": mdb.vectors, "pair_occ": mdb.pair_occ}
+        for i, db in enumerate(mdb.databases):
+            leaves.update({f"{i}.{leaf}": getattr(db, leaf)
+                           for leaf in DB_LEAVES})
+    else:
+        if entry == "add_chunk":
+            builder = T.ChunkedDBBuilder(cfg, tree, keep_vectors=keep_vectors,
+                                         encode_chunk=chunk, device="cpu")
+            builder.add_chunk(rows)
+            db = builder.finalize()
+        else:
+            db = T.build_database(cfg, tree, rows, keep_vectors=keep_vectors,
+                                  encode_chunk=chunk, device="cpu")
+        leaves = {leaf: getattr(db, leaf) for leaf in DB_LEAVES}
+    return {k: None if v is None else v.numpy() for k, v in leaves.items()}
+
+
 @pytest.mark.parametrize("keep_vectors", [True, False],
                          ids=["vectors", "no_vectors"])
-@pytest.mark.parametrize("case", ["multiple", "ragged", "short", "read_only",
-                                  "strided", "rotated", "float32"])
-def test_chunked_upload_matches_one_chunk(trees, case, keep_vectors):
-    """build_database in chunks of UPLOAD_CHUNK rows (`_row_chunks`)
-    equals, in every leaf to the bit (pair_occ and vectors included), the
-    same rows built in one chunk: n a multiple of the chunk, ragged, and
-    shorter than one chunk; a read-only array, a strided view, a rotated
-    view of a larger array; float32 rows.  Every chunk is counted as
-    staged, with its bytes."""
+@pytest.mark.parametrize("entry,case", [
+    pytest.param("build_database", case, id=case)
+    for case in ("multiple", "ragged", "short", "read_only", "strided",
+                 "rotated", "float32")] + [
+    pytest.param(entry, case, id=f"{entry}-{case}")
+    for entry in ("add_chunk", "encode_chunk_to_file",
+                  "build_multi_database")
+    for case in ("ragged", "short", "strided")])
+def test_chunked_upload_matches_one_chunk(trees, tmp_path, entry, case,
+                                          keep_vectors):
+    """Each staged entry (build_database, ChunkedDBBuilder.add_chunk,
+    encode_chunk_to_file, build_multi_database) over host rows in chunks
+    of UPLOAD_CHUNK rows (`_encode_rows`) equals, in every leaf to the bit
+    (pair_occ and vectors included), the same rows through the same entry
+    in one chunk: n a multiple of the chunk, ragged, and shorter than one
+    chunk; a read-only array, a strided view, a rotated view of a larger
+    array; float32 rows.  Every chunk is counted as staged, with its
+    bytes."""
     name = "small" if case == "float32" else "sift"
     tree, base = trees[name]
     cfg = CONFIGS["exact" if name == "small" else "sift_width"]
@@ -166,23 +205,25 @@ def test_chunked_upload_matches_one_chunk(trees, case, keep_vectors):
     rows = _upload_rows(base, case)
     assert rows.dtype == (np.float32 if name == "small" else np.uint8)
     n = rows.shape[0]
-    want = T.build_database(tcfg, ttree, rows, keep_vectors=keep_vectors,
-                            encode_chunk=n, device="cpu")
+    want = _staged_leaves(entry, tcfg, ttree, rows, keep_vectors, n,
+                          str(tmp_path / "one.npz"))
     chunks, nbytes = (TDB.build_database.chunks_staged,
                       TDB.build_database.bytes_staged)
-    got = T.build_database(tcfg, ttree, rows, keep_vectors=keep_vectors,
-                           encode_chunk=UPLOAD_CHUNK, device="cpu")
+    got = _staged_leaves(entry, tcfg, ttree, rows, keep_vectors,
+                         UPLOAD_CHUNK, str(tmp_path / "chunked.npz"))
     assert TDB.build_database.chunks_staged - chunks == -(-n // UPLOAD_CHUNK)
     assert TDB.build_database.bytes_staged - nbytes == rows.nbytes
-    assert got.pair_occ is not None
-    for leaf in DB_LEAVES:
-        a, b = getattr(got, leaf), getattr(want, leaf)
-        if not keep_vectors and leaf == "vectors":
-            assert a is None and b is None
+    assert got["pair_occ"] is not None
+    assert got.keys() == want.keys()
+    for leaf, a in got.items():
+        b = want[leaf]
+        if a is None:
+            assert b is None, leaf
             continue
-        assert a.dtype == b.dtype and torch.equal(a, b), leaf
+        assert a.dtype == b.dtype and np.array_equal(a, b), leaf
     if keep_vectors:
-        np.testing.assert_array_equal(got.vectors.numpy(), rows)
+        np.testing.assert_array_equal(got.get("vectors", got.get("vecs")),
+                                      rows)
 
 
 def test_load_or_build_builds_once(trees, tmp_path):

@@ -385,16 +385,18 @@ def test_encoder_key_holds_the_shape_not_the_offset(built, on_card,
                NORMS for e in entries)
     want = _old_build(CFG, tree, data, CHUNK)
     _same((db.prefix, db.counts, db.payload, db.pair_occ, db.prefix2), want)
-    # the host encode into one occupancy map twice: another map is
+    # the shared encode loop into one occupancy map twice: another map is
     # another key, and the second pass is all replays, offsets copied in
     occ = torch.zeros_like(occ)
     old = [_old_encode_chunk(CFG, tree, torch.from_numpy(data[s:s + CHUNK]),
                              1000 + s) for s in range(0, 1300, CHUNK)]
     launched = primitives.segmented_reduce.launches
     for replays in ([1, 0], [3, 1]):
-        bins, rows = TDB._encode_host(CFG, tree, data, 1000, CHUNK, occ)
-        assert np.array_equal(bins, torch.cat([o[0] for o in old]).numpy())
-        assert np.array_equal(rows, torch.cat([o[2] for o in old]).numpy())
+        got = [o for _, o in TDB._encode_rows(CFG, tree, data, CHUNK, 1000,
+                                              occ)]
+        for i in range(3):
+            _same(torch.cat([o[i] for o in got]),
+                  torch.cat([o[i] for o in old]))
         assert [e.replays for e in TDB.chunk_encoder.graphs.values()][
             2:] == replays
     _same(occ, want[3])

@@ -115,24 +115,25 @@ def test_build_marks_each_chunk(built, hooked):
 
 
 def test_out_of_core_encode_marks_each_step(built, hooked):
-    """The out-of-core encode marks each step's upload and encode as a
-    build of its own; its seconds by stage are kept only while a caller
-    holds tracing.encode_spans."""
+    """The out-of-core encode marks its device work as build_database
+    does, through the same loop, but for the assembly, which the host
+    does: its upload and encode once, then each chunk's encode stages, then
+    its end.  The multi-DB build marks its assembly too."""
     data, tree, _, _ = built
     builder = DB.ChunkedDBBuilder(CFG, tree, encode_chunk=512, device="cpu")
     with _cpu_profile():
         builder.add_chunk(data[:700])
     chunk = ["encode.part_codes", "encode.payload", "encode.end"]
-    assert hooked["marks"] == (["build.upload", "build.encode"] + chunk
-                               + ["build.end"]) * 2
-    assert tracing.encode_spans is None
-    tracing.encode_spans = spans = {}
-    try:
-        builder.add_chunk(data[700:900])
-    finally:
-        tracing.encode_spans = None
-    assert set(spans) == {"upload", "encode", "download"}
-    assert not hasattr(DB, "encode_spans") and not hasattr(DB, "_Spans")
+    assert hooked["marks"] == (["build.upload", "build.encode"] + chunk * 2
+                               + ["build.end"])
+    del hooked["marks"][:]
+    with _cpu_profile():
+        T.build_multi_database(CFG, tree, data[:700], 2, encode_chunk=512,
+                               device="cpu")
+    assert hooked["marks"] == (["build.upload", "build.encode"] + chunk * 2
+                               + ["build.assemble", "build.end"])
+    assert not hasattr(tracing, "encode_spans")
+    assert not hasattr(tracing, "Seconds")
 
 
 def _names(prof) -> list:
