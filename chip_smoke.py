@@ -37,8 +37,9 @@ Phases (any failure exits non-zero before the last line is printed):
      sums' onepass mode also captured in a CUDA graph and replayed on new
      inputs (each replay held, the replay timed beside the eager launch);
      kernel L, the build's line-code selection, at a 65536-row chunk's
-     SIFT1M and SIFT1B line tables (lp 16 and 32, c1 16) at both lambda
-     widths, codes and terms equal to its plain version to the bit (no
+     SIFT1M and SIFT1B widths (lp 16 and 32, c1 16) at both lambda widths,
+     fed from the line GEMM's own output, codes and terms equal to the
+     plain chain (the tables' passes, then line_codes_plain) to the bit (no
      PyTorch call computes it: "library" None), kernel P, the build's part
      codes, at a 65536-row chunk of the SIFT presets' part widths (p 4,
      256 centroids, vl 32) and of GIST's vl 240, each code that differs from
@@ -55,7 +56,9 @@ Phases (any failure exits non-zero before the last line is printed):
      then the kernels are held on inputs that are hard for them (not
      timed; kernel L on coincident centroids, exact residual ties, lambda
      past and about both ends of [-4, 4), NaN and infinite distances,
-     ragged shapes and its loop route at other c1, to the bit; kernel P on
+     rows at centroids (distances clamped at 0), inf and NaN rows, ragged
+     shapes, its loop route at other c1 and other strides, to the bit;
+     kernel P on
      integer ties, rows on centroids, NaN and infinite values and zeros to
      the bit, on ragged rows, its loop route and an unaligned input at
      most a near-tie);
@@ -1024,13 +1027,13 @@ def sectors_touched(torch, pos, row_bytes):
 LINE_CODE_SHAPES = (("sift1m_chunk", 16, 16), ("sift1b_chunk", 32, 16))
 
 
-def line_tables_case(torch, gen, n, lp, c1, dim=128, noise=8.0):
-    """A chunk's line tables as the encode makes them: (n, lp, c1) segment
-    distances of integer-valued rows in [0, 255] to c1 random centroids
-    (ops/distance.py subpart_sqdist_tables, made contiguous as
-    build_line_codes does) and the (lp, c1, c1) pair table.  Each row lies
-    about a point of the line between two centroids (lambda in [-0.2,
-    1.2)), so every line part has a real choice to make."""
+def line_terms_case(torch, gen, n, lp, c1, dim=128, noise=8.0):
+    """A chunk's line tables' terms as the encode makes them: (dot, xn, cn)
+    of integer-valued rows in [0, 255] and c1 random centroids
+    (ops/distance.py subpart_sqdist_terms: dot in the layout the line GEMM
+    writes), and the (lp, c1, c1) pair table.  Each row lies about a point
+    of the line between two centroids (lambda in [-0.2, 1.2)), so every
+    line part has a real choice to make."""
     from pqt_tpu_torch.ops import distance as D
     cent = torch.rand((c1, dim), generator=gen, device="cuda") * 140
     i, j = (torch.randint(0, c1, (n,), generator=gen, device="cuda")
@@ -1039,23 +1042,38 @@ def line_tables_case(torch, gen, n, lp, c1, dim=128, noise=8.0):
     x = ((1 - t) * cent[i] + t * cent[j]
          + noise * torch.randn((n, dim), generator=gen, device="cuda"))
     x = torch.clamp(torch.round(x), 0, 255)
-    return (D.subpart_sqdist_tables(x, cent, lp).contiguous(),
+    return (*D.subpart_sqdist_terms(x, cent, lp),
             D.centroid_pair_sqdist(cent, lp))
 
 
+def tables_as_terms(torch, d):
+    """Terms (dot, xn, cn) whose distances clamp_min(xn + cn - 2 dot, 0)
+    are the tables d (n, lp, c1) wherever d is not below 0: dot = -d / 2,
+    exact for normal numbers, infinities and NaN, and zero norms."""
+    n, lp, c1 = d.shape
+    return (d * -0.5, torch.zeros((n, lp), device=d.device),
+            torch.zeros((c1, lp), device=d.device))
+
+
 def line_code_hard_cases(torch, gen):
-    """Line-code selections that are easiest to get wrong: (name,
-    part_dists, pair_dists).  Coincident centroids (pair distances 0: lambda
-    from a divide by 1e-20, residuals of -inf and NaN), a line part whose
+    """Line-code selections that are easiest to get wrong: (name, dot, xn,
+    cn, pair_dists).  Tables fed as terms that reproduce them
+    (tables_as_terms): coincident centroids (pair distances 0: lambda from
+    a divide by 1e-20, residuals of -inf and NaN), a line part whose
     centroids all coincide, small integer distances (exact residual ties),
     lambda far past both ends of [-4, 4), lambda on a fine grid about -4
-    and 4 (one pair, c1 2), NaN and infinite distances, all zeros; then
-    ragged row counts on the c1 16 route, the loop route at c1 2, 5, 17, 64
-    and 256, at c1 16 from distances 4 bytes off a 16-byte boundary, and no
+    and 4 (one pair, c1 2), NaN, infinite and -inf (clamped) distances, all
+    zeros.  Then the GEMM's own terms: rows equal to a centroid (segment
+    distances that round below 0 and clamp) and rows holding inf, -inf and
+    NaN at SIFT1B's and GIST's widths; ragged row counts on the c1 16
+    route; the loop route at c1 2, 5, 17, 64 and 256; the GEMM's output
+    copied contiguous (c1 values still contiguous), with the line parts
+    innermost and 4 bytes off a 16-byte boundary (the loop route); and no
     rows at all."""
-    def on_card(*xs):
-        return tuple(x.to(device="cuda", dtype=torch.float32).contiguous()
-                     for x in xs)
+    def on_card(d, p):
+        d, p = (x.to(device="cuda", dtype=torch.float32).contiguous()
+                for x in (d, p))
+        return (*tables_as_terms(torch, d), p)
 
     from pqt_tpu_torch.ops import distance as D
     n, lp, c1, dim = 1000, 4, 16, 32
@@ -1066,14 +1084,12 @@ def line_code_hard_cases(torch, gen):
     x = cent[torch.randint(0, c1, (n,), generator=gen, device="cuda")]
     x[n // 2:] += torch.randint(-2, 3, (n - n // 2, dim), generator=gen,
                                 device="cuda")
-    yield ("coincident centroids",
-           D.subpart_sqdist_tables(x, cent, lp).contiguous(),
-           D.centroid_pair_sqdist(cent, lp))
+    yield "coincident centroids", *on_card(
+        D.subpart_sqdist_tables(x, cent, lp), D.centroid_pair_sqdist(cent, lp))
     flat = cent.clone()
     flat[:, :dim // lp] = flat[0, :dim // lp]
-    yield ("a line part of one point",
-           D.subpart_sqdist_tables(x, flat, lp).contiguous(),
-           D.centroid_pair_sqdist(flat, lp))
+    yield "a line part of one point", *on_card(
+        D.subpart_sqdist_tables(x, flat, lp), D.centroid_pair_sqdist(flat, lp))
     yield "integer ties", *on_card(
         torch.randint(0, 4, (n, lp, c1), generator=gen, device="cuda"),
         torch.randint(0, 4, (lp, c1, c1), generator=gen, device="cuda"))
@@ -1088,25 +1104,43 @@ def line_code_hard_cases(torch, gen):
         torch.stack([torch.full_like(lam, 100.0), 101.0 - 2.0 * lam],
                     1)[:, None, :],
         torch.tensor([[[0.0, 1.0], [1.0, 0.0]]], device="cuda"))
-    d, p = line_tables_case(torch, gen, n, lp, c1, dim)
+    dot, xn, cn, p = line_terms_case(torch, gen, n, lp, c1, dim)
+    d = D.subpart_sqdist_from_terms(dot, xn, cn)
     d[0, 0, 3] = float("nan")
     d[1] = float("nan")
     d[2, 1, :] = float("inf")
     d[3, 2, 7] = float("inf")
     d[4, 3, 0] = float("-inf")
-    yield "NaN and infinite distances", d, p
+    yield "NaN and infinite distances", *on_card(d, p)
     yield "zeros", *on_card(torch.zeros((n, lp, c1)),
                             torch.zeros((lp, c1, c1)))
+    for dim, lp in ((128, 32), (960, 32)):
+        cent = torch.rand((16, dim), generator=gen, device="cuda") * 140
+        x = torch.round(torch.rand((1000, dim), generator=gen,
+                                   device="cuda") * 255)
+        x[:200] = cent[torch.randint(0, 16, (200,), generator=gen,
+                                     device="cuda")]
+        x[200, 5] = float("inf")
+        x[201] = float("inf")
+        x[202, 3 * dim // lp] = float("nan")
+        x[203, 7] = float("-inf")
+        yield (f"centroid rows, inf and NaN at dim {dim}",
+               *D.subpart_sqdist_terms(x, cent, lp),
+               D.centroid_pair_sqdist(cent, lp))
     for rows, parts, width in ((1, 32, 16), (255, 32, 16), (257, 16, 16),
                                (70001, 3, 16), (1000, 1, 16), (300, 4, 2),
                                (300, 4, 5), (300, 4, 17), (200, 2, 64),
                                (40, 2, 256), (0, 32, 16)):
         yield (f"({rows}, {parts}, {width})",
-               *line_tables_case(torch, gen, rows, parts, width, 32 * parts))
-    d, p = line_tables_case(torch, gen, n, 8, 16)
-    off = torch.empty(d.numel() + 1, device="cuda")[1:].view(d.shape)
-    off.copy_(d)
-    yield "c1 16, 4 bytes off", off, p
+               *line_terms_case(torch, gen, rows, parts, width, 32 * parts))
+    dot, xn, cn, p = line_terms_case(torch, gen, 1000, 8, 16)
+    yield "dot contiguous", dot.contiguous(), xn, cn, p
+    inner = dot.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    yield "line parts innermost", inner, xn, cn, p
+    off = torch.empty(dot.numel() + 1, device="cuda")[1:].view(
+        dot.shape[1], dot.shape[0], dot.shape[2])
+    off.copy_(dot.transpose(0, 1))
+    yield "c1 16, 4 bytes off", off.transpose(0, 1), xn, cn, p
 
 
 def same_line_codes(torch, got, want):
@@ -1502,13 +1536,15 @@ def check_kernels(torch):
         del tab, pos, q
 
     for case, lp, c1 in LINE_CODE_SHAPES:
-        # kernel L against its plain version (the chain of passes XLA fuses
-        # in the JAX package), codes and terms equal to the bit
+        # kernel L against its plain version (the tables' passes, then the
+        # chain of passes XLA fuses in the JAX package), fed from the line
+        # GEMM's own output, codes and terms equal to the bit
         n = ENCODE_CHUNK
-        d, p = line_tables_case(torch, gen, n, lp, c1)
+        dot, xn, cn, p = line_terms_case(torch, gen, n, lp, c1)
         for bits in (16, 8):
-            got = lc.line_codes(d, p, bits)
-            want = L.line_codes_plain(d, p, bits)
+            got = lc.line_codes(dot, xn, cn, p, bits)
+            want = L.line_codes_plain(D.subpart_sqdist_from_terms(dot, xn, cn),
+                                      p, bits)
             torch.cuda.synchronize()
             if not same_line_codes(torch, got, want):
                 raise SmokeFailure(
@@ -1517,8 +1553,10 @@ def check_kernels(torch):
                     f"{int((got[1] != want[1]).sum())} terms differ from "
                     "the plain version")
             del got, want
-            # in: the tables once; out: an int64 code and a float term a
-            # (row, part).  8 operations a pair A < B: two subtractions, a
+            # in: the dot products once (as many as the tables' distances;
+            # portbench/yardstick.py's count, which leaves out the 4 bytes
+            # of norms a (row, part)); out: an int64 code and a float term
+            # a (row, part).  8 operations a pair A < B: two subtractions, a
             # multiply, a divide, two multiplies, a subtraction, a compare
             pairs = n * lp * c1 * (c1 - 1) // 2
             b_ms, b_by = bound(n * lp * c1 * 4 + lp * c1 * c1 * 4
@@ -1526,11 +1564,12 @@ def check_kernels(torch):
             record("line_codes", "pqt_tpu_torch/csrc/linecodes.cu",
                    "pqt_tpu/ops/linecodes.py:77",
                    f"{case} ({n},{lp},{c1}) lambda {bits} bits",
-                   device_ms(torch, lambda: lc.line_codes(d, p, bits)),
-                   device_ms(torch, lambda: L.line_codes_plain(d, p, bits),
-                             reps=5),
-                   None, b_ms, b_by, 0.0)
-        del d, p
+                   device_ms(torch, lambda: lc.line_codes(dot, xn, cn, p,
+                                                          bits)),
+                   device_ms(torch, lambda: L.line_codes_from_terms_plain(
+                       dot, xn, cn, p, bits), reps=5),
+                   None, b_ms, b_by, 0.0, dot_strides=list(dot.stride()))
+        del dot, xn, cn, p
         torch.cuda.empty_cache()
     for case, p, k, vl in PART_CODE_SHAPES:
         # kernel P against its plain version (the level-2 tables op by op
@@ -2021,12 +2060,14 @@ def check_other_paths(torch):
             raise SmokeFailure(f"gather_rerank {name} {tuple(payload.shape)} "
                                f"at {tuple(pos.shape)} differs (max abs "
                                f"error {err})")
-    for name, d, p in line_code_hard_cases(torch, gen):
+    for name, dot, xn, cn, p in line_code_hard_cases(torch, gen):
         for bits in (16, 8):
-            if not same_line_codes(torch, lc.line_codes(d, p, bits),
-                                   L.line_codes_plain(d, p, bits)):
-                raise SmokeFailure(f"line_codes {name} {tuple(d.shape)} "
-                                   f"lambda {bits} bits differs")
+            if not same_line_codes(
+                    torch, lc.line_codes(dot, xn, cn, p, bits),
+                    L.line_codes_from_terms_plain(dot, xn, cn, p, bits)):
+                raise SmokeFailure(f"line_codes {name} {tuple(dot.shape)} "
+                                   f"{dot.stride()} lambda {bits} bits "
+                                   "differs")
     for name, x, cb, exact in part_code_hard_cases(torch, gen):
         _, differ, near, gap = part_code_differences(torch, x, cb)
         allowed = 0 if exact else max(1, PART_CODES_DIFFER * x.shape[0])
@@ -3379,11 +3420,12 @@ def encode_files(P, cfg, tree, data, paths):
 def plain_line_codes():
     """Kernel L's plain version in the place of its wrapper, for the eager
     bodies called inside: the build's line codes by the chain of passes
-    they took before the kernel (its launches are not counted)."""
+    they took before the kernel, the line tables' and the selection's (its
+    launches are not counted)."""
     from pqt_tpu_torch.ops import linecodes as L
     from pqt_tpu_torch.ops.cuda import linecodes as lc
     wrapper = lc.line_codes
-    lc.line_codes = L.line_codes_plain
+    lc.line_codes = L.line_codes_from_terms_plain
     try:
         yield
     finally:

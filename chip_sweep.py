@@ -542,10 +542,11 @@ def sweep_linecodes(torch, emit, cases=None):
     """Kernel L (csrc/linecodes.cu): nvcc's register and spill report of
     its kernels (`-Xptxas -v`, built into pqt_tpu_torch/_build/variants/
     linecodes/, not loaded); then at chip_smoke.py's LINE_CODE_SHAPES at
-    both lambda widths, held to the plain version to the bit and timed
-    beside it, warm and cold (a rotating set of inputs larger than L2),
-    with the memory layout the line tables come out of their matmul in;
-    then chip_smoke.py's hard rows, each held to the bit."""
+    both lambda widths, fed from the line GEMM's output, held to the plain
+    version to the bit and timed warm and cold (a rotating set of inputs
+    larger than L2) beside it, with the layouts the GEMM's output and the
+    tables come in; then chip_smoke.py's hard rows, each held to the
+    bit."""
     import subprocess
     from pqt_tpu_torch.ops import distance as D
     from pqt_tpu_torch.ops import linecodes as L
@@ -571,35 +572,38 @@ def sweep_linecodes(torch, emit, cases=None):
     for case, lp, c1 in smoke.LINE_CODE_SHAPES:
         if cases and case not in cases:
             continue
-        d, p = smoke.line_tables_case(torch, gen, n, lp, c1)
-        raw = D.subpart_sqdist_tables(torch.zeros((8, 128), device="cuda"),
-                                      torch.zeros((c1, 128), device="cuda"),
-                                      lp)
+        dot, xn, cn, p = smoke.line_terms_case(torch, gen, n, lp, c1)
         pairs = n * lp * c1 * (c1 - 1) // 2
         b_ms = smoke.bound(n * lp * c1 * 4 + lp * c1 * c1 * 4 + n * lp * 12,
                            8 * pairs)[0]
         for bits in (16, 8):
-            if not smoke.same_line_codes(torch, lc.line_codes(d, p, bits),
-                                         L.line_codes_plain(d, p, bits)):
+            if not smoke.same_line_codes(
+                    torch, lc.line_codes(dot, xn, cn, p, bits),
+                    L.line_codes_from_terms_plain(dot, xn, cn, p, bits)):
                 raise smoke.SmokeFailure(f"line_codes {case} {bits} bits "
                                          "differs from the plain version")
             emit({"kernel": "line_codes", "case": f"{case} ({n},{lp},{c1})",
                   "variant": f"lambda {bits} bits", "bound_ms": b_ms,
-                  "ms": smoke.device_ms(torch,
-                                        lambda: lc.line_codes(d, p, bits)),
+                  "ms": smoke.device_ms(torch, lambda: lc.line_codes(
+                      dot, xn, cn, p, bits)),
                   "cold_ms": smoke.cold_ms(
-                      torch, lambda t: lc.line_codes(t, p, bits), d),
+                      torch, lambda t: lc.line_codes(t, xn, cn, p, bits),
+                      dot),
                   "plain_ms": smoke.device_ms(
-                      torch, lambda: L.line_codes_plain(d, p, bits), reps=5),
-                  "table_strides": list(raw.stride())})
-        del d, p
+                      torch, lambda: L.line_codes_from_terms_plain(
+                          dot, xn, cn, p, bits), reps=5),
+                  "dot_strides": list(dot.stride()),
+                  "table_strides": list(D.subpart_sqdist_from_terms(
+                      dot[:8], xn[:8], cn).stride())})
+        del dot, xn, cn, p
         torch.cuda.empty_cache()
-    for name, d, p in smoke.line_code_hard_cases(torch, gen):
+    for name, dot, xn, cn, p in smoke.line_code_hard_cases(torch, gen):
         for bits in (16, 8):
-            if not smoke.same_line_codes(torch, lc.line_codes(d, p, bits),
-                                         L.line_codes_plain(d, p, bits)):
+            if not smoke.same_line_codes(
+                    torch, lc.line_codes(dot, xn, cn, p, bits),
+                    L.line_codes_from_terms_plain(dot, xn, cn, p, bits)):
                 raise smoke.SmokeFailure(f"line_codes {name} "
-                                         f"{tuple(d.shape)} {bits} bits "
+                                         f"{tuple(dot.shape)} {bits} bits "
                                          "differs")
     torch.cuda.synchronize()
     print("line_codes: every hard row equal to the plain version to the "

@@ -5,7 +5,9 @@ Port of the in-memory build of pqt_tpu/models/db.py:
   1. per part, the best (l1, l2) over the k1_build best L1 cells x all c2
      refinements -> per-part code l1*c2 + l2;
   2. the bin id, mixed-radix or hashed into the table;
-  3. per (vector, line part) the packed line code, and the t3 term;
+  3. per (vector, line part) the packed line code, and the t3 term: kernel
+     L reads the line GEMM's output and the norms and forms the segment
+     distances in registers, so the line tables are never written;
   4. the CSR inverted file: a bin histogram, its prefix (kernel B), and a
      stable sort by bin id that lays the payload rows out in CSR order, so
      ids stay ascending inside every bin.
@@ -73,8 +75,7 @@ import numpy as np
 import torch
 
 from pqt_tpu_torch.config import PQTConfig
-from pqt_tpu_torch.models.tree import (PQTree, level1_tables, level2_tables,
-                                       line_tables)
+from pqt_tpu_torch.models.tree import PQTree, level1_tables, level2_tables
 from pqt_tpu_torch.ops import binning, distance, linecodes
 from pqt_tpu_torch.ops.cuda import partcodes
 from pqt_tpu_torch.ops.cuda.primitives import bitonic_topk
@@ -241,10 +242,13 @@ def encode_bins(cfg: PQTConfig, tree: PQTree, x: torch.Tensor) -> torch.Tensor:
 
 def encode_line_codes(cfg: PQTConfig, tree: PQTree, x: torch.Tensor):
     """((n, line_parts) packed codes, (n,) float32 t3), lambda quantized to
-    the payload's codec width so t3 agrees with the stored codes."""
-    return linecodes.build_line_codes(line_tables(cfg, tree, x),
-                                      tree.pair_dists,
-                                      lambda_bits=cfg.effective_lambda_bits)
+    the payload's codec width so t3 agrees with the stored codes.  Kernel L
+    takes the line tables' terms (the line GEMM's output and the norms) and
+    forms the distances itself, so the tables are never written."""
+    return linecodes.build_line_codes(
+        *distance.subpart_sqdist_terms(x, tree.centroids_full,
+                                       cfg.line_parts),
+        tree.pair_dists, cfg.effective_lambda_bits)
 
 
 def _encode_core(cfg: PQTConfig, tree: PQTree, chunk: torch.Tensor):

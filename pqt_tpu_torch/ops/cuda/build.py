@@ -64,8 +64,8 @@ _SIGNATURES = {
                                    _I)},
     "sqdist": {"pqt_gather_sqdist": ((_P, _L, _I, _I, _P, _I, _I, _P, _P,
                                       _P), _I)},
-    "linecodes": {"pqt_line_codes": ((_P, _P, _I, _I, _I, _I, _P, _P, _P),
-                                     _I)},
+    "linecodes": {"pqt_line_codes": ((_P, _P, _P, _L, _L, _L, _P, _I, _I,
+                                      _I, _I, _P, _P, _P), _I)},
     "partcodes": {"pqt_part_codes": ((_P, _P, _P, _P, _L, _I, _I, _I, _P,
                                       _P), _I)},
     "mark": {"pqt_stage_mark": ((_I, _P), _I),

@@ -65,10 +65,13 @@ def part_codes_plain(x: torch.Tensor, codebook: torch.Tensor,
     return torch.argmin(_tables(x, codebook, cn, xn), dim=-1)
 
 
-def subpart_sqdist_tables(x: torch.Tensor, centroids: torch.Tensor,
-                          line_parts: int) -> torch.Tensor:
-    """Distances between line-part segments of x (n, d) and of the full
-    L1 centroids (c1, d): (n, line_parts, c1)."""
+def subpart_sqdist_terms(x: torch.Tensor, centroids: torch.Tensor,
+                         line_parts: int):
+    """The three terms of `subpart_sqdist_tables` for x (n, d) and the L1
+    centroids (c1, d): dot (n, line_parts, c1) the segments' dot products,
+    as the batched matmul leaves them (strides (c1, n * c1, 1)); xn (n,
+    line_parts) the rows' segment norms (kernel D); cn (c1, line_parts) the
+    centroids' ones."""
     n, d = x.shape
     c1 = centroids.shape[0]
     lvl = d // line_parts
@@ -78,7 +81,22 @@ def subpart_sqdist_tables(x: torch.Tensor, centroids: torch.Tensor,
     dot = torch.einsum("nlv,clv->nlc", xp, cp)
     xn = segmented_reduce(x, line_parts, square=True)
     cn = torch.sum(cp * cp, dim=-1)
+    return dot, xn, cn
+
+
+def subpart_sqdist_from_terms(dot: torch.Tensor, xn: torch.Tensor,
+                              cn: torch.Tensor) -> torch.Tensor:
+    """The distances of `subpart_sqdist_terms`' terms: (n, line_parts,
+    c1)."""
     return torch.clamp_min(xn[:, :, None] + cn.T[None, :, :] - 2.0 * dot, 0.0)
+
+
+def subpart_sqdist_tables(x: torch.Tensor, centroids: torch.Tensor,
+                          line_parts: int) -> torch.Tensor:
+    """Distances between line-part segments of x (n, d) and of the full
+    L1 centroids (c1, d): (n, line_parts, c1)."""
+    return subpart_sqdist_from_terms(
+        *subpart_sqdist_terms(x, centroids, line_parts))
 
 
 def centroid_pair_sqdist(centroids: torch.Tensor,

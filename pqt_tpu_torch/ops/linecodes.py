@@ -8,16 +8,17 @@ arithmetic is patchy on CUDA); the values equal the JAX package's codes.
 
 `reconstruct_dists_idx` is the plain version of kernel C
 (ops/cuda/rerank.py), which computes the same distances from payload rows;
-`line_codes_plain` that of kernel L (ops/cuda/linecodes.py), the build's
-line-code selection, which `build_line_codes` calls.  `best_lines` stays
-plain: the diagnostics read its continuous lambda.
+`line_codes_from_terms_plain` that of kernel L (ops/cuda/linecodes.py),
+the build's line-code selection: the line tables' passes over their terms,
+then `line_codes_plain` over the tables.  `best_lines` stays plain: the
+diagnostics read its continuous lambda.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pqt_tpu_torch.ops import triangle
+from pqt_tpu_torch.ops import distance, triangle
 
 
 def pack_codes(a, b, lam_u16) -> torch.Tensor:
@@ -79,22 +80,30 @@ def line_codes_plain(part_dists: torch.Tensor, pair_dists: torch.Tensor,
     return packed, (lam_q * lam_q - lam_q) * c2_best
 
 
-def build_line_codes(part_dists: torch.Tensor, pair_dists: torch.Tensor,
-                     lambda_bits: int = 16):
-    """Best (A, B, lambda) per (vector, line part): kernel L's codes and
-    terms (`line_codes`; its plain version on the CPU), the terms summed
-    over the line parts.  The kernel takes contiguous tables; the line
-    tables come out of their matmul with the line parts innermost (strides
-    (lp * c1, 1, lp) on the CPU and on the H100; ops/distance.py
-    subpart_sqdist_tables), so they are copied first.
+def line_codes_from_terms_plain(dot: torch.Tensor, xn: torch.Tensor,
+                                cn: torch.Tensor, pair_dists: torch.Tensor,
+                                lambda_bits: int = 16):
+    """The plain version of kernel L: the line tables' passes over their
+    terms (ops/distance.py subpart_sqdist_from_terms), then
+    `line_codes_plain`."""
+    return line_codes_plain(distance.subpart_sqdist_from_terms(dot, xn, cn),
+                            pair_dists, lambda_bits)
+
+
+def build_line_codes(dot: torch.Tensor, xn: torch.Tensor, cn: torch.Tensor,
+                     pair_dists: torch.Tensor, lambda_bits: int = 16):
+    """Best (A, B, lambda) per (vector, line part) from the line tables'
+    terms (ops/distance.py subpart_sqdist_terms: the line GEMM's output as
+    it lies and the norms): kernel L's codes and terms (`line_codes`; its
+    plain version on the CPU), the terms summed over the line parts.
 
     Returns (packed (n, lp) codes, t3 (n,) float32, the query-independent
     term sum_lp (lambda^2 - lambda) * pair[lp, A, B]).
     """
     # imported here: the kernel's module imports this one
     from pqt_tpu_torch.ops.cuda import linecodes as kernel
-    packed, terms = kernel.line_codes(part_dists.contiguous(),
-                                      pair_dists.contiguous(), lambda_bits)
+    packed, terms = kernel.line_codes(dot, xn, cn, pair_dists.contiguous(),
+                                      lambda_bits)
     return packed, torch.sum(terms, dim=-1)
 
 

@@ -25,6 +25,7 @@ import torch
 from pqt_tpu_torch.config import PQTConfig
 from pqt_tpu_torch.models.db import encode_bins, encode_line_codes
 from pqt_tpu_torch.models.tree import PQTree, line_tables
+from pqt_tpu_torch.ops.distance import subpart_sqdist_terms
 from pqt_tpu_torch.ops.linecodes import (best_lines, build_line_codes,
                                          reconstruct_dists_idx, unpack_codes)
 
@@ -107,8 +108,9 @@ def quantization_stats(cfg: PQTConfig, tree: PQTree,
                                   lam_c[:, None, :], q_line,
                                   t3_c[:, None])[:, 0].cpu().numpy()
     out = {"rel_err_model": float((np.abs(model - exact) / scale).mean())}
+    terms = subpart_sqdist_terms(xt, tree.centroids_full, cfg.line_parts)
     for name, bits in (("codec16", 16), ("codec8", 8)):
-        ci, ti = build_line_codes(ld, tree.pair_dists, lambda_bits=bits)
+        ci, ti = build_line_codes(*terms, tree.pair_dists, lambda_bits=bits)
         ai = _line_dists(ci, q_line, ti).cpu().numpy()
         out[f"rel_err_{name}"] = float((np.abs(ai - exact) / scale).mean())
     return {

@@ -2,17 +2,21 @@
 csrc/linecodes.cu), against the JAX package, and the build's routing
 through it.
 
-On a CPU tensor `line_codes` runs its plain version, `line_codes_plain`;
-chip_smoke.py holds the CUDA kernel against that plain version on the card,
-to the bit.  Here:
+Kernel L takes the line tables' terms (the line GEMM's output and the
+norms) and forms the segment distances itself.  On CPU tensors `line_codes`
+runs its plain version, `line_codes_from_terms_plain`: the tables' passes,
+then `line_codes_plain` over the tables; chip_smoke.py holds the CUDA
+kernel against that plain version on the card, to the bit.  Here:
 
-* the plain version with its terms summed is held against the JAX
+* `line_codes_plain` with its terms summed is held against the JAX
   package's `build_line_codes` as its encode runs it, jitted (the fused
   reduce XLA makes of pqt_tpu/ops/linecodes.py:77-105, which kernel L
   takes the place of), at SIFT1M's and SIFT1B's (lp, c1) and at both
   lambda widths, on hard rows, and at other c1 (the kernel's loop route);
-  and the port's `encode_line_codes` against the JAX package's on one tree
-  at SIFT1B width;
+  so is the port's `build_line_codes`, fed terms that reproduce each case's
+  tables exactly (dot = -d / 2, zero norms); and the port's
+  `encode_line_codes` against the JAX package's on one tree at SIFT1B
+  width;
 * a numpy model of the kernel's walk (one (row, part) at a time, the pairs
   A < B in flat order A * c1 + B, every operation rounded on its own, the
   scan starting at the masked index 0, a NaN the least residual, the
@@ -20,7 +24,13 @@ to the bit.  Here:
   version to the bit on the same rows: what the kernel computes, checked
   where no card is;
 * the wrapper on CPU tensors equals the plain version to the bit, refuses
-  what the kernel does not take, and every build reaches it.
+  what the kernel does not take, and every build reaches it;
+* on real terms (the GEMM's output as it lies, the norms) the wrapper and
+  the build's `encode_line_codes` equal `line_codes_plain` over the tables
+  `subpart_sqdist_tables` makes, to the bit, at SIFT1M's, SIFT1B's and
+  GIST's widths, on rows whose distances clamp at 0 and rows with inf or
+  NaN, and so does the numpy model with the kernel's epilogue; the queries'
+  `line_tables` is the chain it was.
 
 Inputs are made with numpy from a seed; the JAX results are computed once a
 module.
@@ -57,7 +67,9 @@ from pqt_tpu.ops import linecodes as JL
 import pqt_tpu_torch as T
 from pqt_tpu_torch.models import db as TDB
 from pqt_tpu_torch.models.tree import line_tables
+from pqt_tpu_torch.ops import distance as TD
 from pqt_tpu_torch.ops import linecodes as TL
+from pqt_tpu_torch.ops.cuda import primitives
 from pqt_tpu_torch.ops.cuda import build
 from pqt_tpu_torch.ops.cuda import linecodes as LC
 from pqt_tpu_torch.ops.cuda.linecodes import line_codes
@@ -141,6 +153,18 @@ CASES = _make_cases()
 TIE_SHARE = {"coincident_centroids": 0.01, "one_point_part": 0.01}
 
 
+def _as_terms(d):
+    """Terms (dot, xn, cn) whose distances clamp_min(xn + cn - 2 dot, 0)
+    are the tables d (n, lp, c1) to the bit: dot = -d / 2 (exact: no case
+    holds a subnormal or a negative distance) and zero norms."""
+    n, lp, c1 = d.shape
+    dot = torch.from_numpy(d * np.float32(-0.5))
+    xn, cn = torch.zeros((n, lp)), torch.zeros((c1, lp))
+    np.testing.assert_array_equal(
+        TD.subpart_sqdist_from_terms(dot, xn, cn).numpy(), d)
+    return dot, xn, cn
+
+
 @pytest.fixture(scope="module")
 def jax_codes():
     """{(case, bits): (codes (n, lp) int64, t3 (n,) float32)} of the JAX
@@ -206,9 +230,10 @@ def test_plain_matches_jax(jax_codes, name, bits):
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_build_line_codes_matches_jax(jax_codes, name, bits):
-    """build_line_codes (the wrapper, then the sum over the line parts)."""
+    """build_line_codes (the wrapper, then the sum over the line parts), fed
+    terms whose distances are the case's tables."""
     d, p = CASES[name]
-    got = TL.build_line_codes(torch.from_numpy(d), torch.from_numpy(p), bits)
+    got = TL.build_line_codes(*_as_terms(d), torch.from_numpy(p), bits)
     _assert_matches_jax(d, p, got, jax_codes[name, bits],
                         TIE_SHARE.get(name, 0.001))
 
@@ -270,47 +295,63 @@ def test_kernel_model_matches_plain(name, bits):
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_wrapper_on_cpu_is_the_plain_version(name, bits):
-    d, p = (torch.from_numpy(a) for a in CASES[name])
+    d, p = CASES[name]
     launches = line_codes.launches
-    codes, terms = line_codes(d, p, bits)
-    want_codes, want_terms = TL.line_codes_plain(d, p, bits)
+    codes, terms = line_codes(*_as_terms(d), torch.from_numpy(p), bits)
+    want_codes, want_terms = TL.line_codes_plain(torch.from_numpy(d),
+                                                 torch.from_numpy(p), bits)
     assert torch.equal(codes, want_codes)
     assert torch.equal(terms.view(torch.int32), want_terms.view(torch.int32))
     assert line_codes.launches == launches       # no kernel on the CPU
 
 
 def _bad_inputs():
-    d = torch.zeros((8, 4, 16))
+    dot, xn, cn = TD.subpart_sqdist_terms(torch.zeros((8, 64)),
+                                          torch.zeros((16, 64)), 4)
     p = torch.zeros((4, 16, 16))
-    yield "meta device", d.to("meta"), p.to("meta"), 16
-    yield "distances on meta", d.to("meta"), p, 16
-    yield "non-contiguous", d.transpose(1, 2).contiguous().transpose(1, 2), \
-        p, 16
-    yield "float64", d.double(), p.double(), 16
-    yield "int32", d.int(), p.int(), 16
-    yield "pair of another lp", d, torch.zeros((3, 16, 16)), 16
-    yield "pair of another c1", d, torch.zeros((4, 8, 8)), 16
-    yield "2-D", d[:, 0], p, 16
-    yield "lambda_bits 4", d, p, 4
-    yield "c1 257", torch.zeros((2, 1, 257)), torch.zeros((1, 257, 257)), 16
+    yield "meta device", dot.to("meta"), xn.to("meta"), cn.to("meta"), \
+        p.to("meta"), 16
+    yield "dot on meta", dot.to("meta"), xn, cn, p, 16
+    yield "xn on meta", dot, xn.to("meta"), cn, p, 16
+    yield "cn on meta", dot, xn, cn.to("meta"), p, 16
+    yield "non-contiguous pair", dot, xn, cn, \
+        p.transpose(1, 2).contiguous().transpose(1, 2), 16
+    yield "xn non-contiguous", dot, xn.T.contiguous().T, cn, p, 16
+    yield "float64", dot.double(), xn.double(), cn.double(), p.double(), 16
+    yield "int32", dot.int(), xn.int(), cn.int(), p.int(), 16
+    yield "xn float64", dot, xn.double(), cn, p, 16
+    yield "cn int32", dot, xn, cn.int(), p, 16
+    yield "pair of another lp", dot, xn, cn, torch.zeros((3, 16, 16)), 16
+    yield "pair of another c1", dot, xn, cn, torch.zeros((4, 8, 8)), 16
+    yield "dot of another c1", dot[:, :, :8], xn, cn, p, 16
+    yield "xn of another lp", dot, xn[:, :3], cn, p, 16
+    yield "xn of another n", dot, xn[:7], cn, p, 16
+    yield "cn transposed", dot, xn, cn.T.contiguous(), p, 16
+    yield "cn of another c1", dot, xn, cn[:8], p, 16
+    yield "2-D", dot[:, 0], xn, cn, p, 16
+    yield "lambda_bits 4", dot, xn, cn, p, 4
+    yield "c1 257", torch.zeros((2, 1, 257)), torch.zeros((2, 1)), \
+        torch.zeros((257, 1)), torch.zeros((1, 257, 257)), 16
 
 
 @pytest.mark.parametrize("case", list(_bad_inputs()), ids=lambda c: c[0])
 def test_wrapper_refuses(case):
-    _, d, p, bits = case
+    _, dot, xn, cn, p, bits = case
     with pytest.raises(ValueError):
-        line_codes(d, p, bits)
+        line_codes(dot, xn, cn, p, bits)
 
 
 def test_wrapper_takes_no_rows():
     codes, terms = line_codes(torch.zeros((0, 32, 16)),
+                              torch.zeros((0, 32)), torch.zeros((16, 32)),
                               torch.zeros((32, 16, 16)))
     assert codes.shape == terms.shape == (0, 32)
 
 
 def test_encode_reaches_the_kernel_wrapper(monkeypatch, clustered_data):
-    """encode_line_codes, and so every build, calls
-    ops.cuda.linecodes.line_codes once a chunk, with contiguous tables."""
+    """encode_line_codes, and so every build, calls ops.cuda.linecodes.
+    line_codes once a chunk, with the line GEMM's output as it lies (each
+    (row, part)'s c1 values contiguous)."""
     db_vecs, _ = clustered_data
     cfg = T.PQTConfig(dim=32, p=4, c1=4, c2=4, line_parts=8,
                       hash_size=1 << 10, k1_build=4, k1_query=4,
@@ -320,16 +361,17 @@ def test_encode_reaches_the_kernel_wrapper(monkeypatch, clustered_data):
                             device="cpu")
     calls = []
 
-    def spy(part_dists, pair_dists, lambda_bits=16):
-        calls.append((tuple(part_dists.shape), part_dists.is_contiguous(),
-                      lambda_bits))
-        return TL.line_codes_plain(part_dists, pair_dists, lambda_bits)
+    def spy(dot, xn, cn, pair_dists, lambda_bits=16):
+        calls.append((tuple(dot.shape), dot.stride(), lambda_bits))
+        return TL.line_codes_from_terms_plain(dot, xn, cn, pair_dists,
+                                              lambda_bits)
 
     monkeypatch.setattr(LC, "line_codes", spy)
     got = T.build_database(cfg, tree, db_vecs[:600], encode_chunk=256,
                            device="cpu")
-    assert calls == [((256, 8, 4), True, 8), ((256, 8, 4), True, 8),
-                     ((88, 8, 4), True, 8)]
+    assert calls == [((256, 8, 4), (4, 256 * 4, 1), 8),
+                     ((256, 8, 4), (4, 256 * 4, 1), 8),
+                     ((88, 8, 4), (4, 88 * 4, 1), 8)]
     assert torch.equal(got.payload, want.payload)
     calls.clear()
     TDB.encode_line_codes(cfg, tree, torch.from_numpy(db_vecs[:10]))
@@ -350,10 +392,12 @@ def test_kernel_is_built_and_counted():
 
 
 def test_encode_line_codes_matches_jax():
-    """The slice as a whole: the port's encode_line_codes (line tables,
-    kernel L's plain version, the sum) against the JAX package's jitted
-    encode_line_codes, on one tree at SIFT1B's widths (dim 128, p 4, c1
-    16, lp 32) and the compact payload's 8-bit lambda."""
+    """The slice as a whole, and the one place the build's route is held
+    against the JAX package: the port's encode_line_codes (the line GEMM's
+    output and the norms, then kernel L's plain version -- the tables'
+    epilogue and the pair walk -- and the sum) against the JAX package's
+    jitted encode_line_codes, on one tree at SIFT1B's widths (dim 128, p 4,
+    c1 16, lp 32) and the compact payload's 8-bit lambda."""
     from pqt_tpu.config import SIFT1B_CONFIG
     rng = np.random.default_rng(7)
     cfg = SIFT1B_CONFIG
@@ -370,3 +414,152 @@ def test_encode_line_codes_matches_jax():
     _assert_matches_jax(ld.numpy(), ttree.pair_dists.numpy(), (codes, t3),
                         (np.asarray(jcodes).astype(np.int64),
                          np.asarray(jt3)))
+
+
+# ---------------------------------------------------------------------------
+# real terms: the line GEMM's output and the norms, the tables' epilogue in
+# the kernel
+# ---------------------------------------------------------------------------
+
+def _make_term_cases():
+    """{name: (x (n, dim), centroids (c1, dim), lp)} float32 at the presets'
+    widths (c1 16): rows about the line between two centroids, rows equal
+    to a centroid (float centroids, so some segment distances round below
+    0 and clamp), and rows holding inf and NaN."""
+    rng = np.random.default_rng(24)
+    cases = {}
+    for name, dim, lp in (("sift1m", 128, 16), ("sift1b", 128, 32),
+                          ("gist", 960, 32)):
+        cent = rng.uniform(0, 140, (16, dim)).astype(np.float32)
+        i, j = rng.integers(0, 16, 300), rng.integers(0, 16, 300)
+        t = rng.uniform(-0.2, 1.2, (300, 1))
+        x = np.clip(np.round((1 - t) * cent[i] + t * cent[j]
+                             + rng.normal(0, 8.0, (300, dim))), 0, 255)
+        x = x.astype(np.float32)
+        x[:40] = cent[rng.integers(0, 16, 40)]
+        x[40, 5] = np.inf
+        x[41, :] = np.inf
+        x[42, 3 * dim // lp] = np.nan
+        x[43, 7] = -np.inf
+        cases[name] = (x, cent, lp)
+    return cases
+
+
+TERM_CASES = _make_term_cases()
+
+
+def _terms(name):
+    x, cent, lp = TERM_CASES[name]
+    return TD.subpart_sqdist_terms(torch.from_numpy(x),
+                                   torch.from_numpy(cent), lp)
+
+
+def _pair(name):
+    _, cent, lp = TERM_CASES[name]
+    return TD.centroid_pair_sqdist(torch.from_numpy(cent), lp)
+
+
+def test_term_cases_reach_the_epilogue_edges():
+    """Each case has segment distances that clamp at 0, infinite ones and
+    NaN ones."""
+    for name in TERM_CASES:
+        dot, xn, cn = _terms(name)
+        with np.errstate(all="ignore"):
+            raw = (xn[:, :, None] + cn.T[None]) - 2.0 * dot
+        assert (raw < 0).any() and torch.isinf(raw).any()
+        assert torch.isnan(raw).any()
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("name", sorted(TERM_CASES))
+def test_wrapper_equals_plain_over_tables(name, bits):
+    """The wrapper, and its plain version, equal `line_codes_plain` over the
+    tables `subpart_sqdist_tables` makes, to the bit; the GEMM's output
+    comes out with each (row, part)'s c1 values contiguous, as the kernel
+    reads it."""
+    x, cent, lp = TERM_CASES[name]
+    dot, xn, cn = _terms(name)
+    assert dot.stride(2) == 1
+    p = _pair(name)
+    tables = TD.subpart_sqdist_tables(torch.from_numpy(x),
+                                      torch.from_numpy(cent), lp)
+    want = TL.line_codes_plain(tables, p, bits)
+    for got in (line_codes(dot, xn, cn, p, bits),
+                TL.line_codes_from_terms_plain(dot, xn, cn, p, bits)):
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+
+
+def _epilogue_model(dot, xn, cn):
+    """csrc/linecodes.cu line_dist on numpy float32: the add, the doubling
+    and the subtraction each rounded on its own, then the clamp at 0 with a
+    NaN kept."""
+    f32 = np.float32
+    with np.errstate(all="ignore"):
+        t = (xn[:, :, None] + cn.T[None, :, :]) - f32(2.0) * dot
+    return np.where(np.isnan(t), t, np.maximum(t, f32(0.0))).astype(f32)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("name", sorted(TERM_CASES))
+def test_kernel_model_with_epilogue_matches_plain(name, bits):
+    """The numpy model of the kernel on real terms (the epilogue, then the
+    walk of `_kernel_model`) equals the plain chain to the bit."""
+    dot, xn, cn = _terms(name)
+    p = _pair(name)
+    d = _epilogue_model(dot.numpy(), xn.numpy(), cn.numpy())
+    codes, terms = _kernel_model(d, p.numpy(), bits)
+    want_codes, want_terms = TL.line_codes_from_terms_plain(dot, xn, cn, p,
+                                                            bits)
+    np.testing.assert_array_equal(codes, want_codes.numpy())
+    np.testing.assert_array_equal(terms.view(np.int32),
+                                  want_terms.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("cfg_name", ["SIFT1M_CONFIG", "SIFT1B_CONFIG",
+                                      "GIST1M_CONFIG"])
+def test_encode_line_codes_equals_plain_over_line_tables(cfg_name):
+    """The build's encode_line_codes equals `line_codes_plain` over the
+    queries' `line_tables` of the same rows, its terms summed, to the bit,
+    at each preset's widths and lambda grid."""
+    cfg = getattr(T.config, cfg_name)
+    x, cent, _ = TERM_CASES["gist" if cfg.dim == 960 else "sift1b"]
+    rng = np.random.default_rng(5)
+    cb1 = cent.reshape(16, cfg.p, cfg.vl).transpose(1, 0, 2).copy()
+    cb2 = (cb1[:, :, None, :] + rng.normal(
+        0, 5, (cfg.p, cfg.c1, cfg.c2, cfg.vl))).astype(np.float32)
+    tree = T.PQTree.from_numpy(cfg, cb1, cb2, device="cpu")
+    xt = torch.from_numpy(x)
+    codes, t3 = TDB.encode_line_codes(cfg, tree, xt)
+    want, terms = TL.line_codes_plain(line_tables(cfg, tree, xt),
+                                      tree.pair_dists,
+                                      cfg.effective_lambda_bits)
+    assert torch.equal(codes, want)
+    assert torch.equal(t3.view(torch.int32),
+                       torch.sum(terms, dim=-1).view(torch.int32))
+
+
+def test_query_line_tables_unchanged():
+    """The queries' line tables (models/tree.py line_tables, through
+    subpart_sqdist_tables) are the chain they were before the split, to
+    the bit and with the same strides: the einsum, kernel D's norms, the
+    centroid norms, then clamp_min(xn + cn - 2 dot, 0)."""
+    cfg = T.config.SIFT1M_CONFIG
+    x, cent, lp = TERM_CASES["sift1m"]
+    rng = np.random.default_rng(6)
+    cb1 = cent.reshape(16, cfg.p, cfg.vl).transpose(1, 0, 2).copy()
+    cb2 = (cb1[:, :, None, :] + rng.normal(
+        0, 5, (cfg.p, cfg.c1, cfg.c2, cfg.vl))).astype(np.float32)
+    tree = T.PQTree.from_numpy(cfg, cb1, cb2, device="cpu")
+    q = torch.from_numpy(x)
+    got = line_tables(cfg, tree, q)
+    xp = q.reshape(q.shape[0], lp, -1)
+    cp = tree.centroids_full.reshape(16, lp, -1)
+    dot = torch.einsum("nlv,clv->nlc", xp, cp)
+    xn = primitives.segmented_reduce(q, lp, square=True)
+    cn = torch.sum(cp * cp, dim=-1)
+    want = torch.clamp_min(xn[:, :, None] + cn.T[None, :, :] - 2.0 * dot,
+                           0.0)
+    assert got.stride() == want.stride()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

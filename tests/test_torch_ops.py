@@ -97,8 +97,11 @@ def test_triangle_geometry():
 
 @pytest.mark.parametrize("lambda_bits", [8, 16])
 def test_build_line_codes(lambda_bits):
-    """Packed codes equal except where the best line is a near-tie (the two
-    frameworks round the residuals differently); t3 within 1e-4 relative."""
+    """The port's chain from the rows (the line tables' terms, then kernel
+    L's plain version and the sum) against the JAX package's from its line
+    tables: packed codes equal except where the best line is a near-tie
+    (the two frameworks round the tables and the residuals differently); t3
+    within 1e-4 relative."""
     rng = np.random.default_rng(lambda_bits)
     centroids = rng.uniform(0, 140, (16, 128)).astype(np.float32)
     x = rng.uniform(0, 140, (2000, 128)).astype(np.float32)
@@ -106,7 +109,8 @@ def test_build_line_codes(lambda_bits):
     pd_j = JD.subpart_sqdist_tables(jnp.asarray(x), jnp.asarray(centroids), 16)
     want_codes, want_t3 = JL.build_line_codes(pd_j, pair_j, lambda_bits)
     got_codes, got_t3 = TL.build_line_codes(
-        _t(np.asarray(pd_j)), _t(np.asarray(pair_j)), lambda_bits)
+        *TD.subpart_sqdist_terms(_t(x), _t(centroids), 16),
+        _t(np.asarray(pair_j)), lambda_bits)
     want_codes = np.asarray(want_codes).astype(np.int64)
     same = got_codes.numpy() == want_codes
     assert same.mean() >= 0.999, same.mean()
