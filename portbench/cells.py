@@ -15,12 +15,21 @@ shapes its window uses, so nothing is captured inside the window.  After
 the window the device's peak memory is read, the port's state is freed,
 and the plain reference (reference.py) works out the tree, the database
 and the answers again and judges the port's.
+
+A cell runs on as many cards as its `chips` says: set-up hands the entry
+`devices`, cards 0 to chips - 1, and keeps the inputs and the tree on the
+first (`device`).  The result's `device` says which cards the run used:
+`count` is the number of cards that hold allocations after the window,
+`memory_peak_bytes` the fullest card's peak, and with a trace `busy_s`
+the mean of those cards' busy seconds (the trace's `cards`, set here
+before the per-layer readers read it).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import os
 import time
 from types import SimpleNamespace
 
@@ -38,7 +47,25 @@ def _system():
 
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
+
+
+def run_devices(device, chips: int) -> list:
+    """The cards a cell of `chips` cards runs on: cuda:0 .. cuda:chips-1
+    (on the CPU, the CPU once a card, as a test's stand-in)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [dev] * chips
+
+
+def visible(devices) -> list:
+    """Every card torch sees, of the run's kind (on the CPU, the run's
+    own stand-ins)."""
+    if devices[0].type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return list(devices)
 
 
 def _graph_caches(P) -> list:
@@ -70,11 +97,33 @@ def settle() -> None:
     gc.freeze()
 
 
-def peak(device) -> int:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-        return int(torch.cuda.max_memory_allocated())
-    return 0
+def peak(devices) -> list:
+    """The peak allocated bytes of each card of `devices`, in order (0
+    off a card).  Pass `visible(s.devices)`, so that a card the run
+    should not have touched shows; reading a card's allocator makes no
+    context on it."""
+    return [int(torch.cuda.max_memory_allocated(d)) if d.type == "cuda"
+            else 0 for d in devices]
+
+
+def used_cards(devices, peaks: list) -> list:
+    """The indices of the cards that hold allocations (on the CPU, the
+    run's stand-ins' places)."""
+    if devices[0].type == "cuda":
+        return [i for i, p in enumerate(peaks) if p > 0]
+    return list(range(len(devices)))
+
+
+def device_info(devices, peaks: list) -> dict:
+    """The result's `device`: the number of cards used, the fullest
+    card's peak and every card's."""
+    cuda = devices[0].type == "cuda"
+    return {"platform": "gpu" if cuda else "cpu",
+            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+            "count": len(used_cards(devices, peaks)),
+            "memory_peak_bytes": max(peaks),
+            "memory_peak_bytes_by_card": {str(i): p
+                                          for i, p in enumerate(peaks)}}
 
 
 class Setup(SimpleNamespace):
@@ -87,6 +136,8 @@ def prepare(bench, cell: str, seed: int, device="cuda") -> Setup:
     entry = bench.cell(cell)
     config = bench.config(entry["config"])
     traffic = bench.traffic(entry["traffic"])
+    devices = run_devices(device, entry["chips"])
+    device = devices[0]
     t = time.perf_counter()
     inputs = gen.make_inputs(config, traffic, seed, device)
     parts = {"inputs_s": time.perf_counter() - t}
@@ -99,7 +150,7 @@ def prepare(bench, cell: str, seed: int, device="cuda") -> Setup:
     return Setup(P=P, cell=cell, entry=entry, config=config,
                  traffic=traffic, limits=bench.limits(cell), inputs=inputs,
                  cfg=cfg, pqt=pqt, tree=tree, seed=seed, device=device,
-                 setup_parts=parts)
+                 devices=devices, setup_parts=parts)
 
 
 def take_tree(s: Setup):
@@ -193,12 +244,17 @@ def run(bench, cell: str, seed: int, seconds: float, traced: bool,
 
     The entry's `run(s, seconds, traced, t0)` returns a dict: `e2e` (the
     end-to-end metrics by name), `record` (what the per-layer readers
-    read: `kind`, `trace` and the entry's own fields), `checks`, `peak`,
-    `attempted`, `failed` and `info`."""
+    read: `kind`, `trace` and the entry's own fields), `checks`, `peak`
+    (`peak(visible(s.devices))`, read after the window), `attempted`,
+    `failed` and `info`."""
     t0 = time.perf_counter() if t0 is None else t0
     s = prepare(bench, cell, seed, device)
     out = bench.entry(s.traffic["entry"]).run(s, seconds, traced, t0)
     correct, checks, unjudged = verdict(out["checks"], s.limits)
+    trace = out["record"].trace
+    if trace is not None:     # busy time over the cards the run used
+        trace = out["record"].trace = trace._replace(
+            cards=tuple(used_cards(s.devices, out["peak"])))
     metrics = {}
     for m in bench.metrics(cell, traced):
         if traced:
@@ -208,21 +264,19 @@ def run(bench, cell: str, seed: int, seconds: float, traced: bool,
         else:
             value = out["e2e"][m["name"]]
         metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    dev = torch.device(device)
-    device_info = ({"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                    "count": 1} if dev.type == "cuda" else
-                   {"platform": "cpu", "kind": "cpu", "count": 1})
-    device_info["memory_peak_bytes"] = out["peak"]
+    info = device_info(s.devices, out["peak"])
     result = {"correct": correct, "attempted": out["attempted"],
-              "failed": out["failed"], "metrics": metrics,
-              "device": device_info}
-    trace = out["record"].trace
+              "failed": out["failed"], "metrics": metrics, "device": info}
     if trace is not None:
-        device_info["busy_s"] = trace.busy_s()
-        device_info["window_s"] = trace.window_s
+        info["busy_s"] = trace.busy_s()
+        info["busy_s_by_card"] = {str(c): v for c, v in
+                                  trace.busy_s_by_card().items()}
+        info["window_s"] = trace.window_s
         out["info"]["trace_sessions"] = trace.attempts
         result["breakdown"] = {"device_ops": trace.device_top(),
                                "idle_gaps": trace.idle_gaps()}
-    result["info"] = dict(out["info"], unjudged=unjudged)
+    result["info"] = dict(out["info"], unjudged=unjudged,
+                          torch_threads=torch.get_num_threads(),
+                          cpus=len(os.sched_getaffinity(0)))
     result["checks"] = checks
     return result

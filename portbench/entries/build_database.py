@@ -152,7 +152,7 @@ def run(s, seconds: float, traced: bool, t0: float) -> dict:
         with _marked_assembly(s.P, s.device):
             w, trace = tr.traced(lambda: build_window(
                 s, rotations, warm, min(seconds, s.traffic["trace_seconds"]),
-                True))
+                True), s.devices)
         if len(trace.marks()) != 2 * w.builds:
             raise RuntimeError(
                 f"the traced builds left {len(trace.marks())} marks, not "
@@ -161,7 +161,7 @@ def run(s, seconds: float, traced: bool, t0: float) -> dict:
     else:
         w, trace = build_window(s, rotations, warm, seconds), None
     in_window = cells.captures(s.P) - held
-    peak = cells.peak(s.device)
+    peak = cells.peak(cells.visible(s.devices))
     kept = _kept(s, w.db)
     w.db = None
     cb1, cb2 = cells.take_tree(s)

@@ -239,11 +239,11 @@ def run(s, seconds: float, traced: bool, t0: float) -> dict:
     if traced:
         w, trace = tr.traced(lambda: serve_window(
             s, db, stage, batches, min(seconds, s.traffic["trace_seconds"]),
-            traced=True))
+            traced=True), s.devices)
     else:
         w, trace = serve_window(s, db, stage, batches, seconds), None
     in_window = cells.captures(s.P) - held
-    peak = cells.peak(s.device)
+    peak = cells.peak(cells.visible(s.devices))
     parts = cells.db_parts(db)
     sample = sample_answers(s, w.last, batch, s.traffic["check_queries"])
     pool = s.inputs.queries.shape[0]

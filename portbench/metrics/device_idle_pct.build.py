@@ -1,6 +1,7 @@
 """The share of the traced build window in which no operation ran on the
-device: 1 - (union of the device events' intervals) / window, in percent.
-Layer: the device."""
+device: 1 - busy_s / window, in percent, busy_s being the mean over the
+cards the run used of each card's union of device events (on one card,
+the union's seconds).  Layer: the device."""
 
 
 def read(rec):

@@ -8,6 +8,13 @@ first few kernels, so each traced window starts with PAD float64 fills,
 which nothing reads.  Nothing here falls back to CUDA events: a window
 whose sessions all came back empty has no device records, and the
 per-layer metrics that need them are left out.
+
+A run on several cards traces them all: every device event keeps the card
+it ran on (`op_cards`), so the busy time is taken card by card over the
+cards the run used (`cards`, which `cells.run` sets from the cards'
+peaks).  The pads and the throwaway session run only on the cards whose
+allocator already holds bytes (`held`), so that they never make a card
+the run left alone read as used.
 """
 
 from __future__ import annotations
@@ -39,6 +46,11 @@ class Trace(NamedTuple):
     host_ops: list      # (name, start_us, end_us) of every host event
     window: tuple       # (start_us, end_us) of the traced window
     attempts: int
+    # the card of each device event, item by item of device_ops (empty:
+    # every event on card 0)
+    op_cards: tuple = ()
+    # the cards the run used (cells.used_cards), over which busy_s is taken
+    cards: tuple = (0,)
 
     @property
     def window_s(self) -> float:
@@ -54,14 +66,19 @@ class Trace(NamedTuple):
     def marks(self) -> list:
         return [e for e in self.device_ops if MARK_KERNEL in e[0]]
 
-    def busy(self) -> list:
-        """The union of device events inside the window: merged
-        (start_us, end_us) intervals."""
+    def card_of(self, i: int) -> int:
+        """The card device event i ran on."""
+        return self.op_cards[i] if self.op_cards else 0
+
+    def busy(self, card: int | None = None) -> list:
+        """The union of device events inside the window, on `card` (None:
+        on every card at once): merged (start_us, end_us) intervals."""
         lo, hi = self.window
+        ops = (x for i, x in enumerate(self.device_ops)
+               if PAD_KERNEL not in x[0]
+               and (card is None or self.card_of(i) == card))
         out = []
-        for _, s, e in sorted((x for x in self.device_ops
-                               if PAD_KERNEL not in x[0]),
-                              key=lambda x: x[1]):
+        for _, s, e in sorted(ops, key=lambda x: x[1]):
             s, e = max(s, lo), min(e, hi)
             if e <= s:
                 continue
@@ -71,8 +88,17 @@ class Trace(NamedTuple):
                 out.append([s, e])
         return out
 
+    def busy_s_by_card(self) -> dict:
+        """{card: seconds in which an operation ran on it} over the
+        cards the run used."""
+        return {c: sum(e - s for s, e in self.busy(c)) / 1e6
+                for c in self.cards}
+
     def busy_s(self) -> float:
-        return sum(e - s for s, e in self.busy()) / 1e6
+        """The used cards' busy seconds, their mean; on one card its
+        union's seconds."""
+        by_card = self.busy_s_by_card()
+        return sum(by_card.values()) / len(by_card)
 
     def idle_gaps(self, top: int = 10) -> list:
         """Idle seconds of the device summed by what the host was doing at
@@ -111,19 +137,31 @@ class Trace(NamedTuple):
                       key=lambda kv: -kv[1])[:top]
 
 
-def _session(body):
+def _sync_all(devices) -> None:
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+def held(devices) -> list:
+    """The cards of `devices` whose allocator holds bytes: those the run
+    has put its state on."""
+    return [d for d in devices if torch.cuda.memory_allocated(d) > 0]
+
+
+def _session(body, devices, pads):
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    _sync_all(devices)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pad = torch.empty(1, dtype=torch.float64, device="cuda")
-        for _ in range(PAD):
-            pad.fill_(1.0)
-        torch.cuda.synchronize()
+        for d in pads:
+            pad = torch.empty(1, dtype=torch.float64, device=d)
+            for _ in range(PAD):
+                pad.fill_(1.0)
+        _sync_all(devices)
         with torch.profiler.record_function(WINDOW):
             out = body()
-            torch.cuda.synchronize()
-    dev, host, window = [], [], None
+            _sync_all(devices)
+    dev, op_cards, host, window = [], [], [], None
     for e in prof.events():
         item = (e.name, float(e.time_range.start), float(e.time_range.end))
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -131,24 +169,34 @@ def _session(body):
             # timeline; they are no device work
             if not e.name.startswith("portbench."):
                 dev.append(item)
+                op_cards.append(int(e.device_index))
         else:
             host.append(item)
             if e.name == WINDOW:
                 window = item[1:]
-    return out, dev, host, window
+    return out, dev, tuple(op_cards), host, window
 
 
-def traced(body):
-    """(body's result, Trace) of body() run under the profiler, repeated
-    when a session records no device events."""
+def _throwaway(pads):
+    for d in pads:
+        torch.ones(8, device=d) + 1
+
+
+def traced(body, devices):
+    """(body's result, Trace) of body() run under the profiler on the
+    run's cards `devices`, repeated when a session records no device
+    events.  The pads and the throwaway session go to the cards that
+    hold bytes as the window starts (`held`)."""
+    devices = [torch.device(d) for d in devices]
+    pads = held(devices)
     for attempt in range(1, ATTEMPTS + 1):
-        _session(lambda: torch.ones(8, device="cuda") + 1)   # throwaway
+        _session(lambda: _throwaway(pads), devices, pads)
         t0 = time.perf_counter()
-        out, dev, host, window = _session(body)
+        out, dev, op_cards, host, window = _session(body, devices, pads)
         if window is None:      # the window's own span was not recorded
             wall = (time.perf_counter() - t0) * 1e6
             real = [d for d in dev if PAD_KERNEL not in d[0]]
             window = ((min(d[1] for d in real), max(d[2] for d in real))
                       if real else (0.0, wall))
         if dev or attempt == ATTEMPTS:
-            return out, Trace(dev, host, window, attempt)
+            return out, Trace(dev, host, window, attempt, op_cards)
